@@ -1,0 +1,260 @@
+"""SDF volume feature renderer (inference), port of
+``sdface_gan_tpu/models/renderer.py``.
+
+camera rays -> depth samples -> FiLM-SIREN field -> SDF-to-density ->
+alpha compositing -> 64x64 thumb RGB and feature map.  Layout is
+channel-last ([B, H, W, C] and [B, H, W, S, C]) as in the JAX package.
+Compositing runs in f32 whatever the field's dtype.
+
+Not ported yet: the eikonal branches of ``render``, ``mlp_init_pass`` and
+the NGP / FC fields (training and later slices).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..geometry.rays import base_t_vals, get_rays
+from ..ops.siren_kernel import (
+    SirenFieldPack,
+    film_coeffs,
+    pack_siren_field,
+    siren_field_fused_parts,
+)
+from .siren import SirenConfig, SirenGenerator
+
+_BG_LEVEL = {"white": 1.0, "gray": 0.5, "black": 0.0}
+
+
+@dataclass(frozen=True)
+class RendererConfig:
+    """Static renderer options (the inference subset of the JAX config)."""
+
+    type: str = "sdf"  # only the SIREN field is ported
+    out_im_res: int = 64
+    n_samples: int = 24
+    style_dim: int = 256
+    width: int = 256
+    depth: int = 8
+    offset_sampling: bool = True
+    static_viewdirs: bool = False
+    z_normalize: bool = True
+    with_sdf: bool = True
+    force_background: bool = True
+    output_features: bool = True
+    return_xyz: bool = False
+    return_sdf: bool = False
+    return_weights: bool = False
+    view_independent: bool = False
+    perturb: float = 1.0
+    raw_noise_std: float = 0.0
+    # Evaluate the field through the fused CUDA kernel (ops/siren_kernel.py).
+    use_fused_kernel: bool = False
+    # 'lastsample': the final sample gets an infinite bin (reference
+    # semantics); 'white' / 'gray' / 'black' composite leftover visibility
+    # onto a fixed color.
+    bg_mode: str = "lastsample"
+
+    def network_config(self) -> SirenConfig:
+        if self.type != "sdf":
+            raise NotImplementedError(
+                f"renderer type {self.type!r} is not ported; only 'sdf' is")
+        return SirenConfig(depth=self.depth, width=self.width,
+                           style_dim=self.style_dim,
+                           output_features=self.output_features)
+
+
+class RenderOutput(NamedTuple):
+    rgb: torch.Tensor  # [B, H, W, 3] in [-1, 1]
+    features: Optional[torch.Tensor]  # [B, H, W, F]
+    sdf: Optional[torch.Tensor]  # [B, H, W, S, 1]
+    mask: Optional[torch.Tensor]  # [B, H, W, 1]
+    xyz: Optional[torch.Tensor]  # [B, H, W, 3]
+    weights: Optional[torch.Tensor] = None  # [B, H, W, S]
+    s_vals: Optional[torch.Tensor] = None  # [B, H, W, S]
+
+
+class VolumeFeatureRenderer(nn.Module):
+    """Holds the field network and the learnable SDF-to-density beta."""
+
+    def __init__(self, cfg: RendererConfig, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.network = SirenGenerator(cfg.network_config(), generator=generator)
+        if cfg.with_sdf:
+            self.sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
+
+
+def _apply_network(
+    renderer: VolumeFeatureRenderer,
+    cfg: RendererConfig,
+    pts: torch.Tensor,
+    views: torch.Tensor,
+    style: torch.Tensor,
+    field_pack: Optional[SirenFieldPack] = None,
+):
+    """Evaluate the field on [B, H, W, S, 3] inputs over one flat point axis.
+
+    Returns ``(rgb, sdf, features | None)`` as separate [B, H, W, S, C]
+    tensors.  With ``use_fused_kernel`` the fused field runs (the kernel on
+    a CUDA tensor, its plain version on a CPU one), from ``field_pack`` or
+    from weights packed for this call.
+    """
+    b, h, w, s, _ = pts.shape
+    flat_pts = pts.reshape(b, h * w * s, 3).float().contiguous()
+    flat_views = views.reshape(b, h * w * s, 3).float().contiguous()
+    net = renderer.network
+    if cfg.use_fused_kernel and cfg.type == "sdf" and cfg.output_features:
+        pack = field_pack if field_pack is not None else pack_siren_field(net)
+        gamma, beta = film_coeffs(net, style)
+        rgb, sdf, feat = siren_field_fused_parts(pack, flat_pts, flat_views, gamma, beta)
+    else:
+        rgb, sdf, feat = net.forward_parts(flat_pts, flat_views, style)
+    return (
+        rgb.reshape(b, h, w, s, -1),
+        sdf.reshape(b, h, w, s, 1),
+        feat.reshape(b, h, w, s, -1) if feat is not None else None,
+    )
+
+
+def _sample_z_vals(
+    cfg: RendererConfig,
+    near: torch.Tensor,
+    far: torch.Tensor,
+    batch: int,
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """Depth samples [B, H, W, S]; near/far are [B, 1, 1, 1].  Without a
+    generator (or with ``perturb <= 0``) the samples are deterministic."""
+    res, s = cfg.out_im_res, cfg.n_samples
+    t_vals = base_t_vals(s, cfg.offset_sampling, device=near.device).reshape(1, 1, 1, s)
+    z_vals = near * (1.0 - t_vals) + far * t_vals
+    z_vals = z_vals.expand(batch, res, res, s)
+    if cfg.perturb <= 0.0 or generator is None:
+        return z_vals
+    if cfg.offset_sampling:
+        upper = torch.cat([z_vals[..., 1:], far.expand(z_vals[..., :1].shape)], -1)
+        lower = z_vals
+        t_rand = torch.rand((batch, res, res), generator=generator,
+                            device=near.device)[..., None]
+    else:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], -1)
+        lower = torch.cat([z_vals[..., :1], mids], -1)
+        t_rand = torch.rand(z_vals.shape, generator=generator, device=near.device)
+    return lower + (upper - lower) * t_rand
+
+
+def _composite_features(weights: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
+    """sum_s weights[..., s] * features[..., s, :] in f32, as a batched
+    matmul over the sample axis.  The features keep their dtype and are
+    widened (exactly) one batch element at a time, so a bf16 field never
+    materializes an f32 copy of the whole [B, H, W, S, F] tensor."""
+    b, h, w, s = weights.shape
+    out = torch.empty(b, h, w, features.shape[-1], dtype=torch.float32,
+                      device=weights.device)
+    for i in range(b):
+        wi = weights[i].reshape(h * w, 1, s)
+        fi = features[i].reshape(h * w, s, -1).float()
+        out[i] = torch.bmm(wi, fi).reshape(h, w, -1)
+    return out
+
+
+def _integrate(
+    renderer: VolumeFeatureRenderer,
+    cfg: RendererConfig,
+    parts: Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]],
+    z_vals: torch.Tensor,
+    rays_d: torch.Tensor,
+    pts: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+):
+    """Alpha compositing in f32.  Returns (rgb, features, sdf, mask, xyz,
+    weights); the optional ones are None unless the config asks for them."""
+    rgb, sdf, features = parts
+    z_vals = z_vals.float()
+    dists = z_vals[..., 1:] - z_vals[..., :-1]  # [B,H,W,S-1]
+    rays_d_norm = torch.linalg.norm(rays_d.float(), dim=-1)  # [B,H,W]
+    if cfg.bg_mode == "lastsample":
+        last = torch.full_like(rays_d_norm, 1e10)[..., None]
+    else:
+        last = dists[..., -1:]
+    dists = torch.cat([dists, last], -1) * rays_d_norm[..., None]  # [B,H,W,S]
+
+    rgb = rgb.float()
+    sdf = sdf.float()
+    sdf_s = sdf[..., 0]
+    if cfg.with_sdf:
+        beta = renderer.sigmoid_beta.float()
+        sigma = torch.sigmoid(-sdf_s / beta) / beta
+        alpha = 1.0 - torch.exp(-sigma * dists)
+    else:
+        noise = 0.0
+        if cfg.raw_noise_std > 0.0 and generator is not None:
+            noise = cfg.raw_noise_std * torch.randn(
+                sdf_s.shape, generator=generator, device=sdf_s.device)
+        alpha = 1.0 - torch.exp(-F.softplus(sdf_s + noise) * dists)
+
+    trans = torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1)
+    visibility = torch.cumprod(trans, -1)[..., :-1]
+    weights = alpha * visibility  # [B,H,W,S]
+    if cfg.force_background and cfg.bg_mode == "lastsample":
+        last = 1.0 - torch.sum(weights[..., :-1], -1, keepdim=True)
+        weights = torch.cat([weights[..., :-1], last], -1)
+
+    w_exp = weights[..., None]
+    rgb_map = -1.0 + 2.0 * torch.sum(w_exp * torch.sigmoid(rgb), -2)
+    leftover = None
+    if cfg.bg_mode != "lastsample":
+        leftover = 1.0 - torch.sum(weights, -1, keepdim=True)  # [B,H,W,1]
+        rgb_map = rgb_map + 2.0 * _BG_LEVEL[cfg.bg_mode] * leftover
+    feature_map = (_composite_features(weights, features)
+                   if cfg.output_features else None)
+    xyz = mask = None
+    if cfg.return_xyz:
+        xyz = torch.sum(w_exp * pts, -2)
+        mask = leftover if leftover is not None else weights[..., -1:]
+    sdf_out = sdf if cfg.return_sdf else None
+    weights_out = weights if cfg.return_weights else None
+    return rgb_map, feature_map, sdf_out, mask, xyz, weights_out
+
+
+def render(
+    renderer: VolumeFeatureRenderer,
+    cfg: RendererConfig,
+    focal: torch.Tensor,
+    c2w: torch.Tensor,
+    near: torch.Tensor,
+    far: torch.Tensor,
+    style: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    field_pack: Optional[SirenFieldPack] = None,
+) -> RenderOutput:
+    """Full render pass.
+
+    focal/near/far [B, 1, 1]; c2w [B, 3, 4]; style [B, style_dim].
+    ``generator`` draws the depth jitter (None: deterministic test mode).
+    """
+    batch = c2w.shape[0]
+    rays = get_rays(focal, c2w, cfg.out_im_res, static_viewdirs=cfg.static_viewdirs)
+    viewdirs = rays.viewdirs
+    near_b = near.reshape(batch, 1, 1, 1)
+    far_b = far.reshape(batch, 1, 1, 1)
+    z_vals = _sample_z_vals(cfg, near_b, far_b, batch, generator)
+    pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., None]
+    if cfg.view_independent:
+        viewdirs = torch.zeros_like(viewdirs)
+    views = viewdirs[..., None, :].expand(pts.shape)
+    normalized = pts * 2.0 / (far_b - near_b)[..., None] if cfg.z_normalize else pts
+    parts = _apply_network(renderer, cfg, normalized, views, style, field_pack)
+    rgb_map, feature_map, sdf_out, mask, xyz, weights = _integrate(
+        renderer, cfg, parts, z_vals, rays.directions, pts, generator
+    )
+    s_vals = None
+    if cfg.return_weights:
+        s_vals = ((z_vals - near_b) / (far_b - near_b)).float()
+    return RenderOutput(rgb_map, feature_map, sdf_out, mask, xyz, weights, s_vals)

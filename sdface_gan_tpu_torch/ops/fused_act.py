@@ -1,0 +1,27 @@
+"""Bias + leaky-ReLU, port of ``sdface_gan_tpu/ops/fused_act.py``.
+
+``out = scale * leaky_relu(x + bias)``.  The port keeps PyTorch's
+channel-first layout, so the bias broadcasts on axis 1 ([B, C] or
+[B, C, H, W]); the JAX op broadcasts on the last axis.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+SQRT2 = math.sqrt(2.0)
+
+
+def fused_leaky_relu(
+    x: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    negative_slope: float = 0.2,
+    scale: float = SQRT2,
+) -> torch.Tensor:
+    """``scale * leaky_relu(x + bias)`` with bias broadcast on axis 1."""
+    if bias is not None:
+        x = x + bias.reshape((1, -1) + (1,) * (x.ndim - 2))
+    return scale * torch.where(x >= 0, x, negative_slope * x)

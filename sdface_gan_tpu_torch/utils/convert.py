@@ -1,0 +1,78 @@
+"""JAX parameter tree -> the port's ``state_dict``.
+
+The inverse of ``sdface_gan_tpu/utils/torch_import.py``: takes the nested
+dict that ``init_generator`` or ``import_generator_state`` returns (leaves
+as numpy arrays or anything ``np.asarray`` takes) and gives tensors under
+the reference ``g_ema`` names, which the port's ``Generator`` uses.
+
+* linear ``{"w": [in, out], "b"}`` -> ``weight`` [out, in], ``bias``
+* modconv HWIO [k, k, I, O] -> ``weight`` [1, O, I, k, k]
+* noise [1, r, r, 1] -> [1, 1, r, r]
+* ToRGB bias [1, 1, 1, 3] -> [1, 3, 1, 1]
+
+Values are copied bit for bit.  Only the SIREN ('sdf') field is ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def jax_params_to_state_dict(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """Convert a JAX generator parameter tree for ``cfg`` (a
+    ``GeneratorConfig``) into the port's state dict."""
+    if cfg.renderer.type != "sdf":
+        raise NotImplementedError(f"renderer type {cfg.renderer.type!r} is not ported")
+    sd: Dict[str, np.ndarray] = {}
+
+    def lin(prefix, p):
+        sd[f"{prefix}.weight"] = np.asarray(p["w"]).T
+        if "b" in p:
+            sd[f"{prefix}.bias"] = np.asarray(p["b"])
+
+    def film(prefix, p):
+        lin(prefix, p)
+        lin(f"{prefix}.gamma", p["gamma"])
+        lin(f"{prefix}.beta", p["beta"])
+
+    def modconv(prefix, p):
+        sd[f"{prefix}.weight"] = np.transpose(np.asarray(p["w"]), (3, 2, 0, 1))[None]
+        lin(f"{prefix}.modulation", p["modulation"])
+
+    def styled(prefix, p):
+        modconv(f"{prefix}.conv", p["conv"])
+        sd[f"{prefix}.noise.weight"] = np.asarray(p["noise_weight"])
+        sd[f"{prefix}.activate.bias"] = np.asarray(p["act_bias"])
+
+    def to_rgb(prefix, p):
+        modconv(f"{prefix}.conv", p["conv"])
+        sd[f"{prefix}.bias"] = np.transpose(np.asarray(p["bias"]), (0, 3, 1, 2))
+
+    for i, p in enumerate(params["mapping"]):
+        lin(f"style.{i}", p)
+    renderer = params["renderer"]
+    if "sigmoid_beta" in renderer:
+        sd["renderer.sigmoid_beta"] = np.asarray(renderer["sigmoid_beta"])
+    net = renderer["network"]
+    for i, p in enumerate(net["pts_linears"]):
+        film(f"renderer.network.pts_linears.{i}", p)
+    film("renderer.network.views_linears", net["views_linear"])
+    lin("renderer.network.rgb_linear", net["rgb_linear"])
+    lin("renderer.network.sigma_linear", net["sigma_linear"])
+
+    if cfg.full_pipeline:
+        dec = params["decoder"]
+        for i, p in enumerate(dec["mapping"]):
+            lin(f"decoder.style.{i + 1}", p)  # decoder.style.0 is PixelNorm
+        styled("decoder.conv1", dec["conv1"])
+        to_rgb("decoder.to_rgb1", dec["to_rgb1"])
+        for i, p in enumerate(dec["convs"]):
+            styled(f"decoder.convs.{i}", p)
+        for i, p in enumerate(dec["to_rgbs"]):
+            to_rgb(f"decoder.to_rgbs.{i}", p)
+        for i, n in enumerate(dec["noises"]):
+            sd[f"decoder.noises.noise_{i}"] = np.transpose(np.asarray(n), (0, 3, 1, 2))
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
