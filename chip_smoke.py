@@ -9,24 +9,47 @@ non-zero with no ``ok`` line:
 1. device  - nvidia-smi name and power limit, torch's device name and
              capability.  No CUDA: exit 2.  Run outside the repository
              (no ``sdface_gan_tpu_torch`` beside this file): exit 3.
-2. build   - compile the path's CUDA kernel (``csrc/siren_field.cu``) with
-             nvcc, unless its build for this source already exists.
-3. kernels - each kernel against its plain PyTorch version on the card:
-             the FiLM-SIREN field at full width (W=256, D=8, style 256,
-             B=2, P=64*64*24) and at depth 3, P=700 (a partial tile), in
-             f32 (max abs error <= 1e-3) and bf16 (mean error against f32
-             truth <= 1.2x the plain bf16 version's + 1e-4).
-4. serve   - the full-width 256^2 generator (random weights from a seed)
-             behind ``SDFaceSampler`` at batch 8 with bf16 weights: warm
-             up, zero the launch counts, answer two seed requests and one
-             azim/elev request, read the counts (every kernel must have
-             launched); a profiled request must show the kernel by name;
-             one request in f32 with the fused field against the same
-             request through the plain field.
-5. timing  - CUDA-event medians of each kernel and its plain version at
-             batch 8, and sampler images/s, beside the card's name and
-             power limit.
-6. the ``kernels`` line, then the nvidia-smi line, then the ``ok`` line.
+2. build   - compile every CUDA source of the served paths
+             (``csrc/siren_field.cu``, ``csrc/hash_grid.cu``) with one
+             nvcc process each, all started together, unless a build for
+             the source already exists; ptxas registers and spills.
+3. kernel_check - each kernel against its plain PyTorch version on the card:
+             * siren_field at full width (W=256, D=8, style 256, B=2,
+               P=64*64*24) and at depth 3, P=700 (a partial tile), in f32
+               (max abs error <= 1e-3) and bf16 (mean error against f32
+               truth <= 1.2x the plain bf16 version's + 1e-4);
+             * table_gather at the Pallas probe's shapes ([512, 128] f32,
+               [8, 128] int32, one column) and at the packed NGP encode's
+               (bf16, 64-wide rows, [2, 786432] indices): bit-equal;
+             * hash_encode on the tuned and the upstream grid, std-1 tables,
+               786,432 points with some outside the box and some on cell
+               faces: f32 max abs <= 1e-5, bf16 within one bf16 ulp
+               (|d| <= 8e-3 |ref| + 1e-6); the packed encode through both
+               kernels against the plain unpacked encode, f32, <= 1e-5.
+4. serve   - the SIREN 256^2 generator (random weights from a seed) behind
+             ``SDFaceSampler`` at batch 8, bf16 weights: warm up, zero the
+             launch counts, answer two seed requests and one azim/elev
+             request, read the counts (siren_field must have launched); a
+             profiled request must show the kernel by name; one f32 request
+             with the fused field against the same request through the plain
+             field (<= 2e-3).
+5. serve_ngp - the same for the NGP generator of
+             ``configs/256res/ffhq_256_sdf_ngp_tpu.yaml`` (tuned grid, tables
+             packed at 64 MB): hash_encode and table_gather must each launch
+             once per request and appear by name in the profile; then one
+             request through the upstream grid (``ffhq_256_sdf_ngp.yaml``),
+             which must launch hash_encode.  serve_ngp_compare: with the
+             hash table redrawn with std 1, an f32 request with the kernels
+             against the plain versions, and packed against unpacked
+             (<= 2e-3 each).
+6. timing  - at batch 8: each kernel's time (CUDA-event medians; for the
+             hash kernels, which are shorter than their wrappers' host work,
+             the profiler's device time per launch, with the event time of a
+             whole call beside it as ``call_ms``), its plain version's and,
+             for table_gather, one PyTorch call's computing the same function,
+             on the points of a real request; sampler images/s of both
+             generators; beside the card's name and power limit.
+7. the ``kernels`` line, then the nvidia-smi line, then the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32.
 """
 
@@ -50,6 +73,8 @@ PEAK_HBM_BYTES = 3.35e12
 BATCH = 8
 RES, SAMPLES, WIDTH, DEPTH, STYLE = 64, 24, 256, 8, 256
 POINTS = RES * RES * SAMPLES
+SOURCES = ("siren_field", "hash_grid")
+NGP_BOUND = 2.0  # NGPSirenConfig.bound
 
 
 def emit(**record) -> None:
@@ -71,6 +96,13 @@ def full_config():
     )
 
 
+def ngp_configs() -> dict:
+    """The repository's two NGP configurations, built by hand (no yaml here)."""
+    from sdface_gan_tpu_torch import configs
+
+    return {"tuned": configs.ffhq_256_sdf_ngp_tpu(), "upstream": configs.ffhq_256_sdf_ngp()}
+
+
 def field_flops(depth: int, width: int) -> int:
     """Multiply-adds x 2 per point: 3->W, (D-1) WxW, W->1, (W+3)->W, W->3."""
     return 2 * (3 * width + (depth - 1) * width * width + width
@@ -83,6 +115,12 @@ def field_bytes(pack, b: int, p: int) -> int:
     inputs = 2 * b * p * 3 * 4 + 2 * b * (pack.depth + 1) * pack.width * 4
     outputs = b * p * (3 + 1) * 4 + b * p * pack.width * pack.w_first.element_size()
     return weights + inputs + outputs
+
+
+def bound(flops: float, nbytes: float, peak_flops: float) -> dict:
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return dict(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -101,6 +139,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time of one launch of the kernel named ``kernel`` over
+    ``iters`` calls of ``fn``, from the profiler's trace.  For kernels far
+    shorter than their wrapper's host work, where events around a call
+    would time the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
+            us = getattr(ev, "device_time_total", None)
+            total_us += us if us is not None else ev.cuda_time_total
+            count += ev.count
+    check(count == iters, f"profiler saw {count} launches of {kernel}, expected {iters}")
+    return total_us / count / 1e3
 
 
 def field_inputs(net, b: int, p: int, seed: int):
@@ -154,20 +217,114 @@ def check_field(depth: int, p: int, seed: int) -> dict:
     return rec
 
 
-def serve(results: dict) -> None:
+def check_table_gather() -> list:
+    """Bit-equality with the plain version at the probe's and the packed
+    encode's shapes."""
     import torch
 
-    from sdface_gan_tpu_torch.models import Generator
+    from sdface_gan_tpu_torch.ops import hash_encoder as hg
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    probe = torch.arange(512 * 128, dtype=torch.float32, device="cuda").reshape(512, 128)
+    probe_idx = torch.randint(0, 512, (8, 128), generator=g, device="cuda", dtype=torch.int32)
+    probe_idx[0, 0], probe_idx[-1, -1] = 0, 511
+    rows = 73017  # the tuned grid's packed levels 0 and 1
+    packed = torch.randn((rows, 64), generator=g, device="cuda").to(torch.bfloat16)
+    packed_idx = torch.randint(0, rows, (2, BATCH * POINTS), generator=g, device="cuda",
+                               dtype=torch.int32)
+    recs = []
+    for case, table, idx, ncols in (("probe", probe, probe_idx, 1),
+                                    ("packed", packed, packed_idx, None)):
+        got = hg.table_gather(table, idx, 0, ncols)
+        want = hg.table_gather_reference(table, idx, 0, ncols)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        recs.append(dict(kernel="table_gather", case=case, table=list(table.shape),
+                         dtype=str(table.dtype).split(".")[-1], idx=list(idx.shape),
+                         out=list(got.shape), bit_equal=equal,
+                         max_abs_err=(got.float() - want.float()).abs().max().item()))
+        check(equal, f"table_gather {case}: bit-equal to the plain version")
+    return recs
+
+
+def grid_points(spec, n: int, seed: int):
+    """n points: uniform a little beyond [-bound, bound] (some outside the
+    box) and 64 per level on cell faces (x01 * scale + 0.5 integral)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    faces = []
+    for lvl in range(spec.num_levels):
+        scale = spec.level_scale(lvl)
+        m = torch.randint(1, int(scale) + 1, (64, 3), generator=g, device="cuda").double()
+        faces.append(((m - 0.5) / scale * 2.0 * NGP_BOUND - NGP_BOUND).float())
+    k = n - 64 * spec.num_levels
+    uniform = (torch.rand((k, 3), generator=g, device="cuda") * 2.0 - 1.0) * 1.1 * NGP_BOUND
+    return torch.cat([uniform] + faces).contiguous()
+
+
+def check_hash_encode() -> list:
+    """Both grids, f32 and bf16 tables; the main path's level subset; the
+    packed encode through both kernels."""
+    import torch
+
+    from sdface_gan_tpu_torch.ops import hash_encoder as hg
+
+    recs = []
+    for name, cfg in ngp_configs().items():
+        net = cfg.renderer.network_config()
+        spec = net.grid
+        g = torch.Generator(device="cuda").manual_seed(11)
+        table32 = torch.randn((spec.table_size, spec.level_dim), generator=g, device="cuda")
+        x = grid_points(spec, BATCH * POINTS, seed=12)
+        oob = (x.abs() > NGP_BOUND).any(-1).float().mean().item()
+        subsets = [None]
+        if net.pack_plan is not None:  # the unpacked levels, as the served path encodes them
+            subsets.append(tuple(l for l in range(spec.num_levels)
+                                 if l not in net.pack_plan.packed_levels))
+        for dtype in (torch.float32, torch.bfloat16):
+            table = table32.to(dtype)
+            for levels in subsets:
+                got = hg.hash_encode(x, table, spec, NGP_BOUND, levels=levels)
+                want = hg.hash_encode_reference(x, table, spec, NGP_BOUND, levels=levels)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                rec = dict(kernel="hash_encode", grid=name, dtype=str(dtype).split(".")[-1],
+                           levels=list(levels) if levels else "all", points=x.shape[0],
+                           oob_share=oob, out=list(got.shape),
+                           max_abs_err=diff.max().item(),
+                           finite=bool(torch.isfinite(got).all()))
+                recs.append(rec)
+                check(rec["finite"], f"hash_encode {name} output finite")
+                if dtype == torch.float32:
+                    check(rec["max_abs_err"] <= 1e-5,
+                          f"hash_encode {name} f32: max abs {rec['max_abs_err']} <= 1e-5")
+                else:
+                    ok = bool((diff <= 8e-3 * want.float().abs() + 1e-6).all())
+                    check(ok, f"hash_encode {name} bf16: within one bf16 ulp")
+        if net.pack_plan is not None:
+            plan = net.pack_plan
+            packed = hg.pack_hash_table(table32, plan, dtype=torch.float32)
+            got = hg.hash_encode_packed(x, table32, packed, plan, bound=NGP_BOUND)
+            want = hg.hash_encode_reference(x, table32, spec, NGP_BOUND)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            recs.append(dict(kernel="hash_encode_packed", grid=name, dtype="float32",
+                             packed_levels=list(plan.packed_levels), max_abs_err=err))
+            check(err <= 1e-5, f"packed encode through both kernels vs plain unpacked: {err}")
+        del table32, x
+        torch.cuda.empty_cache()
+    return recs
+
+
+def drive(sampler, kernels) -> tuple:
+    """Zero the counts, answer two seed requests and one azim/elev request,
+    read the counts: each of ``kernels`` must have launched."""
+    import torch
+
     from sdface_gan_tpu_torch.ops import _ext
-    from sdface_gan_tpu_torch.serving import SDFaceSampler
 
-    cfg = full_config()
-    model = Generator(cfg, device="cuda",
-                      generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
-    sampler = SDFaceSampler(model, batch=BATCH)
-    sampler.warmup()
     torch.cuda.synchronize()
-
     _ext.reset_launch_counts()
     t0 = time.perf_counter()
     outs = [sampler.sample(seed=1), sampler.sample(seed=2),
@@ -175,25 +332,27 @@ def serve(results: dict) -> None:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(_ext.LAUNCHES)
-    for name, n in launches.items():
-        check(n >= 1, f"kernel {name} launched on the main path ({n} times)")
+    for name in kernels:
+        check(launches[name] >= len(outs),
+              f"kernel {name} launched in every request ({launches[name]} in {len(outs)})")
+    size = sampler.cfg.size
     for img in outs:
-        check(tuple(img.shape) == (BATCH, 256, 256, 3), f"image shape {tuple(img.shape)}")
+        check(tuple(img.shape) == (BATCH, size, size, 3), f"image shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all()), "image finite")
     check(not torch.equal(outs[0], outs[1]), "two seeds give two batches")
-    results["launches"] = launches
-    emit(phase="serve", requests=3, batch=BATCH, dtype="bfloat16", launches=launches,
-         seconds_three_requests=dt,
-         image_range=[min(o.min().item() for o in outs), max(o.max().item() for o in outs)])
+    return outs, launches, dt
 
-    # the kernel ran inside a request, by name, in the profiler's trace
+
+def profile_request(sampler, kernel_names) -> dict:
+    """Kernel device times of one profiled request; each of ``kernel_names``
+    must appear in it by name."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sampler.sample(seed=3)
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-
     device_us = {}  # kernels only: a CPU op's device time repeats its kernels'
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -202,12 +361,47 @@ def serve(results: dict) -> None:
         device_us[ev.key] = us if us is not None else ev.cuda_time_total
     total_us = sum(device_us.values())
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
-    field_us = sum(us for k, us in device_us.items() if "siren_field_kernel" in k)
-    check(field_us > 0, "profiler shows siren_field_kernel inside a request")
-    results["profile"] = dict(device_ms_total=total_us / 1e3, field_ms=field_us / 1e3,
-                              top=[(k[:90], us / 1e3) for k, us in top])
-    emit(phase="profile", device_events=len(device_us), device_ms_total=total_us / 1e3,
-         siren_field_kernel_ms=field_us / 1e3)
+    named = {}
+    for kname in kernel_names:
+        named[kname] = sum(us for k, us in device_us.items() if kname in k) / 1e3
+        check(named[kname] > 0, f"profiler shows {kname} inside a request")
+    return dict(device_events=len(device_us), device_ms_total=total_us / 1e3,
+                kernel_ms=named, top=[(k[:90], us / 1e3) for k, us in top])
+
+
+def images_per_s(sampler, n: int = 10) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        sampler.sample(seed=10 + i)
+    torch.cuda.synchronize()
+    return BATCH * n / (time.perf_counter() - t0)
+
+
+def serve(results: dict) -> None:
+    import torch
+
+    from sdface_gan_tpu_torch.models import Generator
+    from sdface_gan_tpu_torch.serving import SDFaceSampler
+
+    cfg = full_config()
+    model = Generator(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    sampler = SDFaceSampler(model, batch=BATCH)
+    sampler.warmup()
+    outs, launches, dt = drive(sampler, ["siren_field"])
+    results["launches"] = launches
+    emit(phase="serve", requests=3, batch=BATCH, dtype="bfloat16", launches=launches,
+         seconds_three_requests=dt,
+         image_range=[min(o.min().item() for o in outs), max(o.max().item() for o in outs)])
+
+    prof = profile_request(sampler, ["siren_field_kernel"])
+    results["profile"] = prof
+    emit(phase="profile", device_events=prof["device_events"],
+         device_ms_total=prof["device_ms_total"],
+         siren_field_kernel_ms=prof["kernel_ms"]["siren_field_kernel"])
 
     # one request in f32: fused field against the plain field
     model32 = Generator(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
@@ -221,14 +415,82 @@ def serve(results: dict) -> None:
     check(err <= 2e-3, f"f32 request, fused vs plain field: max abs err {err} <= 2e-3")
     emit(phase="serve_compare", f32_fused_vs_plain_max_abs_err=err, tolerance=2e-3,
          bf16_request_vs_f32_plain_mean_abs_err=bf16_err)
+    results["images_per_s"] = images_per_s(sampler)
 
-    n = 5
+
+def serve_ngp(results: dict) -> dict:
+    """The tuned-grid NGP generator served in bf16, then one upstream-grid
+    request; returns the served tuned model (for the timing phase)."""
+    from dataclasses import replace
+
+    import torch
+
+    from sdface_gan_tpu_torch.models import Generator
+    from sdface_gan_tpu_torch.serving import SDFaceSampler
+
+    cfgs = ngp_configs()
+    model = Generator(cfgs["tuned"], device="cuda",
+                      generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    sampler = SDFaceSampler(model, batch=BATCH)
+    check(model.renderer.network.encoder.packed is not None, "tuned grid packed at load")
+    sampler.warmup()
+    outs, launches, dt = drive(sampler, ["hash_encode", "table_gather"])
+    results["ngp_launches"] = launches
+    prof = profile_request(sampler, ["hash_encode_kernel", "table_gather_kernel"])
+    results["ngp_profile"] = prof
+    emit(phase="serve_ngp", config="ffhq_256_sdf_ngp_tpu", requests=3, batch=BATCH,
+         dtype="bfloat16", launches=launches, seconds_three_requests=dt,
+         image_range=[min(o.min().item() for o in outs), max(o.max().item() for o in outs)],
+         profile_device_ms_total=prof["device_ms_total"], profile_kernel_ms=prof["kernel_ms"])
+
+    up = Generator(cfgs["upstream"], device="cuda",
+                   generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    up_sampler = SDFaceSampler(up, batch=BATCH)
+    up_sampler.warmup()
+    from sdface_gan_tpu_torch.ops import _ext
+
     torch.cuda.synchronize()
+    _ext.reset_launch_counts()
     t0 = time.perf_counter()
-    for i in range(n):
-        sampler.sample(seed=10 + i)
+    img = up_sampler.sample(seed=1)
     torch.cuda.synchronize()
-    results["images_per_s"] = BATCH * n / (time.perf_counter() - t0)
+    up_dt = time.perf_counter() - t0
+    up_launches = dict(_ext.LAUNCHES)
+    check(up_launches["hash_encode"] >= 1, "upstream grid: hash_encode launched")
+    check(bool(torch.isfinite(img).all()) and tuple(img.shape) == (BATCH, 256, 256, 3),
+          "upstream grid: finite image of the expected shape")
+    results["ngp_upstream_launches"] = up_launches
+    results["ngp_upstream_images_per_s"] = images_per_s(up_sampler, n=3)
+    emit(phase="serve_ngp", config="ffhq_256_sdf_ngp", requests=1, batch=BATCH,
+         dtype="bfloat16", launches=up_launches, seconds_one_request=up_dt)
+    del up, up_sampler
+    torch.cuda.empty_cache()
+
+    # f32, hash table redrawn with std 1 (the init's +-1e-4 table would hide
+    # the encode from the image): kernels vs plain versions, packed vs unpacked
+    model32 = Generator(cfgs["tuned"], device="cuda", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        emb = model32.renderer.network.encoder.embeddings
+        emb.copy_(torch.randn(emb.shape, generator=torch.Generator().manual_seed(5)))
+    kern = SDFaceSampler(model32, batch=BATCH).sample(seed=1)
+    plain = SDFaceSampler(model32, batch=BATCH, use_fused_kernel=False).sample(seed=1)
+    rcfg = cfgs["tuned"].renderer
+    unpacked_model = Generator(replace(cfgs["tuned"], renderer=replace(rcfg, ngp_pack_mb=0)),
+                               device="cuda")
+    unpacked_model.load_state_dict(model32.state_dict())
+    unpacked = SDFaceSampler(unpacked_model, batch=BATCH).sample(seed=1)
+    err = (kern - plain).abs().max().item()
+    err_pack = (kern - unpacked).abs().max().item()
+    results["ngp_serve_f32_max_abs_err"] = err
+    check(err <= 2e-3, f"f32 NGP request, kernels vs plain: max abs err {err} <= 2e-3")
+    check(err_pack <= 2e-3, f"f32 NGP request, packed vs unpacked: {err_pack} <= 2e-3")
+    emit(phase="serve_ngp_compare", f32_kernels_vs_plain_max_abs_err=err,
+         f32_packed_vs_unpacked_max_abs_err=err_pack, tolerance=2e-3,
+         image_std=kern.std().item())
+    del model32, unpacked_model
+    torch.cuda.empty_cache()
+    results["ngp_images_per_s"] = images_per_s(sampler)
+    return model
 
 
 def time_field(results: dict) -> dict:
@@ -253,16 +515,101 @@ def time_field(results: dict) -> dict:
         plain_ms = cuda_ms(lambda: sk.siren_field_reference(*args), iters=5, warmup=1)
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
         flops = field_flops(DEPTH, WIDTH) * BATCH * POINTS
-        nbytes = field_bytes(pack, BATCH, POINTS)
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
         out[str(dtype).split(".")[-1]] = dict(
-            ms=ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            ms=ms, plain_ms=plain_ms, **bound(flops, field_bytes(pack, BATCH, POINTS), peak),
             tflops_achieved=flops / ms / 1e9)
         del net, pts, views, args, pack
         torch.cuda.empty_cache()
     results["field_timing"] = out
+    return out
+
+
+def request_points(rcfg, seed: int):
+    """The normalized sample points [B * P, 3] of one random-camera request,
+    computed as ``render`` computes them."""
+    import torch
+
+    from sdface_gan_tpu_torch.geometry import generate_camera_params
+    from sdface_gan_tpu_torch.geometry.rays import get_rays
+    from sdface_gan_tpu_torch.models.renderer import _sample_z_vals
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cams = generate_camera_params(rcfg.out_im_res, gen, batch=BATCH, device="cuda")
+    rays = get_rays(cams.focal, cams.extrinsics, rcfg.out_im_res)
+    near = cams.near.reshape(BATCH, 1, 1, 1)
+    far = cams.far.reshape(BATCH, 1, 1, 1)
+    z = _sample_z_vals(rcfg, near, far, BATCH, gen)
+    pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z[..., None]
+    return (pts * 2.0 / (far - near)[..., None]).reshape(-1, 3).contiguous()
+
+
+def packed_indices(x, plan):
+    """The packed-row indices [Lp, N] int32 of ``hash_encode_packed``."""
+    import torch
+
+    spec = plan.spec
+    x01 = ((x + NGP_BOUND) / (2.0 * NGP_BOUND)).clamp(0.0, 1.0)
+    rows = []
+    for li, lvl in enumerate(plan.packed_levels):
+        res = spec.level_resolution(lvl)
+        pg = torch.floor(x01 * spec.level_scale(lvl) + 0.5).long()
+        rows.append(pg[:, 0] + pg[:, 1] * res + pg[:, 2] * res * res + plan.row_offsets[li])
+    return torch.stack(rows).to(torch.int32).contiguous()
+
+
+def time_ngp_kernels(results: dict, tuned_model) -> dict:
+    """Each hash kernel, its plain version and (table_gather) one PyTorch
+    call, at batch 8 on a real request's points."""
+    import torch
+
+    from sdface_gan_tpu_torch.ops import hash_encoder as hg
+
+    out = {}
+    cfgs = ngp_configs()
+    x = request_points(cfgs["tuned"].renderer, seed=21)
+    n = x.shape[0]
+    enc = tuned_model.renderer.network.encoder
+    plan = cfgs["tuned"].renderer.network_config().pack_plan
+    packed, table = enc.packed, enc.embeddings.detach()
+
+    idx = packed_indices(x, plan)
+    row_bytes = packed.shape[1] * packed.element_size()
+    rows_read = torch.unique(idx).numel()
+    gather_bytes = idx.numel() * 4 + rows_read * row_bytes + idx.numel() * row_bytes
+    out["table_gather"] = dict(
+        shape=dict(table=list(packed.shape), dtype=str(packed.dtype), idx=list(idx.shape)),
+        ms=device_ms(lambda: hg.table_gather(packed, idx), "table_gather_kernel"),
+        call_ms=cuda_ms(lambda: hg.table_gather(packed, idx), iters=20),
+        plain_ms=cuda_ms(lambda: hg.table_gather_reference(packed, idx), iters=10),
+        library_ms=cuda_ms(lambda: torch.index_select(packed, 0, idx.reshape(-1)), iters=20),
+        rows_read=rows_read, **bound(0, gather_bytes, PEAK_F32_FLOPS))
+
+    def encode_case(spec, tab, pts, levels):
+        lv = levels or tuple(range(spec.num_levels))
+        c, es = spec.level_dim, tab.element_size()
+        table_bytes = sum(spec.level_table_size(l) for l in lv) * c * es
+        nbytes = pts.numel() * 4 + pts.shape[0] * len(lv) * c * es + table_bytes
+        flops = pts.shape[0] * len(lv) * 8 * (2 * c + 2)  # corner weights and sums
+        return dict(
+            levels=list(lv), dtype=str(tab.dtype).split(".")[-1], points=pts.shape[0],
+            ms=device_ms(lambda: hg.hash_encode(pts, tab, spec, NGP_BOUND, levels),
+                         "hash_encode_kernel"),
+            call_ms=cuda_ms(lambda: hg.hash_encode(pts, tab, spec, NGP_BOUND, levels), iters=20),
+            plain_ms=cuda_ms(lambda: hg.hash_encode_reference(pts, tab, spec, NGP_BOUND,
+                                                              levels), iters=5, warmup=1),
+            **bound(flops, nbytes, PEAK_F32_FLOPS))
+
+    spec = plan.spec
+    rest = tuple(l for l in range(spec.num_levels) if l not in plan.packed_levels)
+    out["hash_encode"] = encode_case(spec, table, x, rest)  # the served path
+    out["hash_encode_tuned_all_levels"] = encode_case(spec, table, x, None)
+    up_spec = cfgs["upstream"].renderer.network_config().grid
+    g = torch.Generator(device="cuda").manual_seed(22)
+    up_table = (torch.rand((up_spec.table_size, up_spec.level_dim), generator=g,
+                           device="cuda") * 2e-4 - 1e-4).to(torch.bfloat16)
+    out["hash_encode_upstream"] = encode_case(up_spec, up_table, x, None)
+    check(n == BATCH * POINTS, "timing at the served batch")
+    results["ngp_timing"] = out
     return out
 
 
@@ -282,7 +629,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.set_grad_enabled(False)  # inference only; the field kernel has no backward
+    torch.set_grad_enabled(False)  # inference only; the kernels have no backward
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -296,36 +643,61 @@ def main() -> int:
 
     from sdface_gan_tpu_torch.ops import _ext
 
-    # one source for now: build it in this process (parallel nvcc processes
-    # come back with a second .cu file)
-    built = not _ext.library_path("siren_field").exists()
+    built = {src: not _ext.library_path(src).exists() for src in SOURCES}
     t0 = time.perf_counter()
-    _ext.load("siren_field")
-    ptxas = [ln.strip() for ln in open(str(_ext.library_path("siren_field")) + ".log")
-             if "registers" in ln or "spill" in ln]
-    emit(phase="build", kernel="siren_field", seconds=time.perf_counter() - t0,
-         built=built, ptxas=ptxas)
+    _ext.build(*SOURCES)
+    seconds = time.perf_counter() - t0
+    for src in SOURCES:
+        _ext.load(src)
+        ptxas = [ln.strip() for ln in open(str(_ext.library_path(src)) + ".log")
+                 if "registers" in ln or "spill" in ln]
+        emit(phase="build", source=f"csrc/{src}.cu", seconds_all_sources=seconds,
+             built=built[src], ptxas=ptxas)
 
     checks = [check_field(DEPTH, POINTS, seed=1), check_field(3, 700, seed=2)]
     for rec in checks:
         emit(phase="kernel_check", kernel="siren_field", **rec)
     results["field_checks"] = checks
+    gather_checks = check_table_gather()
+    encode_checks = check_hash_encode()
+    for rec in gather_checks + encode_checks:
+        emit(phase="kernel_check", **rec)
+    results["gather_checks"], results["encode_checks"] = gather_checks, encode_checks
 
     serve(results)
+    ngp_model = serve_ngp(results)
     timing = time_field(results)
-    emit(phase="timing", nvidia_smi=smi, batch=BATCH, field=timing,
-         images_per_s=results["images_per_s"])
+    ngp_timing = time_ngp_kernels(results, ngp_model)
+    emit(phase="timing", nvidia_smi=smi, batch=BATCH, field=timing, ngp=ngp_timing,
+         images_per_s=results["images_per_s"], ngp_images_per_s=results["ngp_images_per_s"],
+         ngp_upstream_images_per_s=results["ngp_upstream_images_per_s"])
 
     bf16 = timing["bfloat16"]
-    kernels = [dict(
-        name="siren_field", route="cuda",
-        source="sdface_gan_tpu_torch/ops/csrc/siren_field.cu",
-        replaces="sdface_gan_tpu/ops/siren_kernel.py:40",
-        launches=results["launches"]["siren_field"], checked=True,
-        max_abs_err=checks[0]["f32_max_abs_err"],
-        ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],
-        bound_by=bf16["bound_by"], library_ms=None,
-    )]
+    gather, encode = ngp_timing["table_gather"], ngp_timing["hash_encode"]
+    kernels = [
+        dict(name="siren_field", route="cuda",
+             source="sdface_gan_tpu_torch/ops/csrc/siren_field.cu",
+             replaces="sdface_gan_tpu/ops/siren_kernel.py:40",
+             launches=results["launches"]["siren_field"], checked=True,
+             max_abs_err=checks[0]["f32_max_abs_err"],
+             ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],
+             bound_by=bf16["bound_by"], library_ms=None),
+        dict(name="table_gather", route="cuda",
+             source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
+             replaces="scripts/bench_packed_gather.py:128",
+             launches=results["ngp_launches"]["table_gather"], checked=True,
+             max_abs_err=max(r["max_abs_err"] for r in gather_checks),
+             ms=gather["ms"], plain_ms=gather["plain_ms"], bound_ms=gather["bound_ms"],
+             bound_by=gather["bound_by"], library_ms=gather["library_ms"]),
+        dict(name="hash_encode", route="cuda",
+             source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
+             replaces="sdface_gan_tpu/ops/hash_encoder.py:205",
+             launches=results["ngp_launches"]["hash_encode"], checked=True,
+             max_abs_err=max(r["max_abs_err"] for r in encode_checks
+                             if r["dtype"] == "float32"),
+             ms=encode["ms"], plain_ms=encode["plain_ms"], bound_ms=encode["bound_ms"],
+             bound_by=encode["bound_by"], library_ms=None),
+    ]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

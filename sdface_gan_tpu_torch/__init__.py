@@ -4,14 +4,17 @@ The JAX package stays the reference; this package re-implements its
 serving path for an NVIDIA H100 and is held against it, on the same
 weights and inputs, by ``tests/test_torch_port_*.py``.
 
-Ported so far (the 256^2 SDF full-pipeline generator, inference only):
+Ported so far (the 256^2 full-pipeline generator with the SIREN, NGP and
+FC fields, inference only):
 
-  ops/         fast_sin, fused_leaky_relu, upfirdn2d, and the FiLM-SIREN
-               field with its hand-written CUDA kernel (``ops/csrc``)
+  ops/         fast_sin, fused_leaky_relu, upfirdn2d, sh_encode, the
+               FiLM-SIREN field, the hash-grid encode and the table gather,
+               the last three with hand-written CUDA kernels (``ops/csrc``)
   geometry/    camera sampling and ray generation
-  models/      FiLM-SIREN network, volume renderer, StyleGAN2 decoder,
-               the whole generator
+  models/      SIREN, NGP and FC field networks, volume renderer,
+               StyleGAN2 decoder, the whole generator
   utils/       device selection, JAX parameter tree -> state_dict
+  configs.py   the NGP serving configurations of ``configs/``, by hand
   serving.py   ``SDFaceSampler``
 
 Entry points run on ``device="cuda"`` unless the caller passes

@@ -92,6 +92,18 @@ class Generator(nn.Module):
         self.to(device)
 
 
+def pack_generator_for_inference(model: Generator) -> Generator:
+    """One-time load-time repack for NGP serving: add the corner-packed hash
+    table to the renderer network when ``renderer.ngp_pack_mb`` > 0, in
+    place (a non-persistent buffer, so the state dict is unchanged).  No-op
+    for SIREN and FC, with the budget at 0, or when already packed; never
+    used in training.  Returns ``model``."""
+    rcfg = model.cfg.renderer
+    if rcfg.type == "ngp" and rcfg.ngp_pack_mb > 0:
+        model.renderer.network.pack_tables()
+    return model
+
+
 def map_style(model: Generator, z: torch.Tensor) -> torch.Tensor:
     """3-layer renderer mapping."""
     return model.style(z)

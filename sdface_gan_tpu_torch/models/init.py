@@ -52,11 +52,14 @@ def linear_params(
 
     mode: 'freq'    -> W ~ U(-sqrt(6/in)/25, sqrt(6/in)/25)
           'kaiming' -> 0.25 * kaiming_normal(a=0.2)
+          'torch'   -> W ~ U(-1/sqrt(in), 1/sqrt(in)) (torch ``nn.Linear``)
     Bias is always U(-sqrt(1/in), sqrt(1/in)).
     """
     shape = (out_dim, in_dim)
     if mode == "freq":
         w = uniform(shape, math.sqrt(6.0 / in_dim) / 25.0, generator)
+    elif mode == "torch":
+        w = uniform(shape, 1.0 / math.sqrt(in_dim), generator)
     elif mode == "kaiming":
         w = kaiming_leaky(shape, generator, gain_mul=0.25)
     else:
@@ -70,6 +73,13 @@ def film_siren_weight(
     """FiLMSiren weight [out, in]."""
     bound = 1.0 / 3.0 if is_first else math.sqrt(6.0 / in_dim) / 25.0
     return uniform((out_dim, in_dim), bound, generator)
+
+
+def hash_table(
+    rows: int, level_dim: int, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """Hash-grid embedding table [rows, level_dim] ~ U(-1e-4, 1e-4)."""
+    return uniform((rows, level_dim), 1e-4, generator)
 
 
 def mapping_linear_params(

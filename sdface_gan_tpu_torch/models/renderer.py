@@ -1,19 +1,19 @@
 """SDF volume feature renderer (inference), port of
 ``sdface_gan_tpu/models/renderer.py``.
 
-camera rays -> depth samples -> FiLM-SIREN field -> SDF-to-density ->
-alpha compositing -> 64x64 thumb RGB and feature map.  Layout is
-channel-last ([B, H, W, C] and [B, H, W, S, C]) as in the JAX package.
-Compositing runs in f32 whatever the field's dtype.
+camera rays -> depth samples -> field (FiLM-SIREN, NGP hash grid or FC)
+-> SDF-to-density -> alpha compositing -> 64x64 thumb RGB and feature map.
+Layout is channel-last ([B, H, W, C] and [B, H, W, S, C]) as in the JAX
+package.  Compositing runs in f32 whatever the field's dtype.
 
-Not ported yet: the eikonal branches of ``render``, ``mlp_init_pass`` and
-the NGP / FC fields (training and later slices).
+Not ported yet: the eikonal branches of ``render`` and ``mlp_init_pass``
+(training).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +26,15 @@ from ..ops.siren_kernel import (
     pack_siren_field,
     siren_field_fused_parts,
 )
-from .siren import SirenConfig, SirenGenerator
+from ..ops.hash_encoder import HashGridSpec
+from .siren import (
+    FCConfig,
+    FCGenerator,
+    NGPSirenConfig,
+    NGPSIRENGenerator,
+    SirenConfig,
+    SirenGenerator,
+)
 
 _BG_LEVEL = {"white": 1.0, "gray": 0.5, "black": 0.0}
 
@@ -35,7 +43,7 @@ _BG_LEVEL = {"white": 1.0, "gray": 0.5, "black": 0.0}
 class RendererConfig:
     """Static renderer options (the inference subset of the JAX config)."""
 
-    type: str = "sdf"  # only the SIREN field is ported
+    type: str = "sdf"  # 'sdf' (FiLM-SIREN) | 'ngp' (hash grid) | 'fc' (ReLU MLP)
     out_im_res: int = 64
     n_samples: int = 24
     style_dim: int = 256
@@ -53,17 +61,42 @@ class RendererConfig:
     view_independent: bool = False
     perturb: float = 1.0
     raw_noise_std: float = 0.0
-    # Evaluate the field through the fused CUDA kernel (ops/siren_kernel.py).
+    # Evaluate the field through the port's CUDA kernels: the fused SIREN
+    # field ('sdf', ops/siren_kernel.py) or the hash-grid encode and table
+    # gather ('ngp', ops/hash_encoder.py).  Off: plain PyTorch throughout.
     use_fused_kernel: bool = False
     # 'lastsample': the final sample gets an infinite bin (reference
     # semantics); 'white' / 'gray' / 'black' composite leftover visibility
     # onto a fixed color.
     bg_mode: str = "lastsample"
+    # NGP hash-grid geometry (type 'ngp' only) and the corner-packed
+    # inference tables' budget in MB (0 = off; the sampler packs once).
+    ngp_num_levels: int = 16
+    ngp_level_dim: int = 2
+    ngp_finest_res: int = 4096
+    ngp_log2_hashmap_size: int = 19
+    ngp_pack_mb: int = 0
 
-    def network_config(self) -> SirenConfig:
+    @property
+    def feature_out_size(self) -> int:
+        # reference sdf_model.py:191: width unless ngp (then style_dim)
+        return self.width if self.type != "ngp" else self.style_dim
+
+    def network_config(self) -> Union[SirenConfig, NGPSirenConfig, FCConfig]:
+        if self.type == "ngp":
+            return NGPSirenConfig(
+                width=self.style_dim, style_dim=self.style_dim,
+                output_features=self.output_features,
+                grid=HashGridSpec.create(
+                    num_levels=self.ngp_num_levels, level_dim=self.ngp_level_dim,
+                    desired_resolution=self.ngp_finest_res,
+                    log2_hashmap_size=self.ngp_log2_hashmap_size),
+                pack_mb=self.ngp_pack_mb)
+        if self.type == "fc":
+            return FCConfig(depth=self.depth, width=self.width, style_dim=self.style_dim,
+                            output_features=self.output_features)
         if self.type != "sdf":
-            raise NotImplementedError(
-                f"renderer type {self.type!r} is not ported; only 'sdf' is")
+            raise ValueError(f"unknown renderer type {self.type!r}")
         return SirenConfig(depth=self.depth, width=self.width,
                            style_dim=self.style_dim,
                            output_features=self.output_features)
@@ -84,7 +117,8 @@ class VolumeFeatureRenderer(nn.Module):
 
     def __init__(self, cfg: RendererConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.network = SirenGenerator(cfg.network_config(), generator=generator)
+        network = {"ngp": NGPSIRENGenerator, "fc": FCGenerator}.get(cfg.type, SirenGenerator)
+        self.network = network(cfg.network_config(), generator=generator)
         if cfg.with_sdf:
             self.sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
 
@@ -100,9 +134,10 @@ def _apply_network(
     """Evaluate the field on [B, H, W, S, 3] inputs over one flat point axis.
 
     Returns ``(rgb, sdf, features | None)`` as separate [B, H, W, S, C]
-    tensors.  With ``use_fused_kernel`` the fused field runs (the kernel on
-    a CUDA tensor, its plain version on a CPU one), from ``field_pack`` or
-    from weights packed for this call.
+    tensors.  With ``use_fused_kernel`` the port's kernels run (each on a
+    CUDA tensor, its plain version on a CPU one): the fused SIREN field,
+    from ``field_pack`` or from weights packed for this call, or the NGP
+    field's hash-grid kernels.
     """
     b, h, w, s, _ = pts.shape
     flat_pts = pts.reshape(b, h * w * s, 3).float().contiguous()
@@ -112,6 +147,9 @@ def _apply_network(
         pack = field_pack if field_pack is not None else pack_siren_field(net)
         gamma, beta = film_coeffs(net, style)
         rgb, sdf, feat = siren_field_fused_parts(pack, flat_pts, flat_views, gamma, beta)
+    elif cfg.type == "ngp":
+        rgb, sdf, feat = net.forward_parts(flat_pts, flat_views, style,
+                                           use_kernels=cfg.use_fused_kernel)
     else:
         rgb, sdf, feat = net.forward_parts(flat_pts, flat_views, style)
     return (

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext_build"
@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES: Dict[str, int] = {"siren_field": 0}
+LAUNCHES: Dict[str, int] = {"siren_field": 0, "hash_encode": 0, "table_gather": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -57,36 +57,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its build exists; return the .so path.
+def build(*names: str) -> List[Path]:
+    """Compile each ``csrc/<name>.cu`` whose build does not exist, with one
+    ``nvcc`` process per source, all started together; return the .so paths.
 
     The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside the library as ``<lib>.log``.
+    spills) is kept beside each library as ``<lib>.log``.
     """
-    out = library_path(name)
-    if out.exists():
-        return out
+    outs = [library_path(name) for name in names]
+    todo = [(name, out) for name, out in zip(names, outs) if not out.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu (rc {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    jobs = []
+    for name, out in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed to build {name}.cu (rc {proc.returncode}):\n{log}")
+            continue
+        Path(str(out) + ".log").write_text(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build if needed, load once per process, and return the library."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name)[0]))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib

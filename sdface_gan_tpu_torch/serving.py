@@ -3,8 +3,10 @@
 Port of ``sdface_gan_tpu/serving.py``:
 
 * truncation statistics (``mean_latent``) computed once at construction,
-* the SIREN field's weights packed once for the fused CUDA kernel
-  (``use_fused_kernel``, on by default),
+* the port's CUDA kernels on by default (``use_fused_kernel``): the fused
+  SIREN field, whose weights are packed once here, or the NGP field's
+  hash-grid encode and table gather,
+* the NGP corner-packed tables built once here (``ngp_pack_mb`` > 0),
 * a fixed batch, and camera handling (random poses or explicit angles).
 
 Example:
@@ -25,7 +27,13 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from .geometry.cameras import generate_camera_params
-from .models.generator import Generator, GeneratorConfig, generator_forward, mean_latent
+from .models.generator import (
+    Generator,
+    GeneratorConfig,
+    generator_forward,
+    mean_latent,
+    pack_generator_for_inference,
+)
 from .ops.siren_kernel import pack_siren_field
 from .utils.convert import jax_params_to_state_dict
 
@@ -43,12 +51,13 @@ class SDFaceSampler:
         """Serve ``model`` on its own device and dtype.
 
         ``truncation_latent``: precomputed ``(renderer_mean, decoder_mean)``;
-        when None it is computed with ``mean_latent`` from ``seed``.
+        when None it is computed with ``mean_latent`` from ``seed``.  An NGP
+        model gets its packed table here, in place.
         """
         cfg = model.cfg
-        if use_fused_kernel and cfg.renderer.type == "sdf":
+        if use_fused_kernel and cfg.renderer.type in ("sdf", "ngp"):
             cfg = replace(cfg, renderer=replace(cfg.renderer, use_fused_kernel=True))
-        self.model = model.eval()
+        self.model = pack_generator_for_inference(model.eval())
         self.cfg = cfg
         self.batch = batch
         self.truncation = truncation
@@ -59,7 +68,8 @@ class SDFaceSampler:
                 truncation_latent = mean_latent(model, gen)
             self._trunc = truncation_latent
             self._field_pack = (pack_siren_field(model.renderer.network)
-                                if cfg.renderer.use_fused_kernel else None)
+                                if cfg.renderer.use_fused_kernel and cfg.renderer.type == "sdf"
+                                else None)
 
     @classmethod
     def from_state_dict(

@@ -9,8 +9,11 @@ the reference ``g_ema`` names, which the port's ``Generator`` uses.
 * modconv HWIO [k, k, I, O] -> ``weight`` [1, O, I, k, k]
 * noise [1, r, r, 1] -> [1, 1, r, r]
 * ToRGB bias [1, 1, 1, 3] -> [1, 3, 1, 1]
+* NGP hash table -> ``renderer.network.encoder.embeddings`` (a corner-packed
+  inference table, if the tree carries one, is left out: it is rebuilt at
+  load)
 
-Values are copied bit for bit.  Only the SIREN ('sdf') field is ported.
+Values are copied bit for bit, for every field type ('sdf', 'ngp', 'fc').
 """
 
 from __future__ import annotations
@@ -24,8 +27,6 @@ import torch
 def jax_params_to_state_dict(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """Convert a JAX generator parameter tree for ``cfg`` (a
     ``GeneratorConfig``) into the port's state dict."""
-    if cfg.renderer.type != "sdf":
-        raise NotImplementedError(f"renderer type {cfg.renderer.type!r} is not ported")
     sd: Dict[str, np.ndarray] = {}
 
     def lin(prefix, p):
@@ -56,12 +57,22 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg) -> Dict[str, torch.Ten
     renderer = params["renderer"]
     if "sigmoid_beta" in renderer:
         sd["renderer.sigmoid_beta"] = np.asarray(renderer["sigmoid_beta"])
-    net = renderer["network"]
-    for i, p in enumerate(net["pts_linears"]):
-        film(f"renderer.network.pts_linears.{i}", p)
-    film("renderer.network.views_linears", net["views_linear"])
-    lin("renderer.network.rgb_linear", net["rgb_linear"])
-    lin("renderer.network.sigma_linear", net["sigma_linear"])
+    net, prefix = renderer["network"], "renderer.network"
+    if cfg.renderer.type == "fc":
+        lin(f"{prefix}.x_in", net["x_in"])
+        lin(f"{prefix}.style_in", net["style_in"])
+        for i, p in enumerate(net["pts_linears"]):
+            lin(f"{prefix}.pts_linears.{i}", p)
+        lin(f"{prefix}.views_linears", net["views_linear"])
+    else:
+        if cfg.renderer.type == "ngp":
+            sd[f"{prefix}.encoder.embeddings"] = np.asarray(net["hash_table"])
+            lin(f"{prefix}.input_linear", net["input_linear"])
+        for i, p in enumerate(net["pts_linears"]):
+            film(f"{prefix}.pts_linears.{i}", p)
+        film(f"{prefix}.views_linears", net["views_linear"])
+    lin(f"{prefix}.rgb_linear", net["rgb_linear"])
+    lin(f"{prefix}.sigma_linear", net["sigma_linear"])
 
     if cfg.full_pipeline:
         dec = params["decoder"]

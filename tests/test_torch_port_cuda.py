@@ -20,6 +20,7 @@ from sdface_gan_tpu_torch.models.generator import Generator, GeneratorConfig  # 
 from sdface_gan_tpu_torch.models.renderer import RendererConfig  # noqa: E402
 from sdface_gan_tpu_torch.models.siren import SirenConfig, SirenGenerator  # noqa: E402
 from sdface_gan_tpu_torch.ops import _ext, siren_kernel  # noqa: E402
+from sdface_gan_tpu_torch.ops import hash_encoder as hg  # noqa: E402
 from sdface_gan_tpu_torch.serving import SDFaceSampler  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -94,3 +95,118 @@ def test_sampler_runs_the_field_kernel(cuda):
     c = bf16.sample(seed=1)
     assert c.dtype == torch.bfloat16 and bool(torch.isfinite(c).all())
     assert model.cfg.renderer.use_fused_kernel is False  # the model's cfg is untouched
+
+
+GRIDS = {
+    "tuned": dict(num_levels=4, level_dim=8, desired_resolution=256, log2_hashmap_size=15),
+    "upstream": dict(num_levels=16, level_dim=2, desired_resolution=4096,
+                     log2_hashmap_size=19),
+}
+
+
+def _grid_inputs(name, n=20000, seed=0, bound=2.0):
+    """A std-1 table (a wrong corner row shows as an O(1) error), uniform
+    points a little beyond the box, and points on cell faces of every level."""
+    spec = hg.HashGridSpec.create(**GRIDS[name])
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((spec.table_size, spec.level_dim)).astype(np.float32)
+    x = [rng.uniform(-1.1 * bound, 1.1 * bound, (n, 3))]
+    for lvl in range(spec.num_levels):
+        scale = spec.level_scale(lvl)
+        m = rng.integers(1, int(scale) + 1, (64, 3))
+        x.append((m - 0.5) / scale * 2.0 * bound - bound)
+    x = np.concatenate(x).astype(np.float32)
+    return spec, torch.from_numpy(table).cuda(), torch.from_numpy(x).cuda()
+
+
+@pytest.mark.parametrize("name", list(GRIDS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hash_encode_kernel_matches_plain_version(cuda, name, dtype):
+    spec, table, x = _grid_inputs(name)
+    table = table.to(getattr(torch, dtype))
+    with torch.no_grad():
+        before = _ext.LAUNCHES["hash_encode"]
+        got = hg.hash_encode(x, table, spec, bound=2.0)
+        torch.cuda.synchronize()
+        assert _ext.LAUNCHES["hash_encode"] == before + 1
+        want = hg.hash_encode_reference(x, table, spec, bound=2.0)
+        part = hg.hash_encode(x, table, spec, bound=2.0, levels=(1, 3))
+    assert got.dtype == want.dtype == table.dtype and got.shape == want.shape
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if dtype == "float32":  # only the order of the sum over corners differs
+        assert np.abs(g - w).max() <= 1e-5
+    else:  # one bf16 rounding of sums that differ in their last f32 bits
+        assert np.all(np.abs(g - w) <= 8e-3 * np.abs(w) + 1e-6)
+    c = spec.level_dim
+    cols = np.r_[c:2 * c, 3 * c:4 * c]
+    np.testing.assert_array_equal(part.float().cpu().numpy(), g[:, cols])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_table_gather_kernel_is_bit_equal(cuda, dtype):
+    rng = np.random.default_rng(1)
+    # the probe's shapes: [512, 128] f32 table, [8, 128] int32, one column
+    table = torch.arange(512 * 128, dtype=torch.float32).reshape(512, 128).cuda()
+    idx = torch.from_numpy(rng.integers(0, 512, (8, 128)).astype(np.int32)).cuda()
+    idx[0, 0], idx[-1, -1] = 0, 511
+    # packed-row shapes: 64-wide rows, [2, N] indices, and a column slice
+    packed = torch.from_numpy(rng.standard_normal((4096, 64)).astype(np.float32)).cuda()
+    pidx = torch.from_numpy(rng.integers(0, 4096, (2, 3001)).astype(np.int32)).cuda()
+    cases = [(table, idx, 0, 1), (packed, pidx, 0, None), (packed, pidx, 8, 24),
+             (packed, pidx, 3, 5), (packed, pidx - 5, 60, 4)]  # ragged, clamped
+    with torch.no_grad():
+        for t, i, col, ncols in cases:
+            t = t.to(getattr(torch, dtype))
+            before = _ext.LAUNCHES["table_gather"]
+            got = hg.table_gather(t, i, col, ncols)
+            torch.cuda.synchronize()
+            assert _ext.LAUNCHES["table_gather"] == before + 1
+            assert torch.equal(got, hg.table_gather_reference(t, i, col, ncols))
+
+
+def test_packed_encode_through_both_kernels(cuda):
+    spec, table, x = _grid_inputs("tuned", seed=2)
+    plan = hg.plan_packing(spec, max_bytes=64 << 20, bytes_per_el=2)
+    assert plan.packed_levels == (0, 1)
+    with torch.no_grad():
+        packed = hg.pack_hash_table(table, plan, dtype=torch.float32)
+        before = dict(_ext.LAUNCHES)
+        got = hg.hash_encode_packed(x, table, packed, plan, bound=2.0)
+        torch.cuda.synchronize()
+        want = hg.hash_encode_reference(x, table, spec, bound=2.0)
+    assert _ext.LAUNCHES["table_gather"] == before["table_gather"] + 1
+    assert _ext.LAUNCHES["hash_encode"] == before["hash_encode"] + 1
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_hash_kernels_reject_what_they_do_not_take(cuda):
+    spec, table, x = _grid_inputs("tuned", n=100)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="int32"):
+            hg.table_gather(table, torch.zeros(4, dtype=torch.int64, device="cuda"))
+        with pytest.raises(ValueError, match="f32"):
+            hg.hash_encode(x.double(), table, spec, bound=2.0)
+        wide = hg.HashGridSpec.create(num_levels=2, level_dim=3, log2_hashmap_size=10)
+        with pytest.raises(ValueError, match="C in"):
+            hg.hash_encode(x, torch.zeros(wide.table_size, 3, device="cuda"), wide)
+        with pytest.raises(ValueError, match="contiguous"):
+            hg.hash_encode(x.t().contiguous().t(), table, spec, bound=2.0)
+
+
+def test_sampler_runs_the_hash_kernels(cuda):
+    cfg = GeneratorConfig(size=32, style_dim=32, channel_multiplier=1, renderer=RendererConfig(
+        type="ngp", out_im_res=16, n_samples=8, style_dim=32, width=32, ngp_num_levels=4,
+        ngp_level_dim=8, ngp_finest_res=64, ngp_log2_hashmap_size=13, ngp_pack_mb=1))
+    model = Generator(cfg, device="cuda", generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        table = model.renderer.network.encoder.embeddings
+        table.copy_(torch.randn(table.shape, generator=torch.Generator().manual_seed(4)))
+    fused = SDFaceSampler(model, batch=2)
+    assert model.renderer.network.encoder.packed is not None
+    plain = SDFaceSampler(model, batch=2, use_fused_kernel=False)
+    before = dict(_ext.LAUNCHES)
+    a = fused.sample(seed=1)
+    assert _ext.LAUNCHES["hash_encode"] == before["hash_encode"] + 1
+    assert _ext.LAUNCHES["table_gather"] == before["table_gather"] + 1
+    b = plain.sample(seed=1)
+    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-3, atol=2e-4)

@@ -271,3 +271,16 @@ def test_init_matches_jax_distributions():
             assert abs(o.std() - r.std()) <= 0.1 * r.std(), k
             assert abs(o.mean() - r.mean()) <= 0.15 * r.std(), k
             assert o.abs().max() <= 6 * r.std() + r.abs().max(), k
+
+    # the NGP hash table: U(-1e-4, 1e-4) on both sides
+    rkw = dict(type="ngp", out_im_res=RES, n_samples=SAMPLES, style_dim=STYLE, width=STYLE,
+               ngp_num_levels=3, ngp_level_dim=2, ngp_finest_res=64, ngp_log2_hashmap_size=12)
+    ngp_j = j_rend.init_renderer(jax.random.PRNGKey(0), j_rend.RendererConfig(**rkw))
+    ref = torch.from_numpy(np.array(ngp_j["network"]["hash_table"]))
+    ours = renderer.VolumeFeatureRenderer(renderer.RendererConfig(**rkw),
+                                          generator=torch.Generator().manual_seed(1)
+                                          ).network.encoder.embeddings.detach()
+    assert ours.shape == ref.shape and ref.numel() >= 1000
+    assert abs(ours.std() - ref.std()) <= 0.1 * ref.std()
+    assert abs(ours.mean() - ref.mean()) <= 0.15 * ref.std()
+    assert ours.abs().max() <= 1e-4 and ref.abs().max() <= 1e-4
