@@ -15,9 +15,12 @@ non-zero with no ``ok`` line:
              the source already exists; ptxas registers and spills.
 3. kernel_check - each kernel against its plain PyTorch version on the card:
              * siren_field at full width (W=256, D=8, style 256, B=2,
-               P=64*64*24) and at depth 3, P=700 (a partial tile), in f32
-               (max abs error <= 1e-3) and bf16 (mean error against f32
-               truth <= 1.2x the plain bf16 version's + 1e-4);
+               P=64*64*24) and at depth 3, P=700 (a partial tile), and at
+               W=64 and W=512 (depth 3, P=700, partial tiles of 512 and 64
+               points), in f32 (FMA kernel, max abs error <= 1e-3) and bf16
+               (tensor-core kernel: mean error against f32 truth <= 1.2x the
+               plain bf16 version's + 1e-4; max abs against the plain bf16
+               version reported);
              * table_gather at the Pallas probe's shapes ([512, 128] f32,
                [8, 128] int32, one column) and at the packed NGP encode's
                (bf16, 64-wide rows, [2, 786432] indices): bit-equal;
@@ -30,9 +33,12 @@ non-zero with no ``ok`` line:
              ``SDFaceSampler`` at batch 8, bf16 weights: warm up, zero the
              launch counts, answer two seed requests and one azim/elev
              request, read the counts (siren_field must have launched); a
-             profiled request must show the kernel by name; one f32 request
-             with the fused field against the same request through the plain
-             field (<= 2e-3).
+             profiled request must show the bf16 tensor-core kernel
+             (siren_field_mma_kernel) by name and not the f32 FMA kernel;
+             serve_compare: one f32 request with the fused field against the
+             same request through the plain field (<= 2e-3), and the bf16
+             request's mean error against that f32 plain image <= 1.2x the
+             plain bf16 request's + 1e-4.
 5. serve_ngp - the same for the NGP generator of
              ``configs/256res/ffhq_256_sdf_ngp_tpu.yaml`` (tuned grid, tables
              packed at 64 MB): hash_encode and table_gather must each launch
@@ -42,8 +48,10 @@ non-zero with no ``ok`` line:
              hash table redrawn with std 1, an f32 request with the kernels
              against the plain versions, and packed against unpacked
              (<= 2e-3 each).
-6. timing  - at batch 8: each kernel's time (CUDA-event medians; for the
-             hash kernels, which are shorter than their wrappers' host work,
+6. timing  - at batch 8: each kernel's time (CUDA-event medians; the
+             field's bf16 (mma) and f32 (FMA) kernels apart, with the sine
+             epilogue's FP32-pipe time beside the bf16 bound; for the hash
+             kernels, which are shorter than their wrappers' host work,
              the profiler's device time per launch, with the event time of a
              whole call beside it as ``call_ms``), its plain version's and,
              for table_gather, one PyTorch call's computing the same function,
@@ -69,6 +77,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# f32 instructions per FiLM-sine evaluation in the field kernel's epilogue:
+# bias add, FiLM fma, fast_sin (2 mul, rint, mul, sub, mul, 5 fma, mul), bf16 round
+SINE_INSTRUCTIONS = 14
+FIELD_DESIGN = {
+    "bfloat16": "siren_field_mma_kernel<W>: mma.sync m16n8k16 bf16->f32 fed by ldmatrix, "
+                "weights in a 2-stage cp.async ring of [64, W+8] K-chunks, 8 warps of "
+                "64x64 output blocks per 128-point tile (W=256), bf16 activations in "
+                "shared memory, FiLM-sine epilogue on the FP32 pipes",
+    "float32": "siren_field_kernel<float>: FMA pipes, 32-point tiles, f32 activations "
+               "in shared memory, weights streamed from L2",
+}
 
 BATCH = 8
 RES, SAMPLES, WIDTH, DEPTH, STYLE = 64, 24, 256, 8, 256
@@ -145,7 +164,8 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
     """Mean device time of one launch of the kernel named ``kernel`` over
     ``iters`` calls of ``fn``, from the profiler's trace.  For kernels far
     shorter than their wrapper's host work, where events around a call
-    would time the host."""
+    would time the host.  The profiler can drop some device records of a
+    session; the mean is over the launches it kept."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -162,7 +182,7 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
             us = getattr(ev, "device_time_total", None)
             total_us += us if us is not None else ev.cuda_time_total
             count += ev.count
-    check(count == iters, f"profiler saw {count} launches of {kernel}, expected {iters}")
+    check(0 < count <= iters, f"profiler saw {count} launches of {kernel} in {iters} calls")
     return total_us / count / 1e3
 
 
@@ -177,7 +197,7 @@ def field_inputs(net, b: int, p: int, seed: int):
     return pts, views, style
 
 
-def check_field(depth: int, p: int, seed: int) -> dict:
+def check_field(depth: int, p: int, seed: int, width: int = WIDTH) -> dict:
     """The field kernel against its plain version at one shape, f32 and bf16."""
     import copy
 
@@ -186,7 +206,7 @@ def check_field(depth: int, p: int, seed: int) -> dict:
     from sdface_gan_tpu_torch.models.siren import SirenConfig, SirenGenerator
     from sdface_gan_tpu_torch.ops import siren_kernel as sk
 
-    net32 = SirenGenerator(SirenConfig(depth=depth, width=WIDTH, style_dim=STYLE),
+    net32 = SirenGenerator(SirenConfig(depth=depth, width=width, style_dim=STYLE),
                            generator=torch.Generator().manual_seed(seed)).cuda()
     net16 = copy.deepcopy(net32).to(torch.bfloat16)
     pts, views, style = field_inputs(net32, 2, p, seed)
@@ -205,7 +225,7 @@ def check_field(depth: int, p: int, seed: int) -> dict:
     err32 = (kern32 - truth).abs().max().item()
     err16_kernel = (kern16 - truth).abs().mean().item()
     err16_plain = (plain16 - truth).abs().mean().item()
-    rec = dict(depth=depth, width=WIDTH, style=STYLE, batch=2, points=p,
+    rec = dict(depth=depth, width=width, style=STYLE, batch=2, points=p,
                f32_max_abs_err=err32, bf16_mean_err_kernel=err16_kernel,
                bf16_mean_err_plain=err16_plain,
                bf16_max_abs_kernel_vs_plain=(kern16 - plain16).abs().max().item())
@@ -343,28 +363,35 @@ def drive(sampler, kernels) -> tuple:
     return outs, launches, dt
 
 
-def profile_request(sampler, kernel_names) -> dict:
+def profile_request(sampler, kernel_names, absent=()) -> dict:
     """Kernel device times of one profiled request; each of ``kernel_names``
-    must appear in it by name."""
+    must appear in it by name, and none of ``absent``.  The profiler can
+    drop some device records of a session, so a request that misses a
+    named kernel is profiled again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sampler.sample(seed=3)
-        torch.cuda.synchronize()
-    device_us = {}  # kernels only: a CPU op's device time repeats its kernels'
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "device_time_total", None)
-        device_us[ev.key] = us if us is not None else ev.cuda_time_total
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sampler.sample(seed=3)
+            torch.cuda.synchronize()
+        device_us = {}  # kernels only: a CPU op's device time repeats its kernels'
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "device_time_total", None)
+            device_us[ev.key] = us if us is not None else ev.cuda_time_total
+        if all(any(kname in k for k in device_us) for kname in kernel_names):
+            break
     total_us = sum(device_us.values())
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     named = {}
     for kname in kernel_names:
         named[kname] = sum(us for k, us in device_us.items() if kname in k) / 1e3
         check(named[kname] > 0, f"profiler shows {kname} inside a request")
+    for kname in absent:
+        check(not any(kname in k for k in device_us), f"profiler shows no {kname} in the request")
     return dict(device_events=len(device_us), device_ms_total=total_us / 1e3,
                 kernel_ms=named, top=[(k[:90], us / 1e3) for k, us in top])
 
@@ -384,6 +411,7 @@ def serve(results: dict) -> None:
     import torch
 
     from sdface_gan_tpu_torch.models import Generator
+    from sdface_gan_tpu_torch.ops import siren_kernel as sk
     from sdface_gan_tpu_torch.serving import SDFaceSampler
 
     cfg = full_config()
@@ -397,24 +425,33 @@ def serve(results: dict) -> None:
          seconds_three_requests=dt,
          image_range=[min(o.min().item() for o in outs), max(o.max().item() for o in outs)])
 
-    prof = profile_request(sampler, ["siren_field_kernel"])
+    mma = sk.kernel_name(torch.bfloat16)
+    prof = profile_request(sampler, [mma], absent=["siren_field_kernel"])
     results["profile"] = prof
     emit(phase="profile", device_events=prof["device_events"],
-         device_ms_total=prof["device_ms_total"],
-         siren_field_kernel_ms=prof["kernel_ms"]["siren_field_kernel"])
+         device_ms_total=prof["device_ms_total"], kernel=mma,
+         siren_field_kernel_ms=prof["kernel_ms"][mma])
 
-    # one request in f32: fused field against the plain field
+    # one request in f32: fused field against the plain field; the bf16
+    # request (seed 1, fused) held to the bf16 contract against that f32 image
+    plain16 = SDFaceSampler(model, batch=BATCH, use_fused_kernel=False).sample(seed=1)
     model32 = Generator(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     fused32 = SDFaceSampler(model32, batch=BATCH).sample(seed=1)
     plain32 = SDFaceSampler(model32, batch=BATCH, use_fused_kernel=False).sample(seed=1)
     err = (fused32 - plain32).abs().max().item()
     bf16_err = (outs[0].float() - plain32).abs().mean().item()
+    bf16_plain_err = (plain16.float() - plain32).abs().mean().item()
     results["serve_f32_max_abs_err"] = err
+    results["serve_bf16_mean_abs_err"] = dict(fused=bf16_err, plain=bf16_plain_err)
     # the decoder (f32 convs, TF32 off) carries the field's ~1e-5 summation-order
     # differences into the image; 2e-3 is the whole-image tolerance of the CPU tests
     check(err <= 2e-3, f"f32 request, fused vs plain field: max abs err {err} <= 2e-3")
+    check(bf16_err <= 1.2 * bf16_plain_err + 1e-4,
+          f"bf16 request vs f32 plain: mean abs {bf16_err} <= 1.2 * {bf16_plain_err} + 1e-4")
     emit(phase="serve_compare", f32_fused_vs_plain_max_abs_err=err, tolerance=2e-3,
-         bf16_request_vs_f32_plain_mean_abs_err=bf16_err)
+         bf16_fused_request_vs_f32_plain_mean_abs_err=bf16_err,
+         bf16_plain_request_vs_f32_plain_mean_abs_err=bf16_plain_err,
+         bf16_tolerance="fused <= 1.2 x plain + 1e-4")
     results["images_per_s"] = images_per_s(sampler)
 
 
@@ -515,9 +552,15 @@ def time_field(results: dict) -> dict:
         plain_ms = cuda_ms(lambda: sk.siren_field_reference(*args), iters=5, warmup=1)
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
         flops = field_flops(DEPTH, WIDTH) * BATCH * POINTS
-        out[str(dtype).split(".")[-1]] = dict(
+        name = str(dtype).split(".")[-1]
+        out[name] = dict(
+            kernel=sk.kernel_name(dtype), design=FIELD_DESIGN[name],
             ms=ms, plain_ms=plain_ms, **bound(flops, field_bytes(pack, BATCH, POINTS), peak),
             tflops_achieved=flops / ms / 1e9)
+        if dtype == torch.bfloat16:  # the FiLM-sine epilogue, not overlapped with the products
+            evals = BATCH * POINTS * (DEPTH + 1) * WIDTH
+            out[name]["sine_epilogue_fp32_ms"] = (
+                evals * SINE_INSTRUCTIONS / (PEAK_F32_FLOPS / 2) * 1e3)
         del net, pts, views, args, pack
         torch.cuda.empty_cache()
     results["field_timing"] = out
@@ -650,11 +693,12 @@ def main() -> int:
     for src in SOURCES:
         _ext.load(src)
         ptxas = [ln.strip() for ln in open(str(_ext.library_path(src)) + ".log")
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "Function properties" in ln]
         emit(phase="build", source=f"csrc/{src}.cu", seconds_all_sources=seconds,
              built=built[src], ptxas=ptxas)
 
-    checks = [check_field(DEPTH, POINTS, seed=1), check_field(3, 700, seed=2)]
+    checks = [check_field(DEPTH, POINTS, seed=1), check_field(3, 700, seed=2),
+              check_field(3, 700, seed=3, width=64), check_field(3, 700, seed=4, width=512)]
     for rec in checks:
         emit(phase="kernel_check", kernel="siren_field", **rec)
     results["field_checks"] = checks
@@ -678,8 +722,10 @@ def main() -> int:
         dict(name="siren_field", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/siren_field.cu",
              replaces="sdface_gan_tpu/ops/siren_kernel.py:40",
+             kernel=bf16["kernel"], design=bf16["design"],
              launches=results["launches"]["siren_field"], checked=True,
-             max_abs_err=checks[0]["f32_max_abs_err"],
+             max_abs_err=checks[0]["bf16_max_abs_kernel_vs_plain"],
+             f32_max_abs_err=checks[0]["f32_max_abs_err"],
              ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],
              bound_by=bf16["bound_by"], library_ms=None),
         dict(name="table_gather", route="cuda",

@@ -15,10 +15,12 @@ its activations kept on chip (``csrc/siren_field.cu``).
   only: a build or launch failure raises.
 
 The dot dtype is the packed weights' dtype, which is the network's
-parameter dtype: bf16 weights give bf16 operands with f32 accumulation,
-f32 weights an f32 field.  (The JAX fused path always rounds operands to
-bf16.)  The sampler enables this path by default; the JAX sampler's
-opposite default rests on a TPU timing that says nothing of this card.
+parameter dtype, and it alone picks the kernel (:func:`kernel_name`): bf16
+weights give bf16 operands with f32 accumulation on the tensor cores
+(``mma.sync``), f32 weights an f32 field on the FMA pipes.  (The JAX fused
+path always rounds operands to bf16.)  The sampler enables this path by
+default; the JAX sampler's opposite default rests on a TPU timing that
+says nothing of this card.
 The kernel has no backward, as the TPU kernel has none: the wrapper
 refuses grad mode and inputs that require grad.
 """
@@ -34,7 +36,15 @@ import torch
 from . import _ext
 from .transcendental import fast_sin
 
-_DOT_DTYPES = (torch.float32, torch.bfloat16)
+_KERNELS = {torch.bfloat16: "siren_field_mma_kernel", torch.float32: "siren_field_kernel<float>"}
+
+
+def kernel_name(dot_dtype: torch.dtype) -> str:
+    """The name of the CUDA kernel that runs a field of this dot dtype, as
+    the profiler shows it: bf16 on the tensor cores, f32 on the FMA pipes."""
+    if dot_dtype not in _KERNELS:
+        raise ValueError(f"dot dtype must be one of {tuple(_KERNELS)}, got {dot_dtype}")
+    return _KERNELS[dot_dtype]
 
 
 @dataclass(frozen=True)
@@ -157,8 +167,7 @@ def _check_inputs(pack, pts, views, gamma, beta) -> None:
     for name, (t, shape) in expect.items():
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"{name}: expected f32 {shape}, got {t.dtype} {tuple(t.shape)}")
-    if pack.dot_dtype not in _DOT_DTYPES:
-        raise ValueError(f"dot dtype must be one of {_DOT_DTYPES}, got {pack.dot_dtype}")
+    kernel_name(pack.dot_dtype)
     if w % 64 or not 64 <= w <= 512:
         raise ValueError(f"the CUDA field takes widths 64..512 in steps of 64, got {w}")
     for t in (pts, views, gamma, beta) + pack.tensors():
@@ -166,6 +175,9 @@ def _check_inputs(pack, pts, views, gamma, beta) -> None:
             raise ValueError(f"all tensors must be on {pts.device}, got one on {t.device}")
         if not t.is_contiguous():
             raise ValueError("the CUDA field takes contiguous tensors")
+    for t in (gamma, beta) + pack.tensors():  # 16-byte weight copies, paired loads
+        if t.data_ptr() % 16:
+            raise ValueError("the CUDA field takes 16-byte aligned weights and FiLM tensors")
 
 
 def siren_field_fused_parts(

@@ -47,6 +47,19 @@ def _field_args(dtype, depth=3, width=256, style_dim=64, p=700, seed=0):
     return pack, pts, views, gamma, beta
 
 
+def _device_kernels(fn):
+    """Names of the CUDA kernels that ``fn()`` launches, from the profiler
+    (three calls, since the profiler can drop some device records)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    return [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+
+
 @pytest.mark.parametrize("dot_dtype", ["float32", "bfloat16"])
 def test_field_kernel_matches_plain_version(cuda, dot_dtype):
     """Depth 3, width 256, P=700 (a partial last tile)."""
@@ -65,6 +78,35 @@ def test_field_kernel_matches_plain_version(cuda, dot_dtype):
         tol = 1e-3 if dot_dtype == "float32" else 5e-2
         np.testing.assert_allclose(g.float().cpu().numpy(), w.float().cpu().numpy(),
                                    rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("p", [1, 700, 128 * 3 + 5])
+@pytest.mark.parametrize("width", [64, 192, 256, 512])
+@pytest.mark.parametrize("depth", [1, 3, 8])
+def test_bf16_field_kernel_holds_the_bf16_contract(cuda, depth, width, p):
+    """The tensor-core kernel: its mean error against the f32 field is no
+    worse than the plain bf16 version's (test_ops.py:346-381), over widths
+    (tiles of 512, 256, 128, 64 points), depths and ragged last tiles; one
+    launch per call."""
+    f32 = _field_args(torch.float32, depth=depth, width=width, p=p, seed=depth + width + p)
+    pack32, pts, views, gamma32, beta32 = f32
+    net16 = _field_args(torch.bfloat16, depth=depth, width=width, p=p, seed=depth + width + p)
+    pack16, _, _, gamma16, beta16 = net16
+    with torch.no_grad():
+        truth = torch.cat([t.float() for t in siren_kernel.siren_field_reference(*f32)], -1)
+        plain = siren_kernel.siren_field_reference(pack16, pts, views, gamma16, beta16)
+        before = _ext.LAUNCHES["siren_field"]
+        got = siren_kernel.siren_field_fused_parts(pack16, pts, views, gamma16, beta16)
+        torch.cuda.synchronize()
+        assert _ext.LAUNCHES["siren_field"] == before + 1
+    for g, w in zip(got, plain):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    got = torch.cat([t.float() for t in got], -1)
+    plain = torch.cat([t.float() for t in plain], -1)
+    assert bool(torch.isfinite(got).all())
+    err_kernel = (got - truth).abs().mean().item()
+    err_plain = (plain - truth).abs().mean().item()
+    assert err_kernel <= 1.2 * err_plain + 1e-4, (err_kernel, err_plain)
 
 
 def test_field_kernel_rejects_what_it_does_not_take(cuda):
@@ -94,6 +136,12 @@ def test_sampler_runs_the_field_kernel(cuda):
     bf16 = SDFaceSampler(copy.deepcopy(model).to(torch.bfloat16), batch=2)
     c = bf16.sample(seed=1)
     assert c.dtype == torch.bfloat16 and bool(torch.isfinite(c).all())
+    # each request through the kernel of its dtype, seen by name on the card
+    names16 = _device_kernels(lambda: bf16.sample(seed=1))
+    assert any(siren_kernel.kernel_name(torch.bfloat16) in k for k in names16), names16
+    assert not any("siren_field_kernel" in k for k in names16), names16
+    names32 = _device_kernels(lambda: fused.sample(seed=1))
+    assert any(siren_kernel.kernel_name(torch.float32) in k for k in names32), names32
     assert model.cfg.renderer.use_fused_kernel is False  # the model's cfg is untouched
 
 

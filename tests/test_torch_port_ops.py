@@ -6,6 +6,8 @@ CUDA kernel runs only on a card: its cases are in
 ``test_torch_port_cuda.py``, which imports no JAX.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -192,3 +194,60 @@ def test_fused_field_refuses_grad(field_case):
     with pytest.raises(RuntimeError, match="no backward"):
         siren_kernel.siren_field_fused_parts(
             pack, torch.from_numpy(pts), torch.from_numpy(views), gamma, beta)
+
+
+def test_field_kernel_is_chosen_by_dot_dtype():
+    """bf16 runs on the tensor cores, f32 on the FMA pipes; nothing else."""
+    assert siren_kernel.kernel_name(torch.bfloat16) == "siren_field_mma_kernel"
+    assert siren_kernel.kernel_name(torch.float32) == "siren_field_kernel<float>"
+    with pytest.raises(ValueError, match="dot dtype"):
+        siren_kernel.kernel_name(torch.float16)
+
+
+def _small_field(width, dtype=torch.bfloat16, depth=2, p=5):
+    net = SirenGenerator(SirenConfig(depth=depth, width=width, style_dim=8),
+                         generator=torch.Generator().manual_seed(0)).to(dtype)
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.standard_normal((2, p, 3)).astype(np.float32))
+    style = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32))
+    with torch.no_grad():
+        pack = siren_kernel.pack_siren_field(net)
+        gamma, beta = siren_kernel.film_coeffs(net, style)
+    return pack, pts, pts.clone(), gamma, beta
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("case", ["ok_64", "ok_192", "ok_512", "ok_f32", "width_32",
+                                  "width_576", "width_96", "f16", "misaligned_weight",
+                                  "misaligned_gamma"])
+def test_field_kernel_input_checks(case):
+    """What the CUDA wrapper checks before a launch, run on CPU tensors:
+    widths 64..512 in steps of 64 for both kernels, a bf16 or f32 dot dtype,
+    16-byte aligned weights and FiLM tensors (the kernels' vector copies)."""
+    width = {"ok_192": 192, "ok_512": 512, "width_32": 32, "width_576": 576,
+             "width_96": 96}.get(case, 64)
+    dtype = torch.float32 if case == "ok_f32" else torch.bfloat16
+    pack, pts, views, gamma, beta = _small_field(width, dtype)
+    if case == "f16":  # the dot dtype is the packed weights' dtype
+        pack = dataclasses.replace(pack, w_first=pack.w_first.half())
+    if case == "misaligned_weight":
+        pack = dataclasses.replace(pack, w_hidden=_misaligned(pack.w_hidden))
+        assert pack.w_hidden.is_contiguous() and pack.w_hidden.data_ptr() % 16
+    if case == "misaligned_gamma":
+        gamma = _misaligned(gamma)
+    match = {"width_32": "widths", "width_576": "widths", "width_96": "widths",
+             "f16": "dot dtype", "misaligned_weight": "aligned",
+             "misaligned_gamma": "aligned"}.get(case)
+    if match is None:
+        siren_kernel._check_inputs(pack, pts, views, gamma, beta)
+    else:
+        with pytest.raises(ValueError, match=match):
+            siren_kernel._check_inputs(pack, pts, views, gamma, beta)
