@@ -57,13 +57,39 @@ non-zero with no ``ok`` line:
              for table_gather, one PyTorch call's computing the same function,
              on the points of a real request; sampler images/s of both
              generators; beside the card's name and power limit.
-7. the ``kernels`` line, then the nvidia-smi line, then the ``ok`` line.
+7. train    - the training path (``sdface_gan_tpu_torch.training``), which
+             runs no kernel of its own (the fused kernels have no backward):
+             train_parity: a stage-A G step (eikonal), a stage-A D step
+             (R1), a stage-B regularized D step and a path step, loss and
+             every parameter gradient on the card against the CPU, same
+             weights and inputs, f32 (batch 2, 16^2 thumbs, depth 3, width
+             64, 64^2 decoder; loss rel <= 1e-4, each gradient's difference
+             <= 1e-3 of its norm + 1e-6; the path step 1e-3 and 2e-2, see
+             ``TRAIN_TOLERANCES``); train_eikonal_check: the f32
+             subsampled eikonal term at full width at 64 points against
+             central differences (h = 1e-7) of an f64 copy of the
+             field (<= 1e-3 of the largest component; the f64 copy's own
+             autograd term <= 1e-4); stage A of ``ffhq_256_sdf`` through
+             ``train_volume_renderer``: 2 sphere-init steps and 3
+             iterations under (a) the reference settings (f32, full
+             eikonal, remat) and (b) ``ffhq_256_sdf_tpu`` (bf16 G
+             parameters, 4096 eikonal points, no remat) and (a) without
+             remat (what the checkpointing costs), one ``train`` line
+             per logged step, D and G step medians after the first
+             iteration, peak memory; stage B through ``train_full_pipeline``
+             from (a)'s ``vol_renderer``: 3 iterations at 256^2, f32, the
+             first with the regularized D and the path step, then both
+             timed warm; train_profile: one stage-A G step and one D step
+             profiled, the G step's top device operations.  Every loss is
+             finite and siren_field never launches (counts and profiler).
+8. the ``kernels`` line, then the nvidia-smi line, then the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -656,6 +682,397 @@ def time_ngp_kernels(results: dict, tuned_model) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training (no kernel of its own: the fused kernels have no backward)
+# ---------------------------------------------------------------------------
+
+# (loss rel, gradient rel) of the card against the CPU: |l_cuda - l_cpu| <= a |l_cpu|,
+# ||g_cuda - g_cpu|| <= b ||g_cpu|| + 1e-6 for every parameter.  The path step is
+# looser: cuDNN runs the decoder's f32 convs with FFT algorithms (complex-f32 GEMM
+# kernels in the profile), and the penalty, the squared norm of a gradient through 12
+# modulated convs, amplifies their rounding (measured 3.6e-4 and 5.1e-3, H100).
+TRAIN_TOLERANCES = {"stage_a_g": (1e-4, 1e-3), "stage_a_d_r1": (1e-4, 1e-3),
+                    "stage_b_d_r1": (1e-4, 1e-3), "stage_b_path": (1e-3, 2e-2)}
+EIKONAL_FD_RTOL = 1e-3  # f32 eikonal on the card vs f64 central differences, of max |grad|
+# settings (a) reference parity, (b) TPU-tuned, and (a) with remat off
+STAGE_A_BATCH = {"a": 8, "b": 8, "a_no_remat": 8}
+
+
+def fake_loader(img_res: int, thumb_res: int, batch: int, seed: int = 0):
+    """(img, thumb) batches in [-1, 1] from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    while True:
+        yield (rng.uniform(-1, 1, (batch, img_res, img_res, 3)).astype(np.float32),
+               rng.uniform(-1, 1, (batch, thumb_res, thumb_res, 3)).astype(np.float32))
+
+
+def _grad_errors(loss_c, module_c, loss_h, module_h, params=None) -> dict:
+    """Per-parameter ||g_cuda - g_cpu|| / ||g_cpu|| (with the 1e-6 floor)."""
+    import torch
+
+    names = [n for n, _ in module_c.named_parameters()
+             if params is None or n.startswith(params)]
+    pc = dict(module_c.named_parameters())
+    ph = dict(module_h.named_parameters())
+    gc = torch.autograd.grad(loss_c, [pc[n] for n in names], allow_unused=True)
+    gh = torch.autograd.grad(loss_h, [ph[n] for n in names], allow_unused=True)
+    out = {}
+    for n, a, b in zip(names, gc, gh):
+        a = torch.zeros_like(ph[n]) if a is None else a.cpu()
+        b = torch.zeros_like(ph[n]) if b is None else b
+        out[n] = ((a - b).norm().item(), b.norm().item())
+    return out
+
+
+def train_parity() -> dict:
+    """One stage-A G step (eikonal), one stage-A D step (R1), one stage-B
+    regularized D step and one path step, each as loss + gradients on the
+    card and on the CPU from the same weights and inputs, f32, no jitter:
+    batch 2, out_im_res 16, 24 samples, depth 3, width 64, style 64,
+    decoder and D at 64^2 (channel base 128)."""
+    import copy
+
+    import torch
+
+    from sdface_gan_tpu_torch.geometry import CameraParams, generate_camera_params
+    from sdface_gan_tpu_torch.models import (
+        Generator,
+        GeneratorConfig,
+        RendererConfig,
+        StyleDiscConfig,
+        StyleDiscriminator,
+        VolumeRenderDiscConfig,
+        VolumeRenderDiscriminator,
+    )
+    from sdface_gan_tpu_torch.training import steps
+
+    style, res, batch = 64, 16, 2
+    rkw = dict(type="sdf", out_im_res=res, n_samples=SAMPLES, style_dim=style, width=64,
+               depth=3, force_background=False)
+    cfg_a = GeneratorConfig(size=64, style_dim=style, full_pipeline=False,
+                            renderer=RendererConfig(output_features=False, return_sdf=True,
+                                                    **rkw))
+    cfg_b = GeneratorConfig(size=64, style_dim=style, full_pipeline=True, freeze_renderer=True,
+                            channel_base=128, renderer=RendererConfig(**rkw))
+    vcfg = VolumeRenderDiscConfig(in_res=res)
+    scfg = StyleDiscConfig(size=64, channel_multiplier=2, channel_base=128)
+    hp = steps.TrainHParams(batch=batch, style_dim=style)
+    seed = torch.Generator().manual_seed
+    models = {"cpu": dict(ga=Generator(cfg_a, "cpu", seed(1)), gb=Generator(cfg_b, "cpu", seed(2)),
+                          va=VolumeRenderDiscriminator(vcfg, seed(3)),
+                          sb=StyleDiscriminator(scfg, seed(4)))}
+    models["cuda"] = {k: copy.deepcopy(m).cuda() for k, m in models["cpu"].items()}
+    gen = seed(5)
+    z, z2 = torch.randn((batch, style), generator=gen), torch.randn((batch, style), generator=gen)
+    cams = generate_camera_params(res, gen, batch=batch, device="cpu")
+    thumbs = torch.rand((batch, res, res, 3), generator=gen) * 2 - 1
+    imgs = torch.rand((batch, 64, 64, 3), generator=gen) * 2 - 1
+    noise = torch.randn((batch, 64, 64, 3), generator=gen) / 64.0
+    mean0 = torch.tensor(0.0)  # (pl - mean)^2 with mean ~ pl would amplify rounding
+
+    def on(dev):
+        m = models[dev]
+        to = lambda t: t.to(dev)  # noqa: E731
+        c = CameraParams(*map(to, cams))
+        a_in = steps.StepInputs(to(z), c)
+        b_in = steps.StepInputs(to(z), c, to(z2), 3, path_noise=to(noise))
+        return {
+            "stage_a_g": (steps.stage_a_g_loss(m["ga"], m["va"], cfg_a, vcfg, hp, a_in)[0],
+                          m["ga"], None),
+            "stage_a_d_r1": (steps.stage_a_d_loss(m["ga"], m["va"], cfg_a, vcfg, hp, to(thumbs),
+                                                  a_in)[0], m["va"], None),
+            "stage_b_d_r1": (steps.stage_b_d_loss(m["gb"], m["sb"], cfg_b, scfg, hp, to(imgs),
+                                                  b_in, regularize=True)[0], m["sb"], None),
+            "stage_b_path": (steps.stage_b_path_loss(m["gb"], cfg_b, hp, b_in, to(mean0))[0],
+                             m["gb"], "decoder."),
+        }
+
+    with torch.enable_grad():
+        cuda, cpu = on("cuda"), on("cpu")
+        out, errors = {}, {}
+        for name in cuda:
+            (lc, mc, prefix), (lh, mh, _) = cuda[name], cpu[name]
+            errors[name] = errs = _grad_errors(lc, mc, lh, mh, prefix)
+            worst = max(errs, key=lambda n: errs[n][0] / (errs[n][1] + 1e-30))
+            out[name] = dict(loss_cuda=lc.item(), loss_cpu=lh.item(),
+                             loss_rel_err=abs(lc.item() - lh.item()) / max(abs(lh.item()), 1e-30),
+                             params=len(errs), worst_param=worst,
+                             worst_grad_rel_err=errs[worst][0] / (errs[worst][1] + 1e-30))
+    emit(phase="train_parity", tolerances=TRAIN_TOLERANCES, **out)
+    for name, rec in out.items():
+        loss_tol, grad_tol = TRAIN_TOLERANCES[name]
+        check(rec["loss_rel_err"] <= loss_tol,
+              f"{name}: loss cuda vs cpu rel {rec['loss_rel_err']} <= {loss_tol}")
+        for n, (e, s) in errors[name].items():
+            check(e <= grad_tol * s + 1e-6, f"{name}: grad {n} cuda vs cpu {e} vs {s}")
+    return out
+
+
+def eikonal_fd_check(n: int = 64) -> dict:
+    """The port's subsampled eikonal term on the card (f32, full width) at n
+    frustum points against central differences of an f64 copy of the
+    field's SDF (h = 1e-7), and the f64 copy's own autograd term too (<= 1e-4
+    of the largest component: a wrong derivative is off by O(1); a step of
+    1e-6 already crosses the polynomial sine's range-reduction seams, whose
+    ~1e-7 jumps then show as 1e-5 of it)."""
+    import copy
+
+    import torch
+
+    from sdface_gan_tpu_torch.geometry import generate_camera_params
+    from sdface_gan_tpu_torch.models import RendererConfig, VolumeFeatureRenderer
+    from sdface_gan_tpu_torch.models.renderer import _subsampled_eikonal, frustum_points
+
+    cfg = RendererConfig(type="sdf", out_im_res=RES, n_samples=SAMPLES, style_dim=STYLE,
+                         width=WIDTH, depth=DEPTH, output_features=False, eikonal_subsample=n,
+                         remat=False)
+    rend = VolumeFeatureRenderer(cfg, generator=torch.Generator().manual_seed(6)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cams = generate_camera_params(RES, gen, batch=1, device="cuda")
+    style = torch.randn((1, STYLE), generator=gen, device="cuda")
+    u_uv = torch.rand((1, n, 2), generator=gen, device="cuda")
+    u_t = torch.rand((1, n), generator=gen, device="cuda")
+    near, far = cams.near.reshape(1, 1, 1, 1), cams.far.reshape(1, 1, 1, 1)
+    with torch.enable_grad():
+        eik = _subsampled_eikonal(rend, cfg, cams.focal, cams.extrinsics, near, far, style,
+                                  draws=(u_uv, u_t)).detach().double()
+    net64 = copy.deepcopy(rend.network).double()
+    d = lambda t: t.double()  # noqa: E731
+    pts = frustum_points(RES, d(cams.focal), d(cams.extrinsics), d(near), d(far), d(u_uv),
+                         d(u_t))
+    scale = 2.0 / (d(far) - d(near)).reshape(1, 1, 1)
+    zeros = torch.zeros_like(pts)
+
+    def sdf(p):
+        return net64.forward_parts(p * scale, zeros, d(style))[1][..., 0]
+
+    h = 1e-7
+    fd = torch.stack([(sdf(pts + h * e) - sdf(pts - h * e)) / (2 * h)
+                      for e in torch.eye(3, dtype=torch.float64, device="cuda")], -1)
+    with torch.enable_grad():
+        p = pts.clone().requires_grad_(True)
+        (auto64,) = torch.autograd.grad(sdf(p).sum(), p)
+    scale_fd = fd.abs().max().item()
+    err32 = (eik - fd).abs().max().item()
+    err64 = (auto64 - fd).abs().max().item()
+    rec = dict(points=n, width=WIDTH, depth=DEPTH, fd_step=h, max_abs_grad=scale_fd,
+               f32_card_vs_fd_max_abs_err=err32, f64_autograd_vs_fd_max_abs_err=err64,
+               tolerance=f"{EIKONAL_FD_RTOL} x max |grad|",
+               mean_grad_norm=fd.norm(dim=-1).mean().item())
+    check(err32 <= EIKONAL_FD_RTOL * scale_fd, f"eikonal f32 vs finite differences: {err32}")
+    check(err64 <= 1e-4 * scale_fd, f"eikonal f64 autograd vs finite differences: {err64}")
+    return rec
+
+
+def _train_rows(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _finite_losses(rows: list, what: str) -> None:
+    import math
+
+    for r in rows:
+        for k, v in r.items():
+            check(math.isfinite(v), f"{what}: {k} at step {r['step']} is finite")
+
+
+def run_stage_a(setting: str, out_dir: str) -> dict:
+    """2 sphere-init steps, then 3 stage-A iterations of the flagship at
+    full width through ``train_volume_renderer``."""
+    import torch
+
+    from sdface_gan_tpu_torch import configs
+    from sdface_gan_tpu_torch.ops import _ext
+    from sdface_gan_tpu_torch.training import train_volume_renderer
+
+    tpu = setting == "b"
+    gcfg = configs.ffhq_256_sdf_tpu(stage_a=True) if tpu else configs.ffhq_256_sdf(stage_a=True)
+    if setting == "a_no_remat":
+        gcfg = dataclasses.replace(gcfg, renderer=dataclasses.replace(gcfg.renderer, remat=False))
+    hp = configs.train_hparams(tpu=tpu, batch=STAGE_A_BATCH[setting])
+    vcfg, _ = configs.discriminator_configs()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        train_volume_renderer(fake_loader(gcfg.size, gcfg.renderer.out_im_res, hp.batch),
+                              gcfg, vcfg, hp, out_dir,
+                              iters=3, sphere_init_iters=2, save_every=0, sample_every=0,
+                              log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rows = _train_rows(os.path.join(out_dir, "vol_render_metrics.jsonl"))
+    _finite_losses(rows, f"stage A ({setting})")
+    adv = [r for r in rows if "g" in r]
+    check(len(adv) == 3, "3 stage-A iterations logged")
+    for r in rows:
+        emit(phase="train", run=f"stage_a_{setting}", **r)
+    check(_ext.LAUNCHES["siren_field"] == 0, "no siren_field launch in training")
+    rec = dict(setting=setting, batch=hp.batch, g_param_dtype=hp.g_param_dtype,
+               eikonal_subsample=gcfg.renderer.eikonal_subsample, remat=gcfg.renderer.remat,
+               d_ms=statistics.median(r["d_ms"] for r in adv[1:]),
+               g_ms=statistics.median(r["g_ms"] for r in adv[1:]),
+               first_iteration_ms=adv[0]["d_ms"] + adv[0]["g_ms"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, seconds=seconds,
+               siren_field_launches=_ext.LAUNCHES["siren_field"])
+    return rec
+
+
+def run_stage_b(vol_dir: str, out_dir: str) -> dict:
+    """3 stage-B iterations at 256^2, f32, from stage A's ``vol_renderer``;
+    iteration 0 takes the regularized D and the path step.  Then the warm
+    regularized D and path steps timed on the trained models."""
+    import torch
+
+    from sdface_gan_tpu_torch import configs
+    from sdface_gan_tpu_torch.models import Generator, StyleDiscriminator
+    from sdface_gan_tpu_torch.ops import _ext
+    from sdface_gan_tpu_torch.training import (
+        stage_b_optimizers,
+        train_full_pipeline,
+    )
+    from sdface_gan_tpu_torch.training.loop import _generator
+    from sdface_gan_tpu_torch.training.steps import (
+        sample_inputs,
+        stage_b_d_step,
+        stage_b_path_step,
+    )
+    from sdface_gan_tpu_torch.utils.checkpoints import load_checkpoint
+
+    gcfg = configs.ffhq_256_sdf(stage_a=False)
+    hp = configs.train_hparams(batch=BATCH)
+    _, scfg = configs.discriminator_configs()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _ext.reset_launch_counts()
+    with torch.enable_grad():
+        train_full_pipeline(fake_loader(gcfg.size, gcfg.renderer.out_im_res, hp.batch),
+                            gcfg, scfg, hp, out_dir,
+                            vol_renderer_dir=vol_dir, iters=3, save_every=0, sample_every=0,
+                            log_every=1, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rows = _train_rows(os.path.join(out_dir, "full_pipeline_metrics.jsonl"))
+    _finite_losses(rows, "stage B")
+    check([r["step"] for r in rows] == [0, 1, 2], "3 stage-B iterations logged")
+    check("r1" in rows[0] and "path" in rows[0], "iteration 0: regularized D and path step")
+    for r in rows:
+        emit(phase="train", run="stage_b", **r)
+
+    ck = load_checkpoint(out_dir, "full_pipeline", map_location="cuda")
+    g = Generator(gcfg, device="cuda")
+    g.load_state_dict(ck["g"])
+    d = StyleDiscriminator(scfg).cuda()
+    d.load_state_dict(ck["d"])
+    g_opt, d_opt = stage_b_optimizers(g, d)
+    real = torch.rand((hp.batch, gcfg.size, gcfg.size, 3), device="cuda") * 2 - 1
+    dev = torch.device("cuda")
+    res, n_latent = gcfg.renderer.out_im_res, gcfg.decoder.n_latent
+    mean = torch.zeros((), device="cuda")
+    with torch.enable_grad():
+        d_in = sample_inputs(hp, res, hp.batch, _generator(dev, 0, "smoke", "d"), n_latent)
+        p_in = sample_inputs(hp, res, hp.batch // hp.path_batch_shrink,
+                             _generator(dev, 0, "smoke", "p"), n_latent)
+        reg_d_ms = cuda_ms(lambda: stage_b_d_step(g, d, d_opt, gcfg, scfg, hp, real, d_in,
+                                                  regularize=True), iters=3, warmup=1)
+        path_ms = cuda_ms(lambda: stage_b_path_step(g, g_opt, gcfg, hp, p_in, mean),
+                          iters=3, warmup=1)
+    check(_ext.LAUNCHES["siren_field"] == 0, "no siren_field launch in training")
+    return dict(batch=hp.batch, path_batch=hp.batch // hp.path_batch_shrink,
+                d_ms=statistics.median(r["d_ms"] for r in rows[1:]),
+                g_ms=statistics.median(r["g_ms"] for r in rows[1:]),
+                first_iteration=dict(reg_d_ms=rows[0]["d_ms"], g_ms=rows[0]["g_ms"],
+                                     path_ms=rows[0]["path_ms"]),
+                warm_reg_d_ms=reg_d_ms, warm_path_ms=path_ms, peak_memory_gb=peak,
+                siren_field_launches=_ext.LAUNCHES["siren_field"])
+
+
+def profile_train_step(vol_dir: str) -> dict:
+    """One stage-A G step and one D step of setting (a), profiled: the top
+    device operations of the G step, and no siren_field row in either."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdface_gan_tpu_torch import configs
+    from sdface_gan_tpu_torch.models import Generator, VolumeRenderDiscriminator
+    from sdface_gan_tpu_torch.training import stage_a_optimizers
+    from sdface_gan_tpu_torch.training.loop import _frozen_copy, _generator
+    from sdface_gan_tpu_torch.training.steps import sample_inputs, stage_a_d_step, stage_a_g_step
+    from sdface_gan_tpu_torch.utils.checkpoints import load_checkpoint
+
+    gcfg = configs.ffhq_256_sdf(stage_a=True)
+    hp = configs.train_hparams(batch=STAGE_A_BATCH["a"])
+    vcfg, _ = configs.discriminator_configs()
+    ck = load_checkpoint(vol_dir, "vol_renderer", map_location="cuda")
+    g = Generator(gcfg, device="cuda")
+    g.load_state_dict(ck["g"])
+    d = VolumeRenderDiscriminator(vcfg).cuda()
+    d.load_state_dict(ck["d"])
+    g_ema = _frozen_copy(g)
+    g_opt, d_opt = stage_a_optimizers(g, d)
+    dev = torch.device("cuda")
+    res = gcfg.renderer.out_im_res
+    real = torch.rand((hp.batch, res, res, 3), device="cuda") * 2 - 1
+    inputs = sample_inputs(hp, res, hp.batch, _generator(dev, 0, "profile"))
+
+    def g_step():
+        stage_a_g_step(g, d, g_opt, g_ema, gcfg, vcfg, hp, inputs)
+
+    def d_step():
+        stage_a_d_step(g, d, d_opt, gcfg, vcfg, hp, real, inputs)
+
+    out = {}
+    with torch.enable_grad():
+        g_step()
+        d_step()
+        torch.cuda.synchronize()
+        for name, fn in (("g_step", g_step), ("d_step", d_step)):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+            dev_us = {}
+            for ev in prof.key_averages():
+                if ev.device_type == DeviceType.CUDA:
+                    us = getattr(ev, "device_time_total", None)
+                    dev_us[ev.key] = (us if us is not None else ev.cuda_time_total, ev.count)
+            check(bool(dev_us), f"the {name} profile holds device events")
+            check(not any("siren_field" in k for k in dev_us), f"no siren_field row in {name}")
+            total = sum(us for us, _ in dev_us.values())
+            top = sorted(dev_us.items(), key=lambda kv: -kv[1][0])[:15]
+            out[name] = dict(host_ms=host_ms, device_ms_total=total / 1e3,
+                             device_idle_share=max(0.0, 1 - total / 1e3 / host_ms),
+                             kernels=len(dev_us),
+                             top=[(k[:100], us / 1e3, n) for k, (us, n) in top])
+    return out
+
+
+def train(results: dict) -> None:
+    """The training phase: parity on the card, the eikonal check, stage A
+    under settings (a) and (b), stage B, the profile."""
+    import tempfile
+
+    parity = train_parity()
+    eik = eikonal_fd_check()
+    emit(phase="train_eikonal_check", **eik)
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_train_") as td:
+        stage_a = {s: run_stage_a(s, os.path.join(td, f"stage_a_{s}")) for s in STAGE_A_BATCH}
+        for s, rec in stage_a.items():
+            emit(phase="train_stage_a", **rec)
+        stage_b = run_stage_b(os.path.join(td, "stage_a_a"), os.path.join(td, "stage_b"))
+        emit(phase="train_stage_b", **stage_b)
+        prof = profile_train_step(os.path.join(td, "stage_a_a"))
+        emit(phase="train_profile", setting="a", **prof)
+    results["train"] = dict(parity=parity, eikonal=eik, stage_a=stage_a, stage_b=stage_b,
+                            profile=prof)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
@@ -672,7 +1089,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.set_grad_enabled(False)  # inference only; the kernels have no backward
+    torch.set_grad_enabled(False)  # the kernels have no backward; training enables it
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -715,6 +1132,13 @@ def main() -> int:
     emit(phase="timing", nvidia_smi=smi, batch=BATCH, field=timing, ngp=ngp_timing,
          images_per_s=results["images_per_s"], ngp_images_per_s=results["ngp_images_per_s"],
          ngp_upstream_images_per_s=results["ngp_upstream_images_per_s"])
+
+    train(results)
+    emit(phase="train_summary", nvidia_smi=smi,
+         stage_a={k: {m: v[m] for m in ("batch", "d_ms", "g_ms", "peak_memory_gb")}
+                  for k, v in results["train"]["stage_a"].items()},
+         stage_b={m: results["train"]["stage_b"][m]
+                  for m in ("d_ms", "g_ms", "warm_reg_d_ms", "warm_path_ms", "peak_memory_gb")})
 
     bf16 = timing["bfloat16"]
     gather, encode = ngp_timing["table_gather"], ngp_timing["hash_encode"]

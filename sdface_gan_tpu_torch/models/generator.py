@@ -1,12 +1,15 @@
-"""The full SDF generator (inference), port of
-``sdface_gan_tpu/models/generator.py`` (training options such as
-``freeze_renderer`` come with the training slice).
+"""The full SDF generator, port of ``sdface_gan_tpu/models/generator.py``.
 
 mapping MLP -> volume renderer -> StyleGAN2 decoder.  ``Generator`` holds
 the modules under the reference ``g_ema`` names (``style.{i}``,
 ``renderer.*``, ``decoder.*``); :func:`generator_forward` takes the config
 separately, as the JAX function does, so a caller can switch runtime
 options (the fused field, extra outputs) without touching the module.
+
+Stage B freezes the renderer (``freeze_renderer``): the render runs
+without autograd and its outputs are detached, the analog of the JAX
+package's ``stop_gradient`` on them (the optimizer holds ``decoder.*``
+only).  :func:`generator_init_forward` is the sphere-init pass.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from torch import nn
 
 from ..ops.siren_kernel import SirenFieldPack
 from ..utils.device import resolve_device
-from .renderer import RendererConfig, VolumeFeatureRenderer, render
+from .renderer import RendererConfig, RenderOutput, VolumeFeatureRenderer, mlp_init_pass, render
 from .stylegan2 import (
     Decoder,
     DecoderConfig,
@@ -35,6 +38,7 @@ class GeneratorConfig:
     size: int = 256
     style_dim: int = 256
     full_pipeline: bool = True
+    freeze_renderer: bool = False
     channel_multiplier: int = 2
     channel_base: int = 512
     lr_mapping: float = 0.01
@@ -58,6 +62,7 @@ class GeneratorOutput(NamedTuple):
     thumb_rgb: torch.Tensor  # [B, res, res, 3]
     xyz: Optional[torch.Tensor]
     sdf: Optional[torch.Tensor]
+    eikonal_term: Optional[torch.Tensor]
     mask: Optional[torch.Tensor]
     latent: Optional[torch.Tensor]  # decoder per-layer latent
     weights: Optional[torch.Tensor] = None  # [B, res, res, S]
@@ -140,11 +145,13 @@ def generator_forward(
     return_latents: bool = False,
     return_sdf: bool = False,
     return_xyz: bool = False,
+    return_eikonal: bool = False,
     return_weights: bool = False,
     randomize_noise: bool = True,
     decoder_noise: Optional[List[Optional[torch.Tensor]]] = None,
     renderer_latent: Optional[torch.Tensor] = None,
     field_pack: Optional[SirenFieldPack] = None,
+    eikonal_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> GeneratorOutput:
     """Full generator forward.
 
@@ -154,6 +161,7 @@ def generator_forward(
     decoder noise (None: deterministic eval mode).  ``truncation_latent``
     is ``(renderer_mean, decoder_mean)`` from :func:`mean_latent`.
     ``field_pack``: weights packed once for the fused field.
+    ``return_eikonal`` (and ``eikonal_draws``) as in ``render``.
     """
     if not input_is_latent:
         styles = [map_style(model, s) for s in styles]
@@ -171,8 +179,12 @@ def generator_forward(
         latent0 = renderer_latent
     else:
         latent0 = latents[0][:, 0] if (input_is_latent and latents[0].ndim == 3) else latents[0]
-    out = render(model.renderer, rcfg, focal, cam_extrinsics, near, far, latent0,
-                 generator=generator, field_pack=field_pack)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not cfg.freeze_renderer):
+        out = render(model.renderer, rcfg, focal, cam_extrinsics, near, far, latent0,
+                     generator=generator, field_pack=field_pack,
+                     return_eikonal=return_eikonal, eikonal_draws=eikonal_draws)
+    if cfg.freeze_renderer:
+        out = RenderOutput(*(t.detach() if t is not None else None for t in out))
 
     rgb = dec_latent = None
     if cfg.full_pipeline:
@@ -188,7 +200,25 @@ def generator_forward(
                             generator=generator if randomize_noise else None)
 
     return GeneratorOutput(
-        rgb=rgb, thumb_rgb=out.rgb, xyz=out.xyz, sdf=out.sdf, mask=out.mask,
+        rgb=rgb, thumb_rgb=out.rgb, xyz=out.xyz, sdf=out.sdf,
+        eikonal_term=out.eikonal_term, mask=out.mask,
         latent=dec_latent if return_latents else None,
         weights=out.weights, s_vals=out.s_vals,
     )
+
+
+def generator_init_forward(
+    model: Generator,
+    cfg: GeneratorConfig,
+    styles: Sequence[torch.Tensor],
+    cam_extrinsics: torch.Tensor,
+    focal: torch.Tensor,
+    near: torch.Tensor,
+    far: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    t_rand: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sphere-init pass: ``(sdf, target)`` of ``mlp_init_pass`` on the
+    mapped first style."""
+    return mlp_init_pass(model.renderer, cfg.renderer, focal, cam_extrinsics, near, far,
+                         map_style(model, styles[0]), generator=generator, t_rand=t_rand)

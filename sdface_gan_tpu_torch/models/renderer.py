@@ -1,23 +1,29 @@
-"""SDF volume feature renderer (inference), port of
-``sdface_gan_tpu/models/renderer.py``.
+"""SDF volume feature renderer, port of ``sdface_gan_tpu/models/renderer.py``.
 
 camera rays -> depth samples -> field (FiLM-SIREN, NGP hash grid or FC)
 -> SDF-to-density -> alpha compositing -> 64x64 thumb RGB and feature map.
 Layout is channel-last ([B, H, W, C] and [B, H, W, S, C]) as in the JAX
 package.  Compositing runs in f32 whatever the field's dtype.
 
-Not ported yet: the eikonal branches of ``render`` and ``mlp_init_pass``
-(training).
+Training: ``render(..., return_eikonal=True)`` adds d sdf / d world points
+(``torch.autograd.grad`` with ``create_graph=True``, so the eikonal loss
+is differentiable with respect to the field's parameters), over every
+rendered point or at ``eikonal_subsample`` fresh frustum points;
+:func:`mlp_init_pass` is the sphere-init regression pass.  Training never
+runs the fused kernels: they have no backward and refuse tensors that need
+a gradient.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from itertools import chain
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..geometry.rays import base_t_vals, get_rays
 from ..ops.siren_kernel import (
@@ -27,6 +33,7 @@ from ..ops.siren_kernel import (
     siren_field_fused_parts,
 )
 from ..ops.hash_encoder import HashGridSpec
+from ..utils.functional import call_with
 from .siren import (
     FCConfig,
     FCGenerator,
@@ -76,6 +83,16 @@ class RendererConfig:
     ngp_finest_res: int = 4096
     ngp_log2_hashmap_size: int = 19
     ngp_pack_mb: int = 0
+    # Recompute the field's activations in the backward pass
+    # (``torch.utils.checkpoint``) instead of keeping them from the forward.
+    remat: bool = True
+    # d sdf / d pts for the eikonal term: 'vjp' (reverse mode, the
+    # reference's semantics).  The JAX package's 'jvp' is not ported.
+    eikonal_mode: str = "vjp"
+    # Eikonal point budget: 0 = every rendered point (reference semantics);
+    # M > 0 = M fresh frustum points per batch element (random pixel ray x
+    # random depth), so the second-order graph leaves the render graph.
+    eikonal_subsample: int = 0
 
     @property
     def feature_out_size(self) -> int:
@@ -108,6 +125,8 @@ class RenderOutput(NamedTuple):
     sdf: Optional[torch.Tensor]  # [B, H, W, S, 1]
     mask: Optional[torch.Tensor]  # [B, H, W, 1]
     xyz: Optional[torch.Tensor]  # [B, H, W, 3]
+    # d sdf / d pts [B, H, W, S, 3] ([B, M, 3] under eikonal_subsample)
+    eikonal_term: Optional[torch.Tensor] = None
     weights: Optional[torch.Tensor] = None  # [B, H, W, S]
     s_vals: Optional[torch.Tensor] = None  # [B, H, W, S]
 
@@ -137,7 +156,8 @@ def _apply_network(
     tensors.  With ``use_fused_kernel`` the port's kernels run (each on a
     CUDA tensor, its plain version on a CPU one): the fused SIREN field,
     from ``field_pack`` or from weights packed for this call, or the NGP
-    field's hash-grid kernels.
+    field's hash-grid kernels.  Otherwise the plain field runs, under
+    ``checkpoint`` when ``remat`` is on and autograd is recording.
     """
     b, h, w, s, _ = pts.shape
     flat_pts = pts.reshape(b, h * w * s, 3).float().contiguous()
@@ -150,6 +170,16 @@ def _apply_network(
     elif cfg.type == "ngp":
         rgb, sdf, feat = net.forward_parts(flat_pts, flat_views, style,
                                            use_kernels=cfg.use_fused_kernel)
+    elif cfg.remat and torch.is_grad_enabled():
+        # The network's tensors go in as inputs, so the recomputation sees
+        # the ones of the forward even under a caller's parameter cast.
+        names, tensors = zip(*chain(net.named_parameters(), net.named_buffers()))
+
+        def run(p, v, s, *ts):
+            return call_with(net, dict(zip(names, ts)), type(net).forward_parts, p, v, s)
+
+        rgb, sdf, feat = checkpoint(run, flat_pts, flat_views, style, *tensors,
+                                    use_reentrant=False)
     else:
         rgb, sdf, feat = net.forward_parts(flat_pts, flat_views, style)
     return (
@@ -261,6 +291,62 @@ def _integrate(
     return rgb_map, feature_map, sdf_out, mask, xyz, weights_out
 
 
+def frustum_points(
+    res: int,
+    focal: torch.Tensor,
+    c2w: torch.Tensor,
+    near: torch.Tensor,
+    far: torch.Tensor,
+    u_uv: torch.Tensor,
+    u_t: torch.Tensor,
+) -> torch.Tensor:
+    """World points [B, M, 3] on the rays of continuous pixels ``u_uv * res``
+    ([B, M, 2]) at depths ``near + (far - near) * u_t`` ([B, M]), the
+    uniform draws in [0, 1); near/far broadcast to [B, ...]."""
+    batch, m = u_t.shape
+    uv = u_uv * res
+    focal2 = focal.reshape(batch, 1)
+    dirs = torch.stack([(uv[..., 0] - res * 0.5) / focal2,
+                        -(uv[..., 1] - res * 0.5) / focal2,
+                        -torch.ones((batch, m), dtype=u_t.dtype, device=u_t.device)], dim=-1)
+    rays_d = torch.einsum("bmi,bji->bmj", dirs, c2w[:, :3, :3])
+    t = near.reshape(batch, 1) + (far - near).reshape(batch, 1) * u_t
+    return c2w[:, None, :3, -1] + rays_d * t[..., None]
+
+
+def _subsampled_eikonal(
+    renderer: VolumeFeatureRenderer,
+    cfg: RendererConfig,
+    focal: torch.Tensor,
+    c2w: torch.Tensor,
+    near_b: torch.Tensor,
+    far_b: torch.Tensor,
+    style: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """d sdf / d pts [B, M, 3] at M = ``eikonal_subsample`` fresh frustum
+    points per batch element: a random continuous pixel's ray at a random
+    depth in [near, far], through the live camera.  ``draws`` = (uv [B, M, 2],
+    t [B, M]) uniform in [0, 1) fixes the points; otherwise they come from
+    ``generator``.  View directions are zeros (the SDF head never reads
+    them).  The gradient is taken with respect to WORLD points, the
+    z-normalization inside, as for the full eikonal term."""
+    m, batch = cfg.eikonal_subsample, c2w.shape[0]
+    if draws is None:
+        draws = (torch.rand((batch, m, 2), generator=generator, device=c2w.device),
+                 torch.rand((batch, m), generator=generator, device=c2w.device))
+    pts_e = frustum_points(cfg.out_im_res, focal, c2w, near_b, far_b, *draws)
+    scale = (2.0 / (far_b - near_b)).reshape(batch, 1, 1)
+    views0 = torch.zeros_like(pts_e)[:, None, None]
+    with torch.enable_grad():
+        p = pts_e.detach().requires_grad_(True)
+        normalized = p * scale if cfg.z_normalize else p
+        _, sdf, _ = _apply_network(renderer, cfg, normalized[:, None, None], views0, style)
+        (grad,) = torch.autograd.grad(sdf, p, torch.ones_like(sdf), create_graph=True)
+    return grad
+
+
 def render(
     renderer: VolumeFeatureRenderer,
     cfg: RendererConfig,
@@ -271,11 +357,16 @@ def render(
     style: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     field_pack: Optional[SirenFieldPack] = None,
+    return_eikonal: bool = False,
+    eikonal_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> RenderOutput:
     """Full render pass.
 
     focal/near/far [B, 1, 1]; c2w [B, 3, 4]; style [B, style_dim].
-    ``generator`` draws the depth jitter (None: deterministic test mode).
+    ``generator`` draws the depth jitter and, under ``eikonal_subsample``,
+    the eikonal points (None: deterministic depths; the eikonal points then
+    need ``eikonal_draws``, see :func:`_subsampled_eikonal`).
+    ``return_eikonal`` adds ``eikonal_term`` = d sdf / d world points.
     """
     batch = c2w.shape[0]
     rays = get_rays(focal, c2w, cfg.out_im_res, static_viewdirs=cfg.static_viewdirs)
@@ -287,12 +378,77 @@ def render(
     if cfg.view_independent:
         viewdirs = torch.zeros_like(viewdirs)
     views = viewdirs[..., None, :].expand(pts.shape)
-    normalized = pts * 2.0 / (far_b - near_b)[..., None] if cfg.z_normalize else pts
-    parts = _apply_network(renderer, cfg, normalized, views, style, field_pack)
+
+    def field(p):
+        normalized = p * 2.0 / (far_b - near_b)[..., None] if cfg.z_normalize else p
+        return _apply_network(renderer, cfg, normalized, views, style, field_pack)
+
+    eikonal_term = None
+    if return_eikonal and cfg.eikonal_subsample > 0:
+        # A missing draw must not fall back to the full-graph eikonal term:
+        # the configurations that subsample also turn remat off.
+        if generator is None and eikonal_draws is None:
+            raise ValueError("eikonal_subsample > 0 needs a generator or eikonal_draws "
+                             "for the frustum points")
+        parts = field(pts)
+        eikonal_term = _subsampled_eikonal(renderer, cfg, focal, c2w, near_b, far_b, style,
+                                           generator, eikonal_draws)
+    elif return_eikonal and cfg.eikonal_mode != "vjp":
+        raise NotImplementedError(
+            f"eikonal_mode {cfg.eikonal_mode!r} is not ported: 'jvp' was a measured "
+            "negative in the JAX package (ROADMAP.md, queue 1 item 5); use 'vjp'")
+    elif return_eikonal:
+        with torch.enable_grad():
+            pts = pts.detach().requires_grad_(True)
+            parts = field(pts)
+            sdf = parts[1]
+            (eikonal_term,) = torch.autograd.grad(sdf, pts, torch.ones_like(sdf),
+                                                  create_graph=True)
+    else:
+        parts = field(pts)
     rgb_map, feature_map, sdf_out, mask, xyz, weights = _integrate(
         renderer, cfg, parts, z_vals, rays.directions, pts, generator
     )
     s_vals = None
     if cfg.return_weights:
         s_vals = ((z_vals - near_b) / (far_b - near_b)).float()
-    return RenderOutput(rgb_map, feature_map, sdf_out, mask, xyz, weights, s_vals)
+    return RenderOutput(rgb_map, feature_map, sdf_out, mask, xyz, eikonal_term, weights,
+                        s_vals)
+
+
+def mlp_init_pass(
+    renderer: VolumeFeatureRenderer,
+    cfg: RendererConfig,
+    focal: torch.Tensor,
+    c2w: torch.Tensor,
+    near: torch.Tensor,
+    far: torch.Tensor,
+    style: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    t_rand: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sphere-init regression pass: ``(sdf [B, H, W, S], target)`` with
+    ``target = ||pts|| - (far - near) / 4`` at stratified depth samples (the
+    mid-point strata always).  ``t_rand`` [B, H, W, S] uniform in [0, 1)
+    fixes the jitter; otherwise it comes from ``generator``."""
+    batch = c2w.shape[0]
+    res, s = cfg.out_im_res, cfg.n_samples
+    rays = get_rays(focal, c2w, res, static_viewdirs=cfg.static_viewdirs)
+    near_b = near.reshape(batch, 1, 1, 1)
+    far_b = far.reshape(batch, 1, 1, 1)
+    t_vals = base_t_vals(s, cfg.offset_sampling, device=near.device).reshape(1, 1, 1, s)
+    z_vals = (near_b * (1.0 - t_vals) + far_b * t_vals).expand(batch, res, res, s)
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], -1)
+    lower = torch.cat([z_vals[..., :1], mids], -1)
+    if t_rand is None:
+        if generator is None:
+            raise ValueError("mlp_init_pass needs a generator or t_rand for the jitter")
+        t_rand = torch.rand(z_vals.shape, generator=generator, device=near.device)
+    z_vals = lower + (upper - lower) * t_rand
+    pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., None]
+    views = rays.viewdirs[..., None, :].expand(pts.shape)
+    normalized = pts * 2.0 / (far_b - near_b)[..., None] if cfg.z_normalize else pts
+    _, sdf, _ = _apply_network(renderer, cfg, normalized, views, style)
+    target = torch.linalg.norm(pts.detach(), dim=-1) - (far_b - near_b) / 4.0
+    return sdf[..., 0], target

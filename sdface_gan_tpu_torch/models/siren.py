@@ -36,7 +36,7 @@ from ..ops.hash_encoder import (
     plan_packing,
 )
 from ..ops.sh_encoder import sh_encode, sh_output_dim
-from ..ops.transcendental import fast_sin
+from ..ops.transcendental import fast_sin_lean
 from .init import film_siren_weight, hash_table, linear_params, uniform
 
 
@@ -85,6 +85,8 @@ class FiLMSiren(nn.Module):
     """``sin(gamma(style) * (x W^T + b) + beta(style))``.
 
     gamma head: std 15, bias-init 30; beta head: std 0.25, bias-init 0.
+    The sine is ``fast_sin_lean``: in training its autograd saves only its
+    argument (the eikonal term's double backward runs through it).
     """
 
     def __init__(
@@ -109,7 +111,7 @@ class FiLMSiren(nn.Module):
     def activate(self, out: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
         """FiLM modulation and sine on a precomputed linear output [B, P, out]."""
         gamma, beta = self.film(style)
-        return fast_sin(gamma[:, None, :] * out + beta[:, None, :])
+        return fast_sin_lean(gamma[:, None, :] * out + beta[:, None, :])
 
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
         out = F.linear(x.to(self.weight.dtype), self.weight) + self.bias

@@ -17,7 +17,7 @@ from .siren_kernel import (
     siren_field_fused_parts,
     siren_field_reference,
 )
-from .transcendental import fast_cos, fast_sin
+from .transcendental import fast_cos, fast_sin, fast_sin_lean
 from .upfirdn2d import blur, make_kernel, upfirdn2d, upsample2d
 
 __all__ = [
@@ -39,6 +39,7 @@ __all__ = [
     "siren_field_reference",
     "fast_cos",
     "fast_sin",
+    "fast_sin_lean",
     "blur",
     "make_kernel",
     "upfirdn2d",

@@ -86,4 +86,53 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg) -> Dict[str, torch.Ten
             to_rgb(f"decoder.to_rgbs.{i}", p)
         for i, n in enumerate(dec["noises"]):
             sd[f"decoder.noises.noise_{i}"] = np.transpose(np.asarray(n), (0, 3, 1, 2))
+    return _tensors(sd)
+
+
+def _tensors(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def jax_disc_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert a JAX discriminator parameter tree (``init_volume_render_
+    discriminator`` or ``init_style_discriminator``; the StyleGAN2 D is told
+    by its ``final_linear1``) into the port's ``VolumeRenderDiscriminator``
+    or ``StyleDiscriminator`` state dict, bit for bit.
+
+    * conv HWIO [k, k, I, O] -> ``weight`` [O, I, k, k]; ``b`` -> ``bias``
+    * ``final_linear1`` [h*w*c, out] (the JAX D flattens (h, w, c)) ->
+      ``weight`` [out, c*h*w] (the port flattens (c, h, w))
+    """
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(prefix, p):
+        sd[f"{prefix}.weight"] = np.transpose(np.asarray(p["w"]), (3, 2, 0, 1))
+        if "b" in p:
+            sd[f"{prefix}.bias"] = np.asarray(p["b"])
+
+    def act(prefix, p):
+        if "act_bias" in p:
+            sd[f"{prefix}.act_bias"] = np.asarray(p["act_bias"])
+
+    if "final_linear1" not in params:  # VolumeRenderDiscriminator
+        for prefix, p in [("conv_in", params["conv_in"]), ("final", params["final"])] + [
+                (f"blocks.{i}.{name}", blk[name])
+                for i, blk in enumerate(params["blocks"]) for name in blk]:
+            conv(prefix, p)
+            act(prefix, p)
+        return _tensors(sd)
+
+    layers = [("conv_in", params["conv_in"]), ("final_conv", params["final_conv"])] + [
+        (f"blocks.{i}.{name}", blk[name])
+        for i, blk in enumerate(params["blocks"]) for name in blk]
+    for prefix, p in layers:
+        conv(f"{prefix}.conv", p["conv"])
+        act(prefix, p)
+    w1 = np.asarray(params["final_linear1"]["w"])
+    c = w1.shape[0] // 16  # the last feature map is [4, 4, c]
+    sd["final_linear1.weight"] = w1.reshape(4, 4, c, -1).transpose(3, 2, 0, 1).reshape(
+        w1.shape[1], -1)
+    sd["final_linear1.bias"] = np.asarray(params["final_linear1"]["b"])
+    sd["final_linear2.weight"] = np.asarray(params["final_linear2"]["w"]).T
+    sd["final_linear2.bias"] = np.asarray(params["final_linear2"]["b"])
+    return _tensors(sd)

@@ -258,3 +258,86 @@ def test_sampler_runs_the_hash_kernels(cuda):
     assert _ext.LAUNCHES["table_gather"] == before["table_gather"] + 1
     b = plain.sample(seed=1)
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=2e-3, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# Training: no kernel of its own; on the card it must agree with the CPU
+# ---------------------------------------------------------------------------
+
+def _train_case():
+    """Small stage-A and stage-B models on the CPU, fixed inputs."""
+    from sdface_gan_tpu_torch.geometry import generate_camera_params
+    from sdface_gan_tpu_torch.models import (
+        StyleDiscConfig,
+        StyleDiscriminator,
+        VolumeRenderDiscConfig,
+        VolumeRenderDiscriminator,
+    )
+
+    rkw = dict(type="sdf", out_im_res=8, n_samples=6, style_dim=16, width=32, depth=2)
+    cfg_a = GeneratorConfig(size=16, style_dim=16, full_pipeline=False,
+                            renderer=RendererConfig(output_features=False, return_sdf=True,
+                                                    **rkw))
+    cfg_b = GeneratorConfig(size=32, style_dim=16, full_pipeline=True, freeze_renderer=True,
+                            channel_multiplier=1, channel_base=32,
+                            renderer=RendererConfig(**rkw))
+    vcfg = VolumeRenderDiscConfig(in_res=8)
+    scfg = StyleDiscConfig(size=32, channel_multiplier=1, channel_base=32)
+    seed = torch.Generator().manual_seed
+    gen = seed(9)
+    return dict(
+        cfg_a=cfg_a, cfg_b=cfg_b, vcfg=vcfg, scfg=scfg,
+        ga=Generator(cfg_a, "cpu", seed(1)), gb=Generator(cfg_b, "cpu", seed(2)),
+        va=VolumeRenderDiscriminator(vcfg, seed(3)), sb=StyleDiscriminator(scfg, seed(4)),
+        z=torch.randn((2, 16), generator=gen), z2=torch.randn((2, 16), generator=gen),
+        cams=generate_camera_params(8, gen, batch=2, device="cpu"),
+        imgs=torch.rand((2, 32, 32, 3), generator=gen) * 2 - 1)
+
+
+def _loss_and_grads(case, which, device):
+    from sdface_gan_tpu_torch.geometry import CameraParams
+    from sdface_gan_tpu_torch.training import steps
+
+    hp = steps.TrainHParams(batch=2, style_dim=16)
+    cams = CameraParams(*[t.to(device) for t in case["cams"]])
+    if which == "stage_a_g":
+        g, d = copy.deepcopy(case["ga"]).to(device), copy.deepcopy(case["va"]).to(device)
+        loss, _ = steps.stage_a_g_loss(g, d, case["cfg_a"], case["vcfg"], hp,
+                                       steps.StepInputs(case["z"].to(device), cams))
+        params = list(g.parameters())
+    else:
+        g, d = copy.deepcopy(case["gb"]).to(device), copy.deepcopy(case["sb"]).to(device)
+        inputs = steps.StepInputs(case["z"].to(device), cams, case["z2"].to(device), 3)
+        loss, _ = steps.stage_b_d_loss(g, d, case["cfg_b"], case["scfg"], hp,
+                                       case["imgs"].to(device), inputs, regularize=True)
+        params = list(d.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.item(), [None if x is None else x.cpu() for x in grads]
+
+
+@pytest.mark.parametrize("which", ["stage_a_g", "stage_b_d_r1"])
+def test_training_step_on_the_card_matches_the_cpu(cuda, which):
+    """The stage-A G loss (eikonal double backward) and the stage-B D loss
+    with R1 (double backward through the blur's depthwise conv): loss rel
+    1e-4, each parameter gradient's difference <= 1e-3 of its norm + 1e-6."""
+    case = _train_case()
+    with torch.enable_grad():
+        lc, gc = _loss_and_grads(case, which, "cuda")
+        lh, gh = _loss_and_grads(case, which, "cpu")
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    for a, b in zip(gc, gh):
+        if b is None:
+            assert a is None
+            continue
+        assert (a - b).norm() <= 1e-3 * b.norm() + 1e-6
+
+
+def test_training_render_never_launches_the_field_kernel(cuda):
+    """A stage-A G step on the card: the launch count of siren_field stays
+    put and no profiler row names it."""
+    case = _train_case()
+    before = _ext.LAUNCHES["siren_field"]
+    with torch.enable_grad():
+        names = _device_kernels(lambda: _loss_and_grads(case, "stage_a_g", "cuda"))
+    assert names and not any("siren_field" in n for n in names)
+    assert _ext.LAUNCHES["siren_field"] == before

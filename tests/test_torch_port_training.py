@@ -1,0 +1,909 @@
+"""The port's training path against the JAX package, on the CPU.
+
+Weights come from the JAX initializers and cross by the converters
+(``jax_params_to_state_dict``, ``jax_disc_params_to_state_dict``); inputs
+(z, cameras, real images, noise, the eikonal and sphere-init draws) are
+made once and given to both sides, with jitter off, as ROADMAP's parity
+rules ask.  The JAX losses are composed here from the JAX package's own
+functions; nothing in it changes.  Sizes are those of
+``tests/test_training.py``.  Tolerances (f32, JAX at "highest" matmul
+precision): values ``rtol 1e-4``; a gradient holds when the norm of its
+difference is at most ``GRAD_RTOL`` of the JAX gradient's norm (plus
+``GRAD_ATOL`` for the ones that are ~0).
+"""
+
+from dataclasses import fields, replace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import optax  # noqa: E402
+
+from sdface_gan_tpu.geometry import generate_camera_params as j_cams  # noqa: E402
+from sdface_gan_tpu.losses import gan_losses as j_gan  # noqa: E402
+from sdface_gan_tpu.losses import geometry_losses as j_geo  # noqa: E402
+from sdface_gan_tpu.models import discriminator as j_disc  # noqa: E402
+from sdface_gan_tpu.models import generator as j_gen  # noqa: E402
+from sdface_gan_tpu.models import renderer as j_rend  # noqa: E402
+from sdface_gan_tpu.models import stylegan2 as j_sg  # noqa: E402
+from sdface_gan_tpu.training import ema as j_ema  # noqa: E402
+from sdface_gan_tpu.training import optim as j_optim  # noqa: E402
+from sdface_gan_tpu.training import steps as j_steps  # noqa: E402
+from sdface_gan_tpu_torch import configs  # noqa: E402
+from sdface_gan_tpu_torch.geometry import CameraParams  # noqa: E402
+from sdface_gan_tpu_torch.losses import gan_losses, geometry_losses  # noqa: E402
+from sdface_gan_tpu_torch.models import discriminator, generator, renderer, stylegan2  # noqa: E402
+from sdface_gan_tpu_torch.ops.transcendental import fast_sin, fast_sin_lean  # noqa: E402
+from sdface_gan_tpu_torch.training import ema, loop, optim, steps  # noqa: E402
+from sdface_gan_tpu_torch.utils import checkpoints, images  # noqa: E402
+from sdface_gan_tpu_torch.utils.convert import (  # noqa: E402
+    jax_disc_params_to_state_dict,
+    jax_params_to_state_dict,
+)
+
+STYLE, WIDTH, DEPTH, RES, SAMPLES, BATCH = 16, 16, 2, 8, 4, 2
+VAL_TOL = dict(rtol=1e-4, atol=1e-6)
+GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-6
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _rkw(**kw):
+    return dict(type="sdf", out_im_res=RES, n_samples=SAMPLES, style_dim=STYLE, width=WIDTH,
+                depth=DEPTH, **kw)
+
+
+def _configs_a(**rkw):
+    """Stage A as the JAX build resolves it: no features, the SDF returned."""
+    rkw = _rkw(output_features=False, return_sdf=True, **rkw)
+    return (j_gen.GeneratorConfig(size=16, style_dim=STYLE, full_pipeline=False,
+                                  renderer=j_rend.RendererConfig(**rkw)),
+            generator.GeneratorConfig(size=16, style_dim=STYLE, full_pipeline=False,
+                                      renderer=renderer.RendererConfig(**rkw)))
+
+
+def _configs_b():
+    kw = dict(size=32, style_dim=STYLE, full_pipeline=True, freeze_renderer=True,
+              channel_multiplier=1, channel_base=32)
+    rkw = _rkw()
+    rkw["out_im_res"] = 8
+    return (j_gen.GeneratorConfig(renderer=j_rend.RendererConfig(**rkw), **kw),
+            generator.GeneratorConfig(renderer=renderer.RendererConfig(**rkw), **kw))
+
+
+def _port_g(params, pcfg):
+    g = generator.Generator(pcfg, device="cpu")
+    g.load_state_dict(jax_params_to_state_dict(params, pcfg))
+    return g
+
+
+def _port_d(params, dcfg):
+    d = (discriminator.VolumeRenderDiscriminator if isinstance(
+        dcfg, discriminator.VolumeRenderDiscConfig) else discriminator.StyleDiscriminator)(dcfg)
+    d.load_state_dict(jax_disc_params_to_state_dict(params))
+    return d
+
+
+def _cams(batch=BATCH, seed=1):
+    jc = j_cams(RES, jax.random.PRNGKey(seed), batch=batch)
+    return jc, CameraParams(*[_t(x) for x in jc])
+
+
+def _z(batch=BATCH, seed=2):
+    return np.random.default_rng(seed).standard_normal((batch, STYLE)).astype(np.float32)
+
+
+def _assert_grads(module, grads, ref_sd, rtol=GRAD_RTOL, atol=GRAD_ATOL):
+    """Each parameter's gradient against the JAX one (converted to the
+    port's names) by the norm of the difference."""
+    names = [n for n, _ in module.named_parameters()]
+    assert len(names) == len(grads)
+    for name, g in zip(names, grads):
+        r = ref_sd[name]
+        g = torch.zeros_like(r) if g is None else g
+        err, scale = (g - r).norm().item(), r.norm().item()
+        assert err <= rtol * scale + atol, (name, err, scale)
+
+
+def _grads(loss, module):
+    return torch.autograd.grad(loss, list(module.parameters()), allow_unused=True)
+
+
+# ---------------------------------------------------------------------------
+# Losses and the sine
+# ---------------------------------------------------------------------------
+
+def _loss_cases():
+    """name -> (module kind, function name, numpy args, extra kwargs)."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((4, 6)).astype(np.float32) * 2
+    b = rng.standard_normal((4, 6)).astype(np.float32)
+    eik = rng.standard_normal((2, 3, 3, 4, 3)).astype(np.float32)
+    sdf = rng.standard_normal((2, 3, 3, 4, 1)).astype(np.float32) * 0.05
+    beta = np.array([0.08], np.float32)
+    w = rng.uniform(0, 0.3, (2, 3, 3, 8)).astype(np.float32)
+    s = np.sort(rng.uniform(0, 1, (2, 3, 3, 8)).astype(np.float32), axis=-1)
+    return {
+        "smooth_l1": ("gan", "smooth_l1", (a, b), {}),
+        "viewpoints": ("gan", "viewpoints_loss", (a, b), {}),
+        "d_logistic": ("gan", "d_logistic_loss", (a, b), {}),
+        "g_nonsaturating": ("gan", "g_nonsaturating_loss", (a * 8,), {}),
+        "g_content": ("gan", "g_content_loss", (a, b), {}),
+        "eikonal": ("geo", "eikonal_loss", (eik, sdf), {"beta": 100.0}),
+        "eikonal_sdf_only": ("geo", "eikonal_loss", (None, sdf), {}),
+        "occupancy_sparsity": ("geo", "occupancy_sparsity_loss", (sdf, beta), {}),
+        "distortion": ("geo", "distortion_loss", (w, s), {}),
+        "sphere_init": ("geo", "sphere_init_loss", (a, b), {}),
+    }
+
+
+@pytest.mark.parametrize("name", list(_loss_cases()))
+def test_loss_matches_jax(name):
+    kind, fn, args, kw = _loss_cases()[name]
+    jmod, pmod = (j_gan, gan_losses) if kind == "gan" else (j_geo, geometry_losses)
+    ref = getattr(jmod, fn)(*[None if x is None else jnp.asarray(x) for x in args], **kw)
+    ours = getattr(pmod, fn)(*[None if x is None else _t(x) for x in args], **kw)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    ours = ours if isinstance(ours, tuple) else (ours,)
+    for o, r in zip(ours, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **VAL_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fast_sin_lean_derivatives_match_jax(dtype):
+    """Value, first and second derivative of the lean sine against JAX's
+    autodiff of its ``fast_sin`` (f32), and against torch's autodiff of the
+    port's own polynomial in the same dtype (f64: the polynomial's exact
+    derivatives)."""
+    from sdface_gan_tpu.ops.transcendental import fast_sin as j_fast_sin
+
+    x_np = np.random.default_rng(1).uniform(-60, 60, 4096).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dtype).requires_grad_(True)
+    y = fast_sin_lean(x)
+    (d1,) = torch.autograd.grad(y.sum(), x, create_graph=True)
+    (d2,) = torch.autograd.grad(d1.sum(), x)
+    xr = x.detach().clone().requires_grad_(True)
+    (r1,) = torch.autograd.grad(fast_sin(xr).sum(), xr, create_graph=True)
+    (r2,) = torch.autograd.grad(r1.sum(), xr)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-12, atol=1e-12)
+    for ours, ref in ((y, fast_sin(x.detach())), (d1, r1), (d2, r2)):
+        np.testing.assert_allclose(ours.detach().numpy(), ref.detach().numpy(), **tol)
+    jf = lambda v: jnp.sum(j_fast_sin(v))  # noqa: E731
+    jd1 = jax.grad(jf)(jnp.asarray(x_np))
+    jd2 = jax.grad(lambda v: jnp.sum(jax.grad(jf)(v)))(jnp.asarray(x_np))
+    np.testing.assert_allclose(d1.detach().float().numpy(), np.asarray(jd1), rtol=1e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(d2.float().numpy(), np.asarray(jd2), rtol=1e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# Discriminators
+# ---------------------------------------------------------------------------
+
+D_CASES = {
+    "volume_render": (j_disc.VolumeRenderDiscConfig(in_res=8),
+                      discriminator.VolumeRenderDiscConfig(in_res=8),
+                      j_disc.init_volume_render_discriminator, 8),
+    "style": (j_disc.StyleDiscConfig(size=32, channel_multiplier=1, channel_base=32),
+              discriminator.StyleDiscConfig(size=32, channel_multiplier=1, channel_base=32),
+              j_disc.init_style_discriminator, 32),
+}
+
+
+@pytest.mark.parametrize("kind", list(D_CASES))
+def test_discriminator_logits_r1_and_grads_match_jax(kind):
+    """Logits (and viewpoint head), the R1 penalty, and every D-parameter
+    gradient of logistic + R1 against ``jax.grad``; the converted state
+    dict loads strictly and is bit-equal to the JAX leaves."""
+    jcfg, pcfg, init, size = D_CASES[kind]
+    params = init(jax.random.PRNGKey(3), jcfg)
+    d = _port_d(params, pcfg)
+    rng = np.random.default_rng(4)
+    real = rng.uniform(-1, 1, (4, size, size, 3)).astype(np.float32)
+    fake = rng.uniform(-1, 1, (4, size, size, 3)).astype(np.float32)
+    apply = (j_disc.apply_volume_render_discriminator if kind == "volume_render"
+             else j_disc.apply_style_discriminator)
+
+    def logits(p, x):
+        out = apply(p, jcfg, x)
+        return out[0] if kind == "volume_render" else out
+
+    def jloss(p):
+        real_pred, r1 = j_gan.d_logits_and_r1(lambda img: logits(p, img), jnp.asarray(real))
+        return j_gan.d_logistic_loss(real_pred, logits(p, jnp.asarray(fake))) + 5.0 * r1, r1
+
+    (jl, jr1), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+
+    def plogits(x):
+        out = d(x)
+        return out[0] if kind == "volume_render" else out
+
+    real_pred, r1 = gan_losses.d_logits_and_r1(plogits, _t(real))
+    loss = gan_losses.d_logistic_loss(real_pred, plogits(_t(fake))) + 5.0 * r1
+    np.testing.assert_allclose(real_pred.detach().numpy(),
+                               np.asarray(logits(params, jnp.asarray(real))), **VAL_TOL)
+    np.testing.assert_allclose(r1.item(), float(jr1), rtol=1e-4)
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-4)
+    _assert_grads(d, _grads(loss, d), jax_disc_params_to_state_dict(jg))
+    if kind == "volume_render":
+        np.testing.assert_allclose(d(_t(real))[1].detach().numpy(),
+                                   np.asarray(apply(params, jcfg, jnp.asarray(real))[1]),
+                                   **VAL_TOL)
+    for name, v in jax_disc_params_to_state_dict(params).items():
+        assert torch.equal(d.state_dict()[name], v), name
+
+
+@pytest.mark.parametrize("batch", [3, 4, 8])
+def test_minibatch_stddev_matches_jax(batch):
+    x = np.random.default_rng(batch).standard_normal((batch, 4, 4, 6)).astype(np.float32)
+    ref = np.asarray(j_disc.minibatch_stddev(jnp.asarray(x)))
+    ours = discriminator.minibatch_stddev(_t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(ours.numpy(), ref, **VAL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Renderer: eikonal, sphere init
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def stage_a():
+    jcfg, pcfg = _configs_a()
+    params = j_gen.init_generator(jax.random.PRNGKey(0), jcfg)
+    dcfg_j, dcfg_p = j_disc.VolumeRenderDiscConfig(in_res=RES), \
+        discriminator.VolumeRenderDiscConfig(in_res=RES)
+    d_params = j_disc.init_volume_render_discriminator(jax.random.PRNGKey(5), dcfg_j)
+    return dict(jcfg=jcfg, pcfg=pcfg, params=params, d_params=d_params, dcfg_j=dcfg_j,
+                dcfg_p=dcfg_p)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_render_eikonal_matches_jax_vjp(stage_a, remat):
+    """d sdf / d world points over every rendered point (deterministic
+    depths) against the JAX renderer's ``jax.vjp``."""
+    jcfg, pcfg = _configs_a(remat=remat)
+    params = stage_a["params"]
+    g = _port_g(params, pcfg)
+    jc, pc = _cams()
+    style = _z(seed=6)
+    ref = j_rend.render(params["renderer"], jcfg.renderer, jc.focal, jc.extrinsics, jc.near,
+                        jc.far, jnp.asarray(style), return_eikonal=True)
+    out = renderer.render(g.renderer, pcfg.renderer, pc.focal, pc.extrinsics, pc.near,
+                          pc.far, _t(style), return_eikonal=True)
+    assert out.eikonal_term.shape == (BATCH, RES, RES, SAMPLES, 3)
+    scale = np.abs(np.asarray(ref.eikonal_term)).max()
+    np.testing.assert_allclose(out.eikonal_term.detach().numpy(), np.asarray(ref.eikonal_term),
+                               rtol=1e-4, atol=1e-5 * scale)
+    np.testing.assert_allclose(out.rgb.detach().numpy(), np.asarray(ref.rgb), **VAL_TOL)
+
+
+def test_subsampled_eikonal_matches_jax_at_fed_points(stage_a):
+    """The JAX function's own uniform draws, fed to the port."""
+    m = 64
+    jcfg, pcfg = _configs_a(eikonal_subsample=m, remat=False)
+    params = stage_a["params"]
+    g = _port_g(params, pcfg)
+    jc, pc = _cams()
+    style = _z(seed=7)
+    key = jax.random.PRNGKey(9)
+    kuv, kt = jax.random.split(key)
+    draws = (np.asarray(jax.random.uniform(kuv, (BATCH, m, 2))),
+             np.asarray(jax.random.uniform(kt, (BATCH, m))))
+    near_j, far_j = jc.near.reshape(BATCH, 1, 1, 1), jc.far.reshape(BATCH, 1, 1, 1)
+    ref = j_rend._subsampled_eikonal(params["renderer"], jcfg.renderer, jc.focal,
+                                     jc.extrinsics, near_j, far_j, jnp.asarray(style), key)
+    ours = renderer._subsampled_eikonal(
+        g.renderer, pcfg.renderer, pc.focal, pc.extrinsics, pc.near.reshape(BATCH, 1, 1, 1),
+        pc.far.reshape(BATCH, 1, 1, 1), _t(style), draws=tuple(_t(x) for x in draws))
+    assert ours.shape == (BATCH, m, 3)
+    scale = np.abs(np.asarray(ref)).max()
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5 * scale)
+
+
+def test_mlp_init_pass_matches_jax_with_fed_draws(stage_a):
+    jcfg, pcfg = stage_a["jcfg"], stage_a["pcfg"]
+    params = stage_a["params"]
+    g = _port_g(params, pcfg)
+    jc, pc = _cams()
+    z = _z(seed=8)
+    key = jax.random.PRNGKey(10)
+    t_rand = np.asarray(jax.random.uniform(key, (BATCH, RES, RES, SAMPLES)))
+    sdf_j, target_j = j_gen.generator_init_forward(params, jcfg, [jnp.asarray(z)],
+                                                   jc.extrinsics, jc.focal, jc.near, jc.far, key)
+    sdf, target = generator.generator_init_forward(g, pcfg, [_t(z)], pc.extrinsics, pc.focal,
+                                                   pc.near, pc.far, t_rand=_t(t_rand))
+    np.testing.assert_allclose(sdf.detach().numpy(), np.asarray(sdf_j), **VAL_TOL)
+    np.testing.assert_allclose(target.numpy(), np.asarray(target_j), **VAL_TOL)
+    with pytest.raises(ValueError, match="generator or t_rand"):
+        generator.generator_init_forward(g, pcfg, [_t(z)], pc.extrinsics, pc.focal, pc.near,
+                                         pc.far)
+
+
+# ---------------------------------------------------------------------------
+# Stage-A losses and gradients
+# ---------------------------------------------------------------------------
+
+def _jax_stage_a_g_loss(jcfg, dcfg, hp, d_params, z, jc, key=None):
+    """The stage-A G loss of ``make_stage_a_g_step``, with fixed inputs."""
+    def loss_fn(gp):
+        out = j_gen.generator_forward(gp, jcfg, [z], jc.extrinsics, jc.focal, jc.near, jc.far,
+                                      key=key, return_sdf=True, return_xyz=True,
+                                      return_eikonal=True)
+        fake_pred, fake_view = j_disc.apply_volume_render_discriminator(d_params, dcfg,
+                                                                        out.thumb_rgb)
+        g_gan = j_gan.g_nonsaturating_loss(fake_pred)
+        g_view = hp.view_lambda * j_gan.viewpoints_loss(fake_view, jc.viewpoint)
+        eik, msurf = j_geo.eikonal_loss(out.eikonal_term, out.sdf, beta=hp.min_surf_beta)
+        loss = g_gan + g_view + hp.eikonal_lambda * eik + hp.min_surf_lambda * msurf
+        return loss, (g_gan, hp.eikonal_lambda * eik, hp.min_surf_lambda * msurf)
+    return loss_fn
+
+
+@pytest.mark.parametrize("variant", ["full_remat", "full_no_remat", "subsampled"])
+def test_stage_a_g_loss_and_every_grad_match_jax(stage_a, variant):
+    """The stage-A G loss (nonsaturating, viewpoint, eikonal, minimal
+    surface) and the gradient of every G parameter against ``jax.grad``."""
+    rkw = {"full_remat": dict(remat=True), "full_no_remat": dict(remat=False),
+           "subsampled": dict(remat=False, eikonal_subsample=32, perturb=0.0)}[variant]
+    jcfg, pcfg = _configs_a(**rkw)
+    params, d_params = stage_a["params"], stage_a["d_params"]
+    hp = j_steps.TrainHParams(batch=BATCH, style_dim=STYLE)
+    jc, pc = _cams()
+    z = _z(seed=11)
+    key = draws = None
+    if variant == "subsampled":
+        # the JAX eikonal draws inside generator_forward -> render: key ->
+        # (render key, decoder key) -> (depth, noise, eikonal) -> (uv, t)
+        key = jax.random.PRNGKey(12)
+        ekey = jax.random.split(jax.random.split(key)[0], 3)[2]
+        kuv, kt = jax.random.split(ekey)
+        draws = (_t(jax.random.uniform(kuv, (BATCH, 32, 2))),
+                 _t(jax.random.uniform(kt, (BATCH, 32))))
+    (jl, (jg_gan, jeik, jms)), jgrads = jax.value_and_grad(
+        _jax_stage_a_g_loss(jcfg, stage_a["dcfg_j"], hp, d_params, jnp.asarray(z), jc, key),
+        has_aux=True)(params)
+    g = _port_g(params, pcfg)
+    d = _port_d(d_params, stage_a["dcfg_p"])
+    loss, m = steps.stage_a_g_loss(g, d, pcfg, stage_a["dcfg_p"], steps.TrainHParams(
+        batch=BATCH, style_dim=STYLE), steps.StepInputs(_t(z), pc, eikonal_draws=draws))
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-4)
+    np.testing.assert_allclose(m["g"].item(), float(jg_gan), rtol=1e-4)
+    np.testing.assert_allclose(m["g_eikonal"].item(), float(jeik), rtol=1e-4)
+    np.testing.assert_allclose(m["g_minimal_surface"].item(), float(jms), rtol=1e-4, atol=1e-7)
+    assert float(jeik) > 0
+    _assert_grads(g, _grads(loss, g), jax_params_to_state_dict(jgrads, pcfg), rtol=1e-3)
+
+
+def test_stage_a_g_loss_bf16_params_give_f32_grads(stage_a):
+    """``g_param_dtype="bfloat16"``: the forward runs on bf16 parameters,
+    the gradients come back f32, finite and close to the f32 ones; the
+    loss is the f32 loss at bf16 precision."""
+    pcfg = stage_a["pcfg"]
+    g = _port_g(stage_a["params"], pcfg)
+    d = _port_d(stage_a["d_params"], stage_a["dcfg_p"])
+    _, pc = _cams()
+    inputs = steps.StepInputs(_t(_z(seed=13)), pc)
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        hp = steps.TrainHParams(batch=BATCH, style_dim=STYLE, g_param_dtype=dt)
+        loss, _ = steps.stage_a_g_loss(g, d, pcfg, stage_a["dcfg_p"], hp, inputs)
+        res[dt] = (loss.item(), _grads(loss, g))
+    assert all(p.dtype == torch.float32 for p in g.parameters())
+    (l32, g32), (l16, g16) = res["float32"], res["bfloat16"]
+    assert l16 != l32 and abs(l16 - l32) < 0.05 * (1.0 + abs(l32))
+    for a, b in zip(g32, g16):
+        assert b.dtype == torch.float32 and bool(torch.isfinite(b).all())
+    num = sum((a - b).norm() ** 2 for a, b in zip(g32, g16)) ** 0.5
+    den = sum(a.norm() ** 2 for a in g32) ** 0.5
+    assert num / den < 0.1
+
+
+@pytest.mark.parametrize("with_r1", [True, False])
+def test_stage_a_d_loss_and_grads_match_jax(stage_a, with_r1):
+    jcfg, pcfg = stage_a["jcfg"], stage_a["pcfg"]
+    params, d_params = stage_a["params"], stage_a["d_params"]
+    dcfg_j, dcfg_p = stage_a["dcfg_j"], stage_a["dcfg_p"]
+    hp = j_steps.TrainHParams(batch=BATCH, style_dim=STYLE, a_d_reg_every=1 if with_r1 else 4)
+    jc, pc = _cams()
+    z = _z(seed=14)
+    real = np.random.default_rng(15).uniform(-1, 1, (BATCH, RES, RES, 3)).astype(np.float32)
+    fake = j_gen.generator_forward(params, jcfg, [jnp.asarray(z)], jc.extrinsics, jc.focal,
+                                   jc.near, jc.far).thumb_rgb
+
+    def jloss(dp):
+        fake_pred, fake_view = j_disc.apply_volume_render_discriminator(dp, dcfg_j, fake)
+        d_view = hp.view_lambda * j_gan.viewpoints_loss(fake_view, jc.viewpoint)
+        if with_r1:
+            real_pred, pen = j_gan.d_logits_and_r1(
+                lambda img: j_disc.apply_volume_render_discriminator(dp, dcfg_j, img)[0],
+                jnp.asarray(real))
+            r1 = hp.r1 * 0.5 * pen * hp.a_d_reg_every
+        else:
+            real_pred, r1 = j_disc.apply_volume_render_discriminator(dp, dcfg_j,
+                                                                     jnp.asarray(real))[0], 0.0
+        return j_gan.d_logistic_loss(real_pred, fake_pred) + r1 + d_view
+
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(d_params)
+    g, d = _port_g(params, pcfg), _port_d(d_params, dcfg_p)
+    loss, m = steps.stage_a_d_loss(
+        g, d, pcfg, dcfg_p, steps.TrainHParams(batch=BATCH, style_dim=STYLE,
+                                               a_d_reg_every=hp.a_d_reg_every),
+        _t(real), steps.StepInputs(_t(z), pc), with_r1=with_r1)
+    assert ("r1" in m) == with_r1
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-4)
+    _assert_grads(d, _grads(loss, d), jax_disc_params_to_state_dict(jg))
+
+
+# ---------------------------------------------------------------------------
+# Stage B: D with R1, G, path length
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def stage_b():
+    jcfg, pcfg = _configs_b()
+    params = j_gen.init_generator(jax.random.PRNGKey(20), jcfg)
+    dcfg_j = j_disc.StyleDiscConfig(size=32, channel_multiplier=1, channel_base=32)
+    dcfg_p = discriminator.StyleDiscConfig(size=32, channel_multiplier=1, channel_base=32)
+    d_params = j_disc.init_style_discriminator(jax.random.PRNGKey(21), dcfg_j)
+    z1, z2 = _z(seed=22), _z(seed=23)
+    return dict(jcfg=jcfg, pcfg=pcfg, params=params, dcfg_j=dcfg_j, dcfg_p=dcfg_p,
+                d_params=d_params, z1=z1, z2=z2, idx=3)
+
+
+@pytest.mark.parametrize("regularize", [True, False])
+def test_stage_b_d_loss_and_grads_match_jax(stage_b, regularize):
+    """The StyleGAN2 D step's loss (logistic + lazy R1 through upfirdn2d's
+    depthwise conv, double backward) and D gradients, style-mixed fakes."""
+    b = stage_b
+    hp = j_steps.TrainHParams(batch=BATCH, style_dim=STYLE)
+    jc, pc = _cams()
+    real = np.random.default_rng(24).uniform(-1, 1, (BATCH, 32, 32, 3)).astype(np.float32)
+    fake = j_gen.generator_forward(b["params"], b["jcfg"], [jnp.asarray(b["z1"]),
+                                                           jnp.asarray(b["z2"])],
+                                   jc.extrinsics, jc.focal, jc.near, jc.far,
+                                   inject_index=b["idx"]).rgb
+
+    def jloss(dp):
+        apply = lambda img: j_disc.apply_style_discriminator(dp, b["dcfg_j"], img)  # noqa: E731
+        fake_pred = apply(fake)
+        if regularize:
+            real_pred, pen = j_gan.d_logits_and_r1(apply, jnp.asarray(real))
+            r1 = hp.r1 * 0.5 * pen * hp.d_reg_every
+        else:
+            real_pred, r1 = apply(jnp.asarray(real)), 0.0
+        return j_gan.d_logistic_loss(real_pred, fake_pred) + r1
+
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(b["d_params"])
+    g, d = _port_g(b["params"], b["pcfg"]), _port_d(b["d_params"], b["dcfg_p"])
+    inputs = steps.StepInputs(_t(b["z1"]), pc, _t(b["z2"]), b["idx"])
+    loss, m = steps.stage_b_d_loss(g, d, b["pcfg"], b["dcfg_p"],
+                                   steps.TrainHParams(batch=BATCH, style_dim=STYLE),
+                                   _t(real), inputs, regularize)
+    assert ("r1" in m) == regularize
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-4)
+    _assert_grads(d, _grads(loss, d), jax_disc_params_to_state_dict(jg))
+
+
+def test_stage_b_g_loss_and_decoder_grads_match_jax(stage_b):
+    b = stage_b
+    hp = j_steps.TrainHParams(batch=BATCH, style_dim=STYLE)
+    jc, pc = _cams()
+
+    def jloss(gp):
+        out = j_gen.generator_forward(gp, b["jcfg"], [jnp.asarray(b["z1"]), jnp.asarray(b["z2"])],
+                                      jc.extrinsics, jc.focal, jc.near, jc.far,
+                                      inject_index=b["idx"])
+        g_gan = j_gan.g_nonsaturating_loss(j_disc.apply_style_discriminator(
+            b["d_params"], b["dcfg_j"], out.rgb))
+        up = jnp.repeat(jnp.repeat(out.thumb_rgb, 4, axis=1), 4, axis=2)
+        return g_gan + 0.001 * j_gan.g_content_loss(out.rgb, up)
+
+    jl, jg = jax.value_and_grad(jloss)(b["params"])
+    g, d = _port_g(b["params"], b["pcfg"]), _port_d(b["d_params"], b["dcfg_p"])
+    loss, m = steps.stage_b_g_loss(g, d, b["pcfg"], b["dcfg_p"],
+                                   steps.TrainHParams(batch=BATCH, style_dim=STYLE),
+                                   steps.StepInputs(_t(b["z1"]), pc, _t(b["z2"]), b["idx"]))
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-4)
+    ref = jax_params_to_state_dict(jg, b["pcfg"])
+    dec = [p for n, p in g.named_parameters() if n.startswith("decoder.")]
+    grads = torch.autograd.grad(loss, dec, allow_unused=True)
+    _assert_grads(g.decoder, grads, {k[len("decoder."):]: v for k, v in ref.items()
+                                     if k.startswith("decoder.")}, rtol=1e-3)
+    # the frozen renderer: no gradient reaches it on either side
+    assert all(float(np.abs(np.asarray(x)).max()) == 0.0
+               for x in jax.tree_util.tree_leaves(jg["renderer"]))
+    assert all(p.grad_fn is None for p in g.renderer.parameters())
+    _ = hp
+
+
+def test_path_length_penalty_and_decoder_grads_match_jax(stage_b):
+    """``g_path_regularize`` with fixed projection noise, on fixed features
+    and mixed latents: penalty, running mean, path lengths and the decoder
+    gradients of the weighted penalty."""
+    b = stage_b
+    dcfg_j, dcfg_p = b["jcfg"].decoder, b["pcfg"].decoder
+    rng = np.random.default_rng(25)
+    feat = rng.standard_normal((BATCH, RES, RES, WIDTH)).astype(np.float32)
+    noise = (rng.standard_normal((BATCH, 32, 32, 3)) / 32.0).astype(np.float32)
+    mean0 = np.float32(0.3)
+
+    def jloss(dec):
+        latent = j_sg.make_decoder_latent(dec, dcfg_j, [jnp.asarray(b["z1"]),
+                                                        jnp.asarray(b["z2"])], inject_index=3)
+        pen, new_mean, pl = j_gan.g_path_regularize(
+            lambda lat: j_sg.apply_decoder(dec, dcfg_j, jnp.asarray(feat), lat), latent,
+            jnp.asarray(mean0), noise=jnp.asarray(noise))
+        return 2.0 * 4 * pen, (pen, new_mean, pl)
+
+    (_, (jpen, jmean, jpl)), jg = jax.value_and_grad(jloss, has_aux=True)(
+        b["params"]["decoder"])
+    g = _port_g(b["params"], b["pcfg"])
+    latent = stylegan2.make_decoder_latent(g.decoder, dcfg_p, [_t(b["z1"]), _t(b["z2"])],
+                                           inject_index=3)
+    pen, new_mean, pl = gan_losses.g_path_regularize(
+        lambda lat: stylegan2.apply_decoder(g.decoder, dcfg_p, _t(feat), lat), latent,
+        torch.tensor(mean0), noise=_t(noise))
+    np.testing.assert_allclose(pen.item(), float(jpen), rtol=1e-4)
+    np.testing.assert_allclose(new_mean.item(), float(jmean), rtol=1e-5)
+    np.testing.assert_allclose(pl.detach().numpy(), np.asarray(jpl), rtol=1e-4)
+    assert new_mean.grad_fn is None
+    ref = jax_params_to_state_dict({**b["params"], "decoder": jg}, b["pcfg"])
+    _assert_grads(g.decoder, _grads(2.0 * 4 * pen, g.decoder),
+                  {k[len("decoder."):]: v for k, v in ref.items() if k.startswith("decoder.")},
+                  rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Optimizers and EMA
+# ---------------------------------------------------------------------------
+
+def _two_adam_steps(kind):
+    """Two steps from the same parameters and gradients through optax and
+    through the port's optimizer; returns (ours, ref) parameter lists."""
+    rng = np.random.default_rng(30)
+    shapes = [(5, 3), (7,)]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    gs = [[rng.standard_normal(s).astype(np.float32) for s in shapes] for _ in range(2)]
+    model = torch.nn.Module()
+    model.a = torch.nn.Parameter(_t(p0[0]))
+    model.b = torch.nn.Parameter(_t(p0[1]))
+    if kind == "stage_a_g":
+        opt, _ = optim.stage_a_optimizers(model, torch.nn.Linear(1, 1))
+        tx, _ = j_optim.stage_a_optimizers()
+    elif kind == "stage_a_d_lazy":
+        _, opt = optim.stage_a_optimizers(torch.nn.Linear(1, 1), model, d_reg_every=4)
+        _, tx = j_optim.stage_a_optimizers(4)
+    elif kind == "stage_b_d":
+        g = torch.nn.Module()
+        g.decoder = torch.nn.Linear(1, 1)
+        _, opt = optim.stage_b_optimizers(g, model)
+        _, tx = j_optim.stage_b_optimizers()
+    else:  # stage_b_g: a decoder-only G
+        g = torch.nn.Module()
+        g.decoder = model
+        opt, _ = optim.stage_b_optimizers(g, torch.nn.Linear(1, 1))
+        tx, _ = j_optim.stage_b_optimizers()
+    jp = [jnp.asarray(x) for x in p0]
+    state = tx.init(jp)
+    for grads in gs:
+        updates, state = tx.update([jnp.asarray(x) for x in grads], state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for p, gr in zip((model.a, model.b), grads):
+            p.grad = _t(gr)
+        opt.step()
+    return [model.a.detach().numpy(), model.b.detach().numpy()], [np.asarray(x) for x in jp]
+
+
+@pytest.mark.parametrize("kind", ["stage_a_g", "stage_a_d_lazy", "stage_b_g", "stage_b_d"])
+def test_adam_steps_match_optax(kind):
+    """lr and betas, ratio-adjusted in stage B and under lazy stage-A R1."""
+    ours, ref = _two_adam_steps(kind)
+    for o, r in zip(ours, ref):
+        np.testing.assert_allclose(o, r, rtol=1e-6, atol=1e-7)
+
+
+def test_stage_b_decoder_only_freeze(stage_b):
+    """One stage-B G step: the renderer and the mapping stay bit-equal, the
+    decoder moves (the optax mask's semantics)."""
+    b = stage_b
+    g, d = _port_g(b["params"], b["pcfg"]), _port_d(b["d_params"], b["dcfg_p"])
+    g_opt, _ = optim.stage_b_optimizers(g, d)
+    names = {n for group in g_opt.param_groups for p in group["params"]
+             for n, q in g.named_parameters() if q is p}
+    assert names == {n for n, _ in g.named_parameters() if n.startswith("decoder.")}
+    before = {n: p.detach().clone() for n, p in g.named_parameters()}
+    _, pc = _cams()
+    steps.stage_b_g_step(g, d, g_opt, b["pcfg"], b["dcfg_p"],
+                         steps.TrainHParams(batch=BATCH, style_dim=STYLE),
+                         steps.StepInputs(_t(b["z1"]), pc, _t(b["z2"]), b["idx"]))
+    moved = [n for n, p in g.named_parameters() if not torch.equal(p, before[n])]
+    assert moved and all(n.startswith("decoder.") for n in moved)
+
+
+def test_ema_matches_jax():
+    assert ema.EMA_DECAY == j_ema.EMA_DECAY
+    a, b = torch.nn.Linear(4, 3), torch.nn.Linear(4, 3)
+    ref = j_ema.accumulate({n: jnp.asarray(p.detach().numpy()) for n, p in a.named_parameters()},
+                           {n: jnp.asarray(p.detach().numpy()) for n, p in b.named_parameters()})
+    ema.accumulate(a, b)
+    for n, p in a.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(ref[n]), rtol=1e-6, atol=1e-7)
+    one, zero = torch.nn.Linear(2, 2), torch.nn.Linear(2, 2)
+    with torch.no_grad():
+        for p, q in zip(one.parameters(), zero.parameters()):
+            p.fill_(1.0)
+            q.zero_()
+    ema.accumulate(one, zero, decay=0.75)
+    assert all(bool((p == 0.75).all()) for p in one.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Configurations, guards, files
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,stage_a", [("ffhq_256_sdf", True), ("ffhq_256_sdf", False),
+                                          ("ffhq_256_sdf_tpu", True),
+                                          ("ffhq_256_sdf_tpu", False)])
+def test_training_configs_match_the_yaml(name, stage_a):
+    """The hand-built training configurations against ``train.py``'s
+    resolution of the yaml: generator (every field), discriminators, and
+    the training hyperparameters."""
+    from pathlib import Path
+
+    from sdface_gan_tpu.config import load_config
+    from sdface_gan_tpu.config.yaml_config import default_config_path
+    from sdface_gan_tpu.config.build import (
+        discriminator_configs,
+        generator_config,
+        train_hparams,
+    )
+    from sdface_gan_tpu.config.sdf_options import get_vol_render_opt, rendering_overrides
+
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs" / "256res"
+                          / f"{name}.yaml"), default_config_path())
+    opt = get_vol_render_opt(cfg["training"]["out_dir"].split("/")[1], stage_a,
+                             extra_argv=rendering_overrides(cfg))
+    ref, ours = generator_config(opt, stage_a=stage_a), getattr(configs, name)(stage_a)
+    for f in fields(ours):
+        if f.name != "renderer":
+            assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+    for f in fields(ours.renderer):
+        assert getattr(ours.renderer, f.name) == getattr(ref.renderer, f.name), f.name
+    hp_ref, hp = train_hparams(opt), configs.train_hparams(tpu=name.endswith("_tpu"))
+    for f in fields(hp):
+        if f.name != "camera":
+            assert getattr(hp, f.name) == getattr(hp_ref, f.name), f.name
+    assert vars(hp.camera) == vars(hp_ref.camera)
+    for o, r in zip(configs.discriminator_configs(), discriminator_configs(opt)):
+        assert vars(o) == vars(r)
+
+
+def test_training_render_refuses_the_fused_field(stage_a):
+    """The fused kernels have no backward: a training forward with
+    ``use_fused_kernel`` raises instead of routing through them."""
+    pcfg = stage_a["pcfg"]
+    pcfg = replace(pcfg, renderer=replace(pcfg.renderer, use_fused_kernel=True,
+                                          output_features=True))
+    g = _port_g(stage_a["params"], replace(pcfg, renderer=replace(pcfg.renderer,
+                                                                  output_features=False)))
+    d = _port_d(stage_a["d_params"], stage_a["dcfg_p"])
+    _, pc = _cams()
+    with pytest.raises(RuntimeError, match="no backward"):
+        steps.stage_a_g_loss(g, d, pcfg, stage_a["dcfg_p"],
+                             steps.TrainHParams(batch=BATCH, style_dim=STYLE),
+                             steps.StepInputs(_t(_z()), pc))
+
+
+def test_eikonal_jvp_mode_and_missing_draws_raise(stage_a):
+    g = _port_g(stage_a["params"], stage_a["pcfg"])
+    _, pc = _cams()
+    for rkw, err in ((dict(eikonal_mode="jvp"), NotImplementedError),
+                     (dict(eikonal_subsample=8), ValueError)):
+        cfg = replace(stage_a["pcfg"].renderer, **rkw)
+        with pytest.raises(err):
+            renderer.render(g.renderer, cfg, pc.focal, pc.extrinsics, pc.near, pc.far,
+                            _t(_z()), return_eikonal=True)
+
+
+@pytest.mark.parametrize("entry", ["train_volume_renderer", "train_full_pipeline"])
+def test_training_entry_points_refuse_a_missing_card(tmp_path, entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is usable")
+    _, pcfg = _configs_a()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(loop, entry)(iter(()), pcfg, discriminator.VolumeRenderDiscConfig(in_res=RES),
+                             steps.TrainHParams(batch=BATCH, style_dim=STYLE), str(tmp_path))
+
+
+def test_checkpoints_round_trip_and_latest_step(tmp_path):
+    assert checkpoints.latest_checkpoint_step(str(tmp_path / "none")) is None
+    tree = {"g": {"w": torch.arange(4.0)}, "step": 7, "m": torch.tensor(0.5)}
+    for step in (3, 12, 5):
+        checkpoints.save_checkpoint(str(tmp_path), f"models_{step:07d}", tree)
+    checkpoints.save_checkpoint(str(tmp_path), "vol_renderer", tree)
+    assert checkpoints.latest_checkpoint_step(str(tmp_path)) == 12
+    assert checkpoints.checkpoint_exists(str(tmp_path), "vol_renderer")
+    back = checkpoints.load_checkpoint(str(tmp_path), "models_0000012")
+    assert back["step"] == 7 and torch.equal(back["g"]["w"], tree["g"]["w"])
+    assert not list(tmp_path.glob("*.tmp"))
+
+
+def test_save_image_grid_writes_a_png(tmp_path):
+    from PIL import Image
+
+    imgs = np.random.default_rng(31).uniform(-1, 1, (10, 5, 6, 3)).astype(np.float32)
+    images.save_image_grid(imgs, str(tmp_path / "g.png"), nrow=4)
+    got = np.asarray(Image.open(tmp_path / "g.png").convert("RGB"))
+    assert got.shape == (3 * 5, 4 * 6, 3)
+    u8 = images.to_uint8(imgs)
+    np.testing.assert_array_equal(got[:5, 6:12], u8[1])
+    np.testing.assert_array_equal(got[10:15, 6:12], u8[9])
+    assert not got[10:15, 12:].any()
+
+
+# ---------------------------------------------------------------------------
+# The training loops on the CPU
+# ---------------------------------------------------------------------------
+
+def _loader(size, thumb, batch=BATCH):
+    rng = np.random.default_rng(0)
+    while True:
+        yield (rng.uniform(-1, 1, (batch, size, size, 3)).astype(np.float32),
+               rng.uniform(-1, 1, (batch, thumb, thumb, 3)).astype(np.float32))
+
+
+def _rows(path):
+    import json
+
+    return [json.loads(line) for line in open(path)]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Stage A (2 sphere-init steps, 2 iterations) then stage B (2
+    iterations from its ``vol_renderer``), every iteration logged, a
+    sample grid at iteration 0, ``models_*`` saved at iteration 1."""
+    root = tmp_path_factory.mktemp("train")
+    _, pcfg_a = _configs_a()
+    _, pcfg_b = _configs_b()
+    hp = steps.TrainHParams(batch=BATCH, style_dim=STYLE, d_reg_every=1, g_reg_every=1)
+    vr, fp = str(root / "vr"), str(root / "fp")
+    g_a = loop.train_volume_renderer(_loader(32, RES), pcfg_a,
+                                     discriminator.VolumeRenderDiscConfig(in_res=RES), hp, vr,
+                                     iters=2, sphere_init_iters=2, save_every=1,
+                                     sample_every=2, log_every=1, device="cpu")
+    dcfg_b = discriminator.StyleDiscConfig(size=32, channel_multiplier=1, channel_base=32)
+    g_b = loop.train_full_pipeline(_loader(32, RES), pcfg_b, dcfg_b, hp, fp,
+                                   vol_renderer_dir=vr, iters=2, save_every=1, sample_every=2,
+                                   log_every=1, device="cpu")
+    return dict(root=root, vr=vr, fp=fp, hp=hp, pcfg_a=pcfg_a, pcfg_b=pcfg_b, dcfg_b=dcfg_b,
+                g_a=g_a, g_b=g_b)
+
+
+def test_loops_write_checkpoints_logs_and_samples(trained):
+    import os
+
+    vr, fp = trained["vr"], trained["fp"]
+    for name in ("sdf_init_models", "models_0000001", "vol_renderer"):
+        assert checkpoints.checkpoint_exists(vr, name), name
+    for name in ("models_0000001", "full_pipeline"):
+        assert checkpoints.checkpoint_exists(fp, name), name
+    assert os.path.exists(os.path.join(vr, "samples_0000000.png"))
+    rows_a = _rows(os.path.join(vr, "vol_render_metrics.jsonl"))
+    adv = [r for r in rows_a if "g" in r]
+    assert [r["step"] for r in adv] == [0, 1]
+    for r in adv:
+        for k in ("d", "r1", "d_view", "g", "g_view", "g_eikonal", "g_minimal_surface",
+                  "fg_mass", "d_ms", "g_ms", "beta"):
+            assert np.isfinite(r[k]), k
+    rows_b = _rows(os.path.join(fp, "full_pipeline_metrics.jsonl"))
+    assert [r["step"] for r in rows_b] == [0, 1]
+    for r in rows_b:  # d_reg_every = g_reg_every = 1: R1 and path every iteration
+        for k in ("d", "r1", "g", "g_content", "path", "path_length", "path_ms"):
+            assert np.isfinite(r[k]), k
+    # stage B started from the stage-A EMA weights and kept them frozen (its
+    # EMA of an unchanged weight moves only by rounding)
+    ck = checkpoints.load_checkpoint(vr, "vol_renderer")
+    last = checkpoints.load_checkpoint(fp, "full_pipeline")
+    for name, v in ck["g_ema"].items():
+        assert torch.equal(last["g"][name], v), name
+        torch.testing.assert_close(last["g_ema"][name], v, rtol=1e-6, atol=1e-7)
+
+
+def test_rerun_resumes_at_the_next_step_with_fresh_randomness(trained):
+    """A second call with more iterations resumes at step 2 (the newest
+    checkpoint is step 1) and skips sphere init; step 2 draws inputs from
+    (seed, stage, 2), not a replay of step 0's."""
+    import os
+
+    hp = trained["hp"]
+    loop.train_volume_renderer(_loader(32, RES), trained["pcfg_a"],
+                               discriminator.VolumeRenderDiscConfig(in_res=RES), hp,
+                               trained["vr"], iters=3, sphere_init_iters=2, save_every=1,
+                               sample_every=0, log_every=1, device="cpu")
+    rows = _rows(os.path.join(trained["vr"], "vol_render_metrics.jsonl"))
+    steps_logged = [r["step"] for r in rows if "g" in r]
+    assert steps_logged == [0, 1, 2]
+    assert sum("sdf_init_loss" in r for r in rows) == 1  # no second sphere init
+    assert checkpoints.latest_checkpoint_step(trained["vr"]) == 2
+    a0 = steps.sample_inputs(hp, RES, BATCH, loop._generator(torch.device("cpu"), 0, "A", 0, "g"))
+    a2 = steps.sample_inputs(hp, RES, BATCH, loop._generator(torch.device("cpu"), 0, "A", 2, "g"))
+    again = steps.sample_inputs(hp, RES, BATCH,
+                                loop._generator(torch.device("cpu"), 0, "A", 2, "g"))
+    assert not torch.equal(a0.z, a2.z) and torch.equal(a2.z, again.z)
+
+
+@pytest.mark.parametrize("stage", ["A", "B"])
+def test_exit_after_saves_and_exits_with_code_3(trained, tmp_path, stage):
+    hp = trained["hp"]
+    with pytest.raises(SystemExit) as exc:
+        if stage == "A":
+            loop.train_volume_renderer(_loader(32, RES), trained["pcfg_a"],
+                                       discriminator.VolumeRenderDiscConfig(in_res=RES), hp,
+                                       str(tmp_path), iters=5, sphere_init_iters=1,
+                                       save_every=0, sample_every=0, log_every=1,
+                                       exit_after=0.0, device="cpu")
+        else:
+            loop.train_full_pipeline(_loader(32, RES), trained["pcfg_b"], trained["dcfg_b"],
+                                     hp, str(tmp_path), vol_renderer_dir=trained["vr"],
+                                     iters=5, save_every=0, sample_every=0, log_every=1,
+                                     exit_after=0.0, device="cpu")
+    assert exc.value.code == 3
+    assert checkpoints.latest_checkpoint_step(str(tmp_path)) == 0
+    ck = checkpoints.load_checkpoint(str(tmp_path), "models_0000000")
+    assert ck["step"] == 0 and set(ck) >= {"g", "d", "g_ema", "g_opt", "d_opt"}
+
+
+def test_sample_inputs_mixing_draws():
+    """Stage-B inputs: z2 is z or a second code, the injection index lies in
+    [1, n_latent) when mixed and equals n_latent otherwise."""
+    hp = steps.TrainHParams(batch=3, style_dim=STYLE, mixing=0.5)
+    seen = set()
+    for i in range(12):
+        inp = steps.sample_inputs(hp, RES, 3, torch.Generator().manual_seed(i), n_latent=6)
+        mixed = not torch.equal(inp.z2, inp.z)
+        idx = int(inp.inject_index)
+        assert (1 <= idx < 6) if mixed else idx == 6
+        seen.add(mixed)
+        assert inp.cams.extrinsics.shape == (3, 3, 4)
+    assert seen == {True, False}
+
+
+@pytest.mark.parametrize("up,down,pad,size", [(1, 2, (2, 2), 8), (1, 2, (1, 1), 9),
+                                              (2, 1, (2, 1), 5), (1, 1, (-1, 2), 8)])
+def test_upfirdn2d_first_and_second_derivatives(up, down, pad, size):
+    """The FIR filter's hand-written adjoint (itself again) passes torch's
+    numerical gradient and gradient-of-gradient checks in f64, and matches
+    JAX's autodiff of its ``upfirdn2d`` (NHWC) in f32."""
+    import importlib
+
+    j_up = importlib.import_module("sdface_gan_tpu.ops.upfirdn2d")
+    p_up = importlib.import_module("sdface_gan_tpu_torch.ops.upfirdn2d")
+
+    k64 = p_up.make_kernel([1, 3, 3, 1]).double()
+    x = torch.randn(2, 3, size, size, dtype=torch.float64, requires_grad=True)
+    fn = lambda t: p_up.upfirdn2d(t, k64, up, down, pad)  # noqa: E731
+    assert torch.autograd.gradcheck(fn, (x,))
+    assert torch.autograd.gradgradcheck(fn, (x,))
+    x32 = np.random.default_rng(size).standard_normal((2, size, size, 3)).astype(np.float32)
+    kj = j_up.make_kernel(jnp.asarray([1.0, 3.0, 3.0, 1.0]))
+
+    def jf(v):
+        y = j_up.upfirdn2d(v, kj, up=up, down=down, pad=pad)
+        return jnp.sum(jnp.sin(y) ** 2)
+
+    jg, jgg = jax.grad(jf)(jnp.asarray(x32)), jax.grad(
+        lambda v: jnp.sum(jax.grad(jf)(v) ** 2))(jnp.asarray(x32))
+    xt = _t(x32).permute(0, 3, 1, 2).requires_grad_(True)
+    y = p_up.upfirdn2d(xt, p_up.make_kernel([1, 3, 3, 1]), up, down, pad)
+    (g,) = torch.autograd.grad(torch.sum(torch.sin(y) ** 2), xt, create_graph=True)
+    (gg,) = torch.autograd.grad(torch.sum(g**2), xt)
+    for ours, ref in ((g, jg), (gg, jgg)):
+        np.testing.assert_allclose(ours.permute(0, 2, 3, 1).detach().numpy(), np.asarray(ref),
+                                   rtol=1e-4, atol=1e-5)
