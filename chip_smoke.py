@@ -82,8 +82,26 @@ non-zero with no ``ok`` line:
              timed warm; train_profile: one stage-A G step and one D step
              profiled, the G step's top device operations.  Every loss is
              finite and siren_field never launches (counts and profiler).
-8. the ``kernels`` line, then the nvidia-smi line, then the ``ok`` line.
-TF32 is off throughout, so every f32 reference really is f32.
+8. train_cli - training from the command line, as a user runs it: 16
+             procedural 320 x 288 PNG images through ``python -m
+             sdface_gan_tpu_torch.prepare_data --size 256`` (records, store
+             bytes, seconds; the native record-store and PNG library built
+             by g++ first); the loader's work for 20 batches of 8 (decode,
+             flip, HAMMING thumb) and the prefetching DataLoader's time per
+             batch, beside the stage-A step time; ``python -m
+             sdface_gan_tpu_torch.train --config
+             configs/256res/ffhq_256_sdf_tpu.yaml --sdf 1`` at batch 8 (2
+             sphere-init steps, 3 stage-A and 3 stage-B iterations): exit 0,
+             both artifacts, finite losses, d_ms/g_ms logged, stage medians
+             and wall time; the same command again trains nothing; a fresh
+             experiment with ``--exit-after 1`` exits 3 leaving a
+             ``models_*`` checkpoint, and the same command without it
+             resumes at step + 1 and finishes.  Each command runs in a
+             ``.chip_smoke_train_*`` directory with a ``configs`` symlink.
+9. the ``kernels`` line, then the nvidia-smi line, then the ``ok`` line.
+TF32 is off throughout, so every f32 reference really is f32: this process
+turns it off, and the train entry turns it off in its own (train_cli checks
+the line it prints).
 """
 
 from __future__ import annotations
@@ -142,7 +160,7 @@ def full_config():
 
 
 def ngp_configs() -> dict:
-    """The repository's two NGP configurations, built by hand (no yaml here)."""
+    """The repository's two NGP configurations, resolved from their yaml files."""
     from sdface_gan_tpu_torch import configs
 
     return {"tuned": configs.ffhq_256_sdf_ngp_tpu(), "upstream": configs.ffhq_256_sdf_ngp()}
@@ -1073,6 +1091,183 @@ def train(results: dict) -> None:
                             profile=prof)
 
 
+# The train_cli phase: 16 procedural 320 x 288 images (the crop is exercised),
+# the flagship's TPU-tuned settings from the command line at batch 8.
+CLI_IMAGES, CLI_HW, CLI_SIZE, CLI_THUMB, CLI_BATCH = 16, (288, 320), 256, 64, 8
+CLI_CONFIG, CLI_EXP = "configs/256res/ffhq_256_sdf_tpu.yaml", "ffhq256_sdf_tpu"
+CLI_TRAIN_FLAGS = ("--batch", str(CLI_BATCH), "--sphere_init_iters", "2", "--log_every", "1",
+                   "--save_every", "1000", "--sample_every", "1000")
+CLI_TIMEOUT_S = 420
+
+
+def procedural_images(n: int, hw: tuple, seed: int) -> list:
+    """``n`` uint8 RGB images: smooth sinusoid fields plus Gaussian noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:hw[0], :hw[1]] / max(hw)
+    out = []
+    for _ in range(n):
+        f = rng.uniform(1, 6, (3, 2))
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        smooth = np.stack([np.sin(2 * np.pi * (f[c, 0] * xx + f[c, 1] * yy) + phase[c])
+                           for c in range(3)], -1)
+        img = 127.5 + 100 * smooth + rng.normal(0, 8, smooth.shape)
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def run_module(module: str, args: list, cwd: str, expect_rc: int = 0) -> dict:
+    """``python -m sdface_gan_tpu_torch.<module> <args>`` in ``cwd`` with the
+    checkout on the path; its exit code must be ``expect_rc``."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"sdface_gan_tpu_torch.{module}", *args],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == expect_rc,
+          f"{module} {' '.join(args)} exited {proc.returncode}, expected {expect_rc}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return dict(rc=proc.returncode, seconds=seconds, stdout=proc.stdout)
+
+
+def _tree_mtimes(root: str) -> dict:
+    return {os.path.join(d, n): os.stat(os.path.join(d, n)).st_mtime_ns
+            for d, _, names in os.walk(root) for n in names}
+
+
+def _step_medians(rows: list) -> dict:
+    """D and G medians after the first (warm-up) iteration."""
+    adv = [r for r in rows if "g" in r][1:]
+    return dict(d_ms=statistics.median(r["d_ms"] for r in adv),
+                g_ms=statistics.median(r["g_ms"] for r in adv))
+
+
+def train_cli(results: dict, smi: str) -> None:
+    """The port's command-line training: a store prepared from PNG files by
+    ``python -m sdface_gan_tpu_torch.prepare_data``, the loader timed on the
+    host, ``python -m sdface_gan_tpu_torch.train`` through sphere init, stage A
+    and stage B at full width, then the stage flow (a rerun trains nothing,
+    ``--exit-after`` exits 3 and the next run resumes)."""
+    import tempfile
+
+    import numpy as np
+
+    from sdface_gan_tpu_torch import native
+    from sdface_gan_tpu_torch.data import DataLoader, MultiResolutionDataset
+    from sdface_gan_tpu_torch.data.png import encode_png
+    from sdface_gan_tpu_torch.utils.checkpoints import checkpoint_exists, latest_checkpoint_step
+
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()  # leave the card's memory to the training subprocesses
+    fresh = not native.library_path().exists()
+    t0 = time.perf_counter()
+    native.build()
+    native_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_train_") as td:
+        os.symlink(os.path.join(HERE, "configs"), os.path.join(td, "configs"))
+        os.makedirs(os.path.join(td, "imgs"))
+        for i, img in enumerate(procedural_images(CLI_IMAGES, CLI_HW, seed=11)):
+            with open(os.path.join(td, "imgs", f"{i:05d}.png"), "wb") as f:
+                f.write(encode_png(img))
+        store = os.path.join(td, "store")
+        prep = run_module("prepare_data", ["imgs", "--out", "store", "--size", str(CLI_SIZE),
+                                           "--n_worker", "8"], td)
+        store_bytes = sum(os.path.getsize(os.path.join(store, n)) for n in os.listdir(store))
+        ds = MultiResolutionDataset(store, CLI_SIZE, CLI_THUMB)
+        records = len(ds)
+        check(records == CLI_IMAGES, f"{records} records in the store")
+        rec_store = dict(records=records, store_bytes=store_bytes, seconds=prep["seconds"],
+                         native_build_s=native_s, native_built=fresh)
+        emit(phase="train_cli_store", **rec_store)
+
+        # the loader's work, synchronously (decode, flip, HAMMING thumb, stack)
+        rng = np.random.default_rng(0)
+        work_ms = []
+        for b in range(20):
+            t0 = time.perf_counter()
+            items = [ds.__getitem__(int(i), rng)
+                     for i in (np.arange(CLI_BATCH) + b * CLI_BATCH) % records]
+            imgs, thumbs = np.stack([a for a, _ in items]), np.stack([t for _, t in items])
+            work_ms.append((time.perf_counter() - t0) * 1e3)
+        check(imgs.shape == (CLI_BATCH, CLI_SIZE, CLI_SIZE, 3) and thumbs.shape ==
+              (CLI_BATCH, CLI_THUMB, CLI_THUMB, 3) and bool(np.isfinite(imgs).all()), "loader batch shapes")
+        # and through the prefetching DataLoader, as the consumer sees it
+        with DataLoader(ds, batch_size=CLI_BATCH, seed=0) as loader:
+            it = iter(loader)
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                next(it)
+            loader_ms = (time.perf_counter() - t0) * 1e3 / 20
+        ds.close()
+
+        cmd = ["--config", CLI_CONFIG, "--sdf", "1", "--dataset_path", "store",
+               "--iters", "3", *CLI_TRAIN_FLAGS]
+        entry = run_module("train", cmd, td)
+        check("precision: f32 matmuls and convolutions without TF32" in entry["stdout"],
+              "the entry trains with TF32 off, as train_parity checks")
+        out = os.path.join(td, "out", CLI_EXP)
+        vr = os.path.join(out, "volume_renderer")
+        check(checkpoint_exists(vr, "vol_renderer") and checkpoint_exists(out, "full_pipeline"),
+              "both stage artifacts written")
+        rows_a = _train_rows(os.path.join(vr, "vol_render_metrics.jsonl"))
+        rows_b = _train_rows(os.path.join(out, "full_pipeline_metrics.jsonl"))
+        _finite_losses(rows_a, "train_cli stage A")
+        _finite_losses(rows_b, "train_cli stage B")
+        check([r["step"] for r in rows_a if "g" in r] == [0, 1, 2]
+              and [r["step"] for r in rows_b] == [0, 1, 2], "3 + 3 iterations logged")
+        check(all("d_ms" in r and "g_ms" in r for r in rows_b + [r for r in rows_a if "g" in r]),
+              "d_ms and g_ms logged")
+        for r in rows_a + rows_b:
+            emit(phase="train", run="train_cli", **r)
+        stage_a, stage_b = _step_medians(rows_a), _step_medians(rows_b)
+        step_a_ms = stage_a["d_ms"] + stage_a["g_ms"]
+        rec_loader = dict(batch=CLI_BATCH, resolution=CLI_SIZE, thumb=CLI_THUMB,
+                          batch_work_ms_median=statistics.median(work_ms),
+                          loader_ms_per_batch=loader_ms, stage_a_step_ms=step_a_ms,
+                          keeps_up=statistics.median(work_ms) < step_a_ms,
+                          prefetch_threads=1)
+        emit(phase="train_cli_loader", **rec_loader)
+        rec_entry = dict(config=CLI_CONFIG, command_s=entry["seconds"], stage_a=stage_a,
+                         stage_b=stage_b, sphere_init_iters=2, iters=3)
+        emit(phase="train_cli_entry", **rec_entry)
+
+        before = _tree_mtimes(out)
+        rerun = run_module("train", cmd, td)
+        check(_tree_mtimes(out) == before, "a rerun trains nothing")
+        with open(os.path.join(td, "cut.yaml"), "w") as f:
+            f.write(f"inherit_from: {CLI_CONFIG}\ntraining:\n  out_dir: out/smoke_cut\n")
+        cut_cmd = ["--config", "cut.yaml", "--sdf", "1", "--dataset_path", "store",
+                   "--iters", "6", *CLI_TRAIN_FLAGS]
+        cut = run_module("train", cut_cmd + ["--exit-after", "1"], td, expect_rc=3)
+        cut_vr = os.path.join(td, "out", "smoke_cut", "volume_renderer")
+        cut_step = latest_checkpoint_step(cut_vr)
+        check(cut_step is not None, "--exit-after left a models_* checkpoint")
+        resume = run_module("train", cut_cmd, td)
+        check(f"resumed volume renderer at step {cut_step + 1}" in resume["stdout"],
+              "the next run resumed at step + 1")
+        check(checkpoint_exists(os.path.join(td, "out", "smoke_cut"), "full_pipeline"),
+              "the resumed run finished")
+        rec_flow = dict(rerun_rc=rerun["rc"], rerun_s=rerun["seconds"], exit_after_rc=cut["rc"],
+                        exit_after_step=cut_step, exit_after_s=cut["seconds"],
+                        resume_rc=resume["rc"], resume_s=resume["seconds"])
+        emit(phase="train_cli_flow", **rec_flow)
+    results["train_cli"] = dict(store=rec_store, loader=rec_loader, entry=rec_entry,
+                                flow=rec_flow)
+    emit(phase="train_cli", nvidia_smi=smi, records=records, store_bytes=store_bytes,
+         store_s=prep["seconds"], loader_ms_per_batch=loader_ms,
+         batch_work_ms_median=rec_loader["batch_work_ms_median"], stage_a_step_ms=step_a_ms,
+         loader_keeps_up=rec_loader["keeps_up"], entry_rc=entry["rc"],
+         entry_s=entry["seconds"], stage_a=stage_a, stage_b=stage_b, rerun_rc=rerun["rc"],
+         exit_after_rc=cut["rc"], resume_rc=resume["rc"])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
@@ -1139,6 +1334,7 @@ def main() -> int:
                   for k, v in results["train"]["stage_a"].items()},
          stage_b={m: results["train"]["stage_b"][m]
                   for m in ("d_ms", "g_ms", "warm_reg_d_ms", "warm_path_ms", "peak_memory_gb")})
+    train_cli(results, smi)
 
     bf16 = timing["bfloat16"]
     gather, encode = ngp_timing["table_gather"], ngp_timing["hash_encode"]

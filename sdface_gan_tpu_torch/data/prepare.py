@@ -1,0 +1,105 @@
+"""Dataset preparation: image folder -> multi-resolution record store.
+Port of ``sdface_gan_tpu/data/prepare.py`` (``prepare_data``,
+``list_images``).
+
+Each image's shorter side is resized to every requested size with LANCZOS
+(PIL-exact, ``resample.py``), the result center-cropped, encoded as PNG
+(``png.py``) and stored under ``f"{size}-{idx:05d}"``, with a final
+``length`` record.  Resizing fans out over a process pool; the single
+writer appends in order.  The port reads PNG and ``.npy`` ([H, W] or
+[H, W, 3 or 4] uint8) input: it has no JPEG, WebP or BMP decoder, and a
+folder holding such files raises before anything is written.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import os
+from concurrent.futures import ProcessPoolExecutor
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from ..native import RecordWriter
+from .png import decode_png, encode_png
+from .resample import resize
+
+IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp", ".npy")
+READABLE_EXTS = (".png", ".npy")
+
+
+def load_image(path: str) -> np.ndarray:
+    """A PNG or ``.npy`` file -> [H, W, 3] uint8 RGB."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        with open(path, "rb") as f:
+            return decode_png(f.read())
+    if ext != ".npy":
+        raise ValueError(f"{path}: the port has no {ext} decoder (it reads PNG and .npy; "
+                         "JPEG, WebP and BMP input is a gap listed in ROADMAP.md)")
+    arr = np.load(path, allow_pickle=False)
+    if arr.dtype != np.uint8 or not (arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] in (3, 4))):
+        raise ValueError(f"{path}: expected [H, W] or [H, W, 3|4] uint8, "
+                         f"got {arr.dtype} {arr.shape}")
+    if arr.ndim == 2:
+        return np.repeat(arr[..., None], 3, axis=-1)
+    return np.ascontiguousarray(arr[..., :3])
+
+
+def _resize_one(args: Tuple[int, str, Sequence[int]]) -> Tuple[int, List[bytes]]:
+    idx, path, sizes = args
+    img = load_image(path)
+    outs = []
+    for size in sizes:
+        # shorter side to `size`, then center crop (torchvision Resize +
+        # CenterCrop semantics, as the JAX package resizes)
+        h, w = img.shape[:2]
+        if w <= h:
+            nw, nh = size, max(size, round(size * h / w))
+        else:
+            nw, nh = max(size, round(size * w / h)), size
+        resized = resize(img, (nw, nh), "lanczos")
+        left = (nw - size) // 2
+        top = (nh - size) // 2
+        outs.append(encode_png(resized[top:top + size, left:left + size]))
+    return idx, outs
+
+
+def list_images(in_dir: str) -> List[str]:
+    files = []
+    for root, _, names in os.walk(in_dir):
+        for n in sorted(names):
+            if n.lower().endswith(IMAGE_EXTS):
+                files.append(os.path.join(root, n))
+    files.sort()
+    return files
+
+
+def prepare_data(
+    in_dir: str,
+    out_path: str,
+    sizes: Sequence[int] = (64, 128, 256, 512, 1024),
+    n_workers: int = 8,
+) -> int:
+    """Build the record store.  Returns the number of images written."""
+    files = list_images(in_dir)
+    unreadable = [f for f in files if not f.lower().endswith(READABLE_EXTS)]
+    if unreadable:
+        load_image(unreadable[0])  # raises, naming the missing decoder
+    jobs = [(i, f, tuple(sizes)) for i, f in enumerate(files)]
+    results: dict = {}
+    with RecordWriter(out_path) as writer:
+        if n_workers > 1 and len(jobs) > 1:
+            ctx = multiprocessing.get_context("spawn")
+            with ProcessPoolExecutor(max_workers=n_workers, mp_context=ctx) as pool:
+                for idx, blobs in pool.map(_resize_one, jobs, chunksize=8):
+                    results[idx] = blobs
+        else:
+            for job in jobs:
+                idx, blobs = _resize_one(job)
+                results[idx] = blobs
+        for idx in range(len(files)):
+            for size, blob in zip(sizes, results[idx]):
+                writer.put(f"{size}-{str(idx).zfill(5)}", blob)
+        writer.put("length", str(len(files)).encode())
+    return len(files)

@@ -156,8 +156,9 @@ def _apply_network(
     tensors.  With ``use_fused_kernel`` the port's kernels run (each on a
     CUDA tensor, its plain version on a CPU one): the fused SIREN field,
     from ``field_pack`` or from weights packed for this call, or the NGP
-    field's hash-grid kernels.  Otherwise the plain field runs, under
-    ``checkpoint`` when ``remat`` is on and autograd is recording.
+    field's hash-grid kernels.  Otherwise the plain field (SIREN, NGP or
+    FC) runs, under ``checkpoint`` when ``remat`` is on and autograd is
+    recording.
     """
     b, h, w, s, _ = pts.shape
     flat_pts = pts.reshape(b, h * w * s, 3).float().contiguous()
@@ -167,9 +168,8 @@ def _apply_network(
         pack = field_pack if field_pack is not None else pack_siren_field(net)
         gamma, beta = film_coeffs(net, style)
         rgb, sdf, feat = siren_field_fused_parts(pack, flat_pts, flat_views, gamma, beta)
-    elif cfg.type == "ngp":
-        rgb, sdf, feat = net.forward_parts(flat_pts, flat_views, style,
-                                           use_kernels=cfg.use_fused_kernel)
+    elif cfg.use_fused_kernel and cfg.type == "ngp":
+        rgb, sdf, feat = net.forward_parts(flat_pts, flat_views, style, use_kernels=True)
     elif cfg.remat and torch.is_grad_enabled():
         # The network's tensors go in as inputs, so the recomputation sees
         # the ones of the forward even under a caller's parameter cast.

@@ -1,0 +1,151 @@
+"""Train CLI of the port: the ``--sdf 1`` flow of the repository's
+``train.py`` (stage A, the volume renderer, then stage B, the full
+pipeline), with the same flags plus ``--device``.
+
+    python -m sdface_gan_tpu_torch.train --config configs/256res/ffhq_256_sdf_tpu.yaml \\
+        --sdf 1 --dataset_path <store>
+
+Stage A writes ``out/<exp>/volume_renderer/`` and is skipped when its
+``vol_renderer`` exists; stage B writes ``out/<exp>/`` and is skipped when
+``full_pipeline`` exists; ``--wod 1`` goes straight to stage B from stage
+A's ``sdf_init_models``.  A stage whose periodic ``models_*`` checkpoint
+exists resumes from it; ``--exit-after`` seconds saves and exits with code
+3.  Runs on ``--device cuda`` (the default; raises without a card) or
+``--device cpu``, with TF32 off so that f32 stays f32.  Paths not yet ported raise ``NotImplementedError``
+(``--sdf 0``, ``--vae``/``--psp``, NGP stage A; see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train an SDFace-GAN model with the PyTorch port.")
+    p.add_argument("--config", type=str, default="configs/256res/ffhq_256_sdf.yaml")
+    p.add_argument("--sdf", type=int, default=0)
+    p.add_argument("--ngp", type=int, default=0)
+    p.add_argument("--fc", type=int, default=0)
+    p.add_argument("--wod", type=int, default=0)
+    p.add_argument("--vae", type=int, default=0)
+    p.add_argument("--psp", type=int, default=0)
+    p.add_argument("--small_net", type=int, default=0)
+    p.add_argument("--i_embed", type=int, default=0)
+    p.add_argument("--i_embed_views", type=int, default=0)
+    p.add_argument("--finest_res", type=int, default=512)
+    p.add_argument("--log2_hashmap_size", type=int, default=19)
+    p.add_argument("--exit-after", dest="exit_after", type=int, default=-1)
+    p.add_argument("--dataset_path", type=str, default=None,
+                   help="record-store dir (overrides the yaml data path)")
+    p.add_argument("--iters", type=int, default=None,
+                   help="override per-stage iteration count (for smoke runs)")
+    p.add_argument("--sphere_init_iters", type=int, default=10000)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--save_every", type=int, default=10000)
+    p.add_argument("--sample_every", type=int, default=1000)
+    p.add_argument("--log_every", type=int, default=100)
+    p.add_argument("--irse_weights", type=str, default=None,
+                   help="model_ir_se50.pth for the stage-C ID loss + pSp warm start")
+    p.add_argument("--lpips_weights", type=str, default=None,
+                   help="torch archive {'alex': ..., 'lin': ...} for stage-C LPIPS")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default; raises without a card) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+
+    from .config import load_config
+    from .config.yaml_config import default_config_path
+
+    cfg = load_config(args.config, default_config_path())
+    if args.sdf != 1:
+        raise NotImplementedError(
+            "--sdf 0 (the GIRAFFE and gan2d families) is not ported yet; see ROADMAP.md")
+    train_sdf(args, cfg)
+
+
+def train_sdf(args, cfg) -> None:
+    from .config.build import (
+        discriminator_configs,
+        generator_config,
+        stage_options,
+        train_hparams,
+    )
+    from .config.sdf_options import resolve_renderer_type
+    from .data import DataLoader, MultiResolutionDataset, resolve_record_dir
+    from .training.loop import train_full_pipeline, train_volume_renderer
+    from .utils.checkpoints import checkpoint_exists
+    from .utils.device import resolve_device
+
+    if args.vae or args.psp:
+        raise NotImplementedError(
+            "--vae / --psp (stage C, the encoder) is not ported yet; see ROADMAP.md")
+    device = resolve_device(args.device)
+    # the configs' f32 stays f32 (PyTorch's default lets cuDNN use TF32): the
+    # precision at which training on the card is held against the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("precision: f32 matmuls and convolutions without TF32", flush=True)
+
+    expname = cfg["training"]["out_dir"].split("/")[1]
+    out_base = os.path.join("./out", expname)
+    # stage A's periodic models_* live in their own directory, so stage B's
+    # resume scan never finds a stage-A (decoder-less) checkpoint
+    vr_dir = os.path.join(out_base, "volume_renderer")
+    need_a = not checkpoint_exists(vr_dir, "vol_renderer")
+    need_b = not checkpoint_exists(out_base, "full_pipeline")
+    if args.wod:
+        need_a, need_b = False, True
+    if need_a and resolve_renderer_type(cfg, bool(args.ngp)):
+        raise NotImplementedError(
+            "NGP stage A (the hash-grid smoothness term and the table backward) is not "
+            "ported yet; see ROADMAP.md")
+
+    exit_after = args.exit_after if args.exit_after > 0 else None
+    data_path = args.dataset_path or resolve_record_dir(cfg["data"]["path"])
+    img_size = cfg["data"].get("img_size", 256)
+    flags = dict(ngp=bool(args.ngp), fc=bool(args.fc), wod=bool(args.wod), batch=args.batch)
+    schedule = dict(exit_after=exit_after, save_every=args.save_every,
+                    sample_every=args.sample_every, log_every=args.log_every,
+                    seed=args.seed, device=device)
+
+    if need_a:
+        opt = stage_options(cfg, True, **flags)
+        gcfg = generator_config(opt, stage_a=True)
+        vrd_cfg, _ = discriminator_configs(opt)
+        hp = train_hparams(opt)
+        ds = MultiResolutionDataset(data_path, resolution=img_size,
+                                    nerf_resolution=gcfg.renderer.out_im_res)
+        try:
+            with DataLoader(ds, batch_size=hp.batch, seed=args.seed) as loader:
+                train_volume_renderer(loader, gcfg, vrd_cfg, hp, vr_dir,
+                                      iters=args.iters or 200001,
+                                      sphere_init_iters=args.sphere_init_iters, **schedule)
+        finally:
+            ds.close()
+
+    if need_b:
+        opt = stage_options(cfg, False, **flags)
+        gcfg = generator_config(opt, stage_a=False)
+        _, sd_cfg = discriminator_configs(opt)
+        hp = train_hparams(opt)
+        ds = MultiResolutionDataset(data_path, resolution=img_size,
+                                    nerf_resolution=gcfg.renderer.out_im_res)
+        try:
+            with DataLoader(ds, batch_size=hp.batch, seed=args.seed) as loader:
+                train_full_pipeline(loader, gcfg, sd_cfg, hp, out_base,
+                                    vol_renderer_dir=vr_dir,
+                                    init_from="sdf_init_models" if args.wod else "vol_renderer",
+                                    iters=args.iters or 300000, **schedule)
+        finally:
+            ds.close()
+
+
+if __name__ == "__main__":
+    main()

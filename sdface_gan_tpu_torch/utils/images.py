@@ -1,12 +1,11 @@
-"""Image grids as PNG files, written with ``zlib`` and ``struct`` alone
-(no imaging library needed)."""
+"""Image grids as PNG files, written by the port's own encoder
+(``data/png.py``; no imaging library needed)."""
 
 from __future__ import annotations
 
-import struct
-import zlib
-
 import numpy as np
+
+from ..data.png import encode_png
 
 
 def to_uint8(img) -> np.ndarray:
@@ -16,17 +15,8 @@ def to_uint8(img) -> np.ndarray:
 
 def write_png(path: str, rgb: np.ndarray) -> None:
     """Write an [H, W, 3] uint8 array as an 8-bit RGB PNG."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + np.ascontiguousarray(row).tobytes() for row in rgb)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        crc = zlib.crc32(tag + data) & 0xFFFFFFFF
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
-
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+        f.write(encode_png(rgb))
 
 
 def save_image_grid(images, path: str, nrow: int = 8) -> None:

@@ -248,3 +248,40 @@ def test_cpu_sampler_serves_ngp(pack):
     assert _ext.LAUNCHES == before
     angles = sampler.sample(azim=0.1, elev=0.05)
     assert bool(torch.isfinite(angles).all())
+
+
+def test_ngp_field_honours_remat():
+    """A grad-on NGP render (the stage-A renderer: SDF returned, no
+    features) with ``remat`` on recomputes the field in the backward pass:
+    fewer tensors saved for it than with ``remat`` off, with equal values
+    and the same gradients of every renderer parameter, as
+    ``jax.checkpoint`` wraps every field type in the JAX package.  The
+    table's gradient is a scatter-add whose summation order may differ
+    between the two backward passes (and with the thread count): rtol 1e-5,
+    atol 1e-6 of the tensor's largest entry (a few f32 ulps of it)."""
+    from dataclasses import replace
+
+    jcfg, pcfg = _configs("ngp", output_features=False, return_sdf=True)
+    params = _jax_params("ngp", jcfg)
+    extrinsics, focal, near, far = _cam_args(j_cams(RES, jax.random.PRNGKey(9), batch=2))
+    style = _t(np.random.default_rng(6).standard_normal((2, 16)).astype(np.float32))
+    runs = {}
+    for remat in (True, False):
+        cfg = replace(pcfg, renderer=replace(pcfg.renderer, remat=remat))
+        model = _port_model(params, cfg)
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t,
+                                                      lambda t: t):
+            out = renderer.render(model.renderer, cfg.renderer, focal, extrinsics, near, far,
+                                  style)
+        loss = out.rgb.square().sum() + out.sdf.square().sum()
+        names, ps = zip(*model.renderer.named_parameters())
+        runs[remat] = (len(saved), out, dict(zip(names, torch.autograd.grad(loss, ps))))
+    (n_remat, out_remat, g_remat), (n_plain, out_plain, g_plain) = runs[True], runs[False]
+    assert n_remat < n_plain
+    assert torch.equal(out_remat.rgb, out_plain.rgb) and torch.equal(out_remat.sdf, out_plain.sdf)
+    assert set(g_remat) == set(g_plain) and "network.encoder.embeddings" in g_remat
+    for name in g_remat:
+        scale = g_plain[name].abs().max().item()
+        torch.testing.assert_close(g_remat[name], g_plain[name], rtol=1e-5,
+                                   atol=1e-6 * scale, msg=name)

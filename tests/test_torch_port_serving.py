@@ -122,7 +122,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import sdface_gan_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'yaml', 'PIL')\n"
         "       or m == 'sdface_gan_tpu' or m.startswith('sdface_gan_tpu.')]\n"
         "print(len([m for m in sys.modules if m.startswith('sdface_gan_tpu_torch')]))\n"
         "sys.exit(1 if bad else 0)\n"
@@ -134,11 +134,13 @@ def test_import_leaves_jax_and_the_jax_package_out():
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
+    """Nor PyYAML or PIL, which the card's machine lacks: the port reads its
+    yaml and PNG files itself."""
     def banned(name):
-        return (name == "jax" or name.startswith("jax.")
+        return (name.split(".")[0] in ("jax", "yaml", "PIL")
                 or name == "sdface_gan_tpu" or name.startswith("sdface_gan_tpu."))
 
-    files = sorted(PACKAGE.rglob("*.py"))
+    files = sorted(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
     assert files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
