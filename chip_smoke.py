@@ -17,16 +17,19 @@ non-zero with no ``ok`` line:
              * siren_field at full width (W=256, D=8, style 256, B=2,
                P=64*64*24) and at depth 3, P=700 (a partial tile), and at
                W=64 and W=512 (depth 3, P=700, partial tiles of 512 and 64
-               points), in f32 (FMA kernel, max abs error <= 1e-3) and bf16
-               (tensor-core kernel: mean error against f32 truth <= 1.2x the
-               plain bf16 version's + 1e-4; max abs against the plain bf16
-               version reported);
+               points), in f32 (the register-blocked FMA kernel, max abs
+               error <= 1e-3) and bf16 (tensor-core kernel: mean error
+               against f32 truth <= 1.2x the plain bf16 version's + 1e-4;
+               max abs against the plain bf16 version reported); the f32
+               kernel also at W=64, 192, 256, 320, 512 (each tile geometry
+               class), depth 3, P=1 and 700 (ragged tiles);
              * table_gather at the Pallas probe's shapes ([512, 128] f32,
                [8, 128] int32, one column) and at the packed NGP encode's
                (bf16, 64-wide rows, [2, 786432] indices): bit-equal;
              * hash_encode on the tuned and the upstream grid, std-1 tables,
                786,432 points with some outside the box and some on cell
-               faces: f32 max abs <= 1e-5, bf16 within one bf16 ulp
+               faces, and a real request's 786,432 points in the renderer's
+               order: f32 max abs <= 1e-5, bf16 within one bf16 ulp
                (|d| <= 8e-3 |ref| + 1e-6); the packed encode through both
                kernels against the plain unpacked encode, f32, <= 1e-5.
 4. serve   - the SIREN 256^2 generator (random weights from a seed) behind
@@ -34,11 +37,16 @@ non-zero with no ``ok`` line:
              launch counts, answer two seed requests and one azim/elev
              request, read the counts (siren_field must have launched); a
              profiled request must show the bf16 tensor-core kernel
-             (siren_field_mma_kernel) by name and not the f32 FMA kernel;
+             (siren_field_mma_kernel) by name and not the f32 kernel
+             (siren_field_f32_kernel);
              serve_compare: one f32 request with the fused field against the
              same request through the plain field (<= 2e-3), and the bf16
              request's mean error against that f32 plain image <= 1.2x the
              plain bf16 request's + 1e-4.
+   serve_f32 - the same generator with f32 weights (the sampler's default
+             for a state dict): three requests through the f32 kernel, a
+             profiled one showing it by name and not the bf16 kernel,
+             images/s.
 5. serve_ngp - the same for the NGP generator of
              ``configs/256res/ffhq_256_sdf_ngp_tpu.yaml`` (tuned grid, tables
              packed at 64 MB): hash_encode and table_gather must each launch
@@ -50,13 +58,14 @@ non-zero with no ``ok`` line:
              (<= 2e-3 each).
 6. timing  - at batch 8: each kernel's time (CUDA-event medians; the
              field's bf16 (mma) and f32 (FMA) kernels apart, with the sine
-             epilogue's FP32-pipe time beside the bf16 bound; for the hash
+             epilogue's FP32-pipe time beside each bound; for the hash
              kernels, which are shorter than their wrappers' host work,
              the profiler's device time per launch, with the event time of a
              whole call beside it as ``call_ms``), its plain version's and,
              for table_gather, one PyTorch call's computing the same function,
              on the points of a real request; sampler images/s of both
-             generators; beside the card's name and power limit.
+             generators, and the f32 SIREN request's profiled device ms and
+             images/s; beside the card's name and power limit.
 7. train    - the training path (``sdface_gan_tpu_torch.training``), which
              runs no kernel of its own (the fused kernels have no backward):
              train_parity: a stage-A G step (eikonal), a stage-A D step
@@ -129,8 +138,10 @@ FIELD_DESIGN = {
                 "weights in a 2-stage cp.async ring of [64, W+8] K-chunks, 8 warps of "
                 "64x64 output blocks per 128-point tile (W=256), bf16 activations in "
                 "shared memory, FiLM-sine epilogue on the FP32 pipes",
-    "float32": "siren_field_kernel<float>: FMA pipes, 32-point tiles, f32 activations "
-               "in shared memory, weights streamed from L2",
+    "float32": "siren_field_f32_kernel<W>: FMA pipes, f32 throughout; 8 warps, an 8-point x "
+               "16-column register block (128 f32 accumulators) per thread over 128-point "
+               "tiles (W=256), weights in a 2-stage cp.async ring of [32, W] f32 K-chunks, "
+               "f32 activations in shared memory updated in place",
 }
 
 BATCH = 8
@@ -241,8 +252,9 @@ def field_inputs(net, b: int, p: int, seed: int):
     return pts, views, style
 
 
-def check_field(depth: int, p: int, seed: int, width: int = WIDTH) -> dict:
-    """The field kernel against its plain version at one shape, f32 and bf16."""
+def check_field(depth: int, p: int, seed: int, width: int = WIDTH, bf16: bool = True) -> dict:
+    """The field kernel against its plain version at one shape, f32 and
+    (unless ``bf16`` is False) bf16."""
     import copy
 
     import torch
@@ -252,7 +264,6 @@ def check_field(depth: int, p: int, seed: int, width: int = WIDTH) -> dict:
 
     net32 = SirenGenerator(SirenConfig(depth=depth, width=width, style_dim=STYLE),
                            generator=torch.Generator().manual_seed(seed)).cuda()
-    net16 = copy.deepcopy(net32).to(torch.bfloat16)
     pts, views, style = field_inputs(net32, 2, p, seed)
 
     def run(net, fn):
@@ -264,18 +275,22 @@ def check_field(depth: int, p: int, seed: int, width: int = WIDTH) -> dict:
 
     truth = run(net32, sk.siren_field_reference)
     kern32 = run(net32, sk.siren_field_fused_parts)
+    err32 = (kern32 - truth).abs().max().item()
+    check(bool(torch.isfinite(kern32).all()), "f32 field kernel output finite")
+    check(err32 <= 1e-3, f"f32 field kernel vs plain: max abs err {err32} <= 1e-3")
+    if not bf16:
+        return dict(depth=depth, width=width, style=STYLE, batch=2, points=p,
+                    f32_max_abs_err=err32)
+    net16 = copy.deepcopy(net32).to(torch.bfloat16)
     plain16 = run(net16, sk.siren_field_reference)
     kern16 = run(net16, sk.siren_field_fused_parts)
-    err32 = (kern32 - truth).abs().max().item()
     err16_kernel = (kern16 - truth).abs().mean().item()
     err16_plain = (plain16 - truth).abs().mean().item()
     rec = dict(depth=depth, width=width, style=STYLE, batch=2, points=p,
                f32_max_abs_err=err32, bf16_mean_err_kernel=err16_kernel,
                bf16_mean_err_plain=err16_plain,
                bf16_max_abs_kernel_vs_plain=(kern16 - plain16).abs().max().item())
-    check(bool(torch.isfinite(kern32).all() and torch.isfinite(kern16).all()),
-          "field kernel output finite")
-    check(err32 <= 1e-3, f"f32 field kernel vs plain: max abs err {err32} <= 1e-3")
+    check(bool(torch.isfinite(kern16).all()), "bf16 field kernel output finite")
     check(err16_kernel <= 1.2 * err16_plain + 1e-4,
           f"bf16 field quality {err16_kernel} <= 1.2 * {err16_plain} + 1e-4")
     return rec
@@ -329,7 +344,10 @@ def grid_points(spec, n: int, seed: int):
 
 def check_hash_encode() -> list:
     """Both grids, f32 and bf16 tables; the main path's level subset; the
-    packed encode through both kernels."""
+    packed encode through both kernels.  Two point sets: uniform points with
+    some outside the box and some on cell faces, and a real request's points
+    in the renderer's order (the kernel's speed depends on their coherence,
+    its result must not)."""
     import torch
 
     from sdface_gan_tpu_torch.ops import hash_encoder as hg
@@ -340,43 +358,48 @@ def check_hash_encode() -> list:
         spec = net.grid
         g = torch.Generator(device="cuda").manual_seed(11)
         table32 = torch.randn((spec.table_size, spec.level_dim), generator=g, device="cuda")
-        x = grid_points(spec, BATCH * POINTS, seed=12)
-        oob = (x.abs() > NGP_BOUND).any(-1).float().mean().item()
         subsets = [None]
         if net.pack_plan is not None:  # the unpacked levels, as the served path encodes them
             subsets.append(tuple(l for l in range(spec.num_levels)
                                  if l not in net.pack_plan.packed_levels))
-        for dtype in (torch.float32, torch.bfloat16):
-            table = table32.to(dtype)
-            for levels in subsets:
-                got = hg.hash_encode(x, table, spec, NGP_BOUND, levels=levels)
-                want = hg.hash_encode_reference(x, table, spec, NGP_BOUND, levels=levels)
+        point_sets = {"uniform_and_faces": grid_points(spec, BATCH * POINTS, seed=12),
+                      "request": request_points(cfg.renderer, seed=13)}
+        for kind, x in point_sets.items():
+            oob = (x.abs() > NGP_BOUND).any(-1).float().mean().item()
+            for dtype in (torch.float32, torch.bfloat16):
+                table = table32.to(dtype)
+                for levels in subsets:
+                    got = hg.hash_encode(x, table, spec, NGP_BOUND, levels=levels)
+                    want = hg.hash_encode_reference(x, table, spec, NGP_BOUND, levels=levels)
+                    torch.cuda.synchronize()
+                    diff = (got.float() - want.float()).abs()
+                    rec = dict(kernel="hash_encode", grid=name, points_kind=kind,
+                               dtype=str(dtype).split(".")[-1],
+                               levels=list(levels) if levels else "all", points=x.shape[0],
+                               oob_share=oob, out=list(got.shape),
+                               max_abs_err=diff.max().item(),
+                               finite=bool(torch.isfinite(got).all()))
+                    recs.append(rec)
+                    check(rec["finite"], f"hash_encode {name} {kind} output finite")
+                    if dtype == torch.float32:
+                        check(rec["max_abs_err"] <= 1e-5, f"hash_encode {name} {kind} f32: "
+                              f"max abs {rec['max_abs_err']} <= 1e-5")
+                    else:
+                        ok = bool((diff <= 8e-3 * want.float().abs() + 1e-6).all())
+                        check(ok, f"hash_encode {name} {kind} bf16: within one bf16 ulp")
+            if net.pack_plan is not None:
+                plan = net.pack_plan
+                packed = hg.pack_hash_table(table32, plan, dtype=torch.float32)
+                got = hg.hash_encode_packed(x, table32, packed, plan, bound=NGP_BOUND)
+                want = hg.hash_encode_reference(x, table32, spec, NGP_BOUND)
                 torch.cuda.synchronize()
-                diff = (got.float() - want.float()).abs()
-                rec = dict(kernel="hash_encode", grid=name, dtype=str(dtype).split(".")[-1],
-                           levels=list(levels) if levels else "all", points=x.shape[0],
-                           oob_share=oob, out=list(got.shape),
-                           max_abs_err=diff.max().item(),
-                           finite=bool(torch.isfinite(got).all()))
-                recs.append(rec)
-                check(rec["finite"], f"hash_encode {name} output finite")
-                if dtype == torch.float32:
-                    check(rec["max_abs_err"] <= 1e-5,
-                          f"hash_encode {name} f32: max abs {rec['max_abs_err']} <= 1e-5")
-                else:
-                    ok = bool((diff <= 8e-3 * want.float().abs() + 1e-6).all())
-                    check(ok, f"hash_encode {name} bf16: within one bf16 ulp")
-        if net.pack_plan is not None:
-            plan = net.pack_plan
-            packed = hg.pack_hash_table(table32, plan, dtype=torch.float32)
-            got = hg.hash_encode_packed(x, table32, packed, plan, bound=NGP_BOUND)
-            want = hg.hash_encode_reference(x, table32, spec, NGP_BOUND)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            recs.append(dict(kernel="hash_encode_packed", grid=name, dtype="float32",
-                             packed_levels=list(plan.packed_levels), max_abs_err=err))
-            check(err <= 1e-5, f"packed encode through both kernels vs plain unpacked: {err}")
-        del table32, x
+                err = (got - want).abs().max().item()
+                recs.append(dict(kernel="hash_encode_packed", grid=name, points_kind=kind,
+                                 dtype="float32", packed_levels=list(plan.packed_levels),
+                                 max_abs_err=err))
+                check(err <= 1e-5, f"packed encode through both kernels vs plain unpacked "
+                      f"({kind}): {err}")
+        del table32, point_sets, x
         torch.cuda.empty_cache()
     return recs
 
@@ -470,7 +493,7 @@ def serve(results: dict) -> None:
          image_range=[min(o.min().item() for o in outs), max(o.max().item() for o in outs)])
 
     mma = sk.kernel_name(torch.bfloat16)
-    prof = profile_request(sampler, [mma], absent=["siren_field_kernel"])
+    prof = profile_request(sampler, [mma], absent=[sk.kernel_name(torch.float32)])
     results["profile"] = prof
     emit(phase="profile", device_events=prof["device_events"],
          device_ms_total=prof["device_ms_total"], kernel=mma,
@@ -497,6 +520,33 @@ def serve(results: dict) -> None:
          bf16_plain_request_vs_f32_plain_mean_abs_err=bf16_plain_err,
          bf16_tolerance="fused <= 1.2 x plain + 1e-4")
     results["images_per_s"] = images_per_s(sampler)
+
+
+def serve_f32(results: dict) -> None:
+    """The SIREN generator with f32 weights, as ``SDFaceSampler`` serves a
+    state dict by default: the f32 field kernel's path.  Zero the counts,
+    answer three requests, read the counts; a profiled request must show the
+    f32 kernel by name and not the bf16 one; images/s."""
+    import torch
+
+    from sdface_gan_tpu_torch.models import Generator
+    from sdface_gan_tpu_torch.ops import siren_kernel as sk
+    from sdface_gan_tpu_torch.serving import SDFaceSampler
+
+    model = Generator(full_config(), device="cuda", generator=torch.Generator().manual_seed(0))
+    sampler = SDFaceSampler(model, batch=BATCH)
+    sampler.warmup()
+    outs, launches, dt = drive(sampler, ["siren_field"])
+    f32 = sk.kernel_name(torch.float32)
+    prof = profile_request(sampler, [f32], absent=[sk.kernel_name(torch.bfloat16)])
+    results["f32_launches"] = launches
+    results["f32_request"] = dict(device_ms_total=prof["device_ms_total"],
+                                  kernel_ms=prof["kernel_ms"][f32], top=prof["top"],
+                                  images_per_s=images_per_s(sampler))
+    emit(phase="serve_f32", requests=3, batch=BATCH, dtype="float32", launches=launches,
+         seconds_three_requests=dt, profile_device_ms_total=prof["device_ms_total"],
+         kernel=f32, siren_field_kernel_ms=prof["kernel_ms"][f32],
+         image_range=[min(o.min().item() for o in outs), max(o.max().item() for o in outs)])
 
 
 def serve_ngp(results: dict) -> dict:
@@ -601,10 +651,9 @@ def time_field(results: dict) -> dict:
             kernel=sk.kernel_name(dtype), design=FIELD_DESIGN[name],
             ms=ms, plain_ms=plain_ms, **bound(flops, field_bytes(pack, BATCH, POINTS), peak),
             tflops_achieved=flops / ms / 1e9)
-        if dtype == torch.bfloat16:  # the FiLM-sine epilogue, not overlapped with the products
-            evals = BATCH * POINTS * (DEPTH + 1) * WIDTH
-            out[name]["sine_epilogue_fp32_ms"] = (
-                evals * SINE_INSTRUCTIONS / (PEAK_F32_FLOPS / 2) * 1e3)
+        # the FiLM-sine epilogue on the FP32 pipes, not overlapped with the products
+        evals = BATCH * POINTS * (DEPTH + 1) * WIDTH
+        out[name]["sine_epilogue_fp32_ms"] = evals * SINE_INSTRUCTIONS / (PEAK_F32_FLOPS / 2) * 1e3
         del net, pts, views, args, pack
         torch.cuda.empty_cache()
     results["field_timing"] = out
@@ -1311,9 +1360,13 @@ def main() -> int:
 
     checks = [check_field(DEPTH, POINTS, seed=1), check_field(3, 700, seed=2),
               check_field(3, 700, seed=3, width=64), check_field(3, 700, seed=4, width=512)]
-    for rec in checks:
+    # the f32 kernel at every tile geometry class, ragged tiles (P = 1, 700)
+    f32_checks = [check_field(3, p, seed=5 + i, width=w, bf16=False)
+                  for i, (w, p) in enumerate((w, p) for w in (64, 192, 256, 320, 512)
+                                             for p in (1, 700))]
+    for rec in checks + f32_checks:
         emit(phase="kernel_check", kernel="siren_field", **rec)
-    results["field_checks"] = checks
+    results["field_checks"], results["field_f32_checks"] = checks, f32_checks
     gather_checks = check_table_gather()
     encode_checks = check_hash_encode()
     for rec in gather_checks + encode_checks:
@@ -1321,11 +1374,15 @@ def main() -> int:
     results["gather_checks"], results["encode_checks"] = gather_checks, encode_checks
 
     serve(results)
+    serve_f32(results)
     ngp_model = serve_ngp(results)
     timing = time_field(results)
     ngp_timing = time_ngp_kernels(results, ngp_model)
     emit(phase="timing", nvidia_smi=smi, batch=BATCH, field=timing, ngp=ngp_timing,
          images_per_s=results["images_per_s"], ngp_images_per_s=results["ngp_images_per_s"],
+         f32_images_per_s=results["f32_request"]["images_per_s"],
+         f32_request_device_ms=results["f32_request"]["device_ms_total"],
+         f32_request_kernel_ms=results["f32_request"]["kernel_ms"],
          ngp_upstream_images_per_s=results["ngp_upstream_images_per_s"])
 
     train(results)
@@ -1336,7 +1393,7 @@ def main() -> int:
                   for m in ("d_ms", "g_ms", "warm_reg_d_ms", "warm_path_ms", "peak_memory_gb")})
     train_cli(results, smi)
 
-    bf16 = timing["bfloat16"]
+    bf16, f32 = timing["bfloat16"], timing["float32"]
     gather, encode = ngp_timing["table_gather"], ngp_timing["hash_encode"]
     kernels = [
         dict(name="siren_field", route="cuda",
@@ -1348,6 +1405,14 @@ def main() -> int:
              f32_max_abs_err=checks[0]["f32_max_abs_err"],
              ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],
              bound_by=bf16["bound_by"], library_ms=None),
+        dict(name="siren_field_f32", route="cuda",
+             source="sdface_gan_tpu_torch/ops/csrc/siren_field.cu",
+             replaces="sdface_gan_tpu/ops/siren_kernel.py:40",
+             kernel=f32["kernel"], design=f32["design"],
+             launches=results["f32_launches"]["siren_field"], checked=True,
+             max_abs_err=max(r["f32_max_abs_err"] for r in checks + f32_checks),
+             ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+             bound_by=f32["bound_by"], library_ms=None),
         dict(name="table_gather", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
              replaces="scripts/bench_packed_gather.py:128",

@@ -24,12 +24,37 @@
 // C * sizeof(T) bytes; the table is read once in the bound's count.  The real
 // cost is 8 random row reads per (point, level): the tables (1 MB on the
 // tuned grid, 25 MB in bf16 on the upstream grid) sit in the 50 MB L2, so
-// the kernel is bound by L2 sector traffic, not by device memory.  The
-// design gives each thread one (point, level) with neighbouring threads on
-// the levels of one point (one broadcast xyz read, one contiguous output
-// row per point), loads each corner row with the widest aligned vector load
-// its C * sizeof(T) bytes allow, and keeps the sum in f32 registers.
-//
+// the kernel is bound by the L1/L2 requests of those reads and by the
+// integer work that finds them, not by device memory.  One thread per
+// (point, level), a point's levels on neighbouring lanes, would spread a
+// warp over 2 points and 16 level tables on the upstream grid: every corner
+// load its own sector, each point normalised once per level, a division by
+// the table size per corner.  This design instead:
+// * one block takes a tile of 256 consecutive points; a thread owns one
+//   point, normalises it once and loops over the selected levels, so a
+//   warp's 32 lanes are 32 consecutive points at one level.  The renderer's
+//   flat order puts a ray's samples, then the neighbouring rays, next to
+//   each other: at the coarse levels their corners coincide, so those loads
+//   coalesce and hit L1;
+// * the x-neighbour corners of a cell (k, k + 1) sit in one aligned pair of
+//   rows when the row of k is even: on hashed levels an even x gives rows
+//   r and r ^ 1, on dense levels `row` and `row + 1`.  Where the pair's
+//   two rows fit one load (2 C sizeof(T) <= 16 bytes), corner k reads its
+//   whole pair and corner k + 1 takes its row from that load when it is
+//   the other half, else loads its own;
+// * `% size` is a mask when the size is a power of two (every hashed
+//   level), the same value as the division;
+// * the output: a point's row is L * C * sizeof(T) bytes (64 B on the
+//   upstream grid, 32 B on the tuned grid's two served levels).  A row of
+//   one 32-byte sector goes out from its own lane, as 16-byte stores that
+//   fill the sector.  Other rows are staged in shared memory a group of
+//   levels at a time, level-major with one padding row per level
+//   (conflict-free both ways), then written out so that a warp's stores
+//   cover consecutive C * sizeof(T)-byte pieces of the tile's contiguous
+//   rows.
+// The arithmetic is fixed: x01, pos and f as above, weights multiplied
+// d = 0, 1, 2, corners summed k = 0..7 with fmaf.
+
 // table_gather_kernel replaces the Pallas probe `probe_pallas_gather.kernel`
 // (scripts/bench_packed_gather.py:128): `o = t[i, :][..., 0]`, a row gather
 // from a table held on chip.  Its production form is the packed-level gather
@@ -54,6 +79,7 @@ namespace {
 
 constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
+constexpr int kStageBytes = 16384;  // the encode's output tile per level group
 
 struct Level {
   float scale;
@@ -95,40 +121,48 @@ struct Vec {
 };
 
 template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-hash_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
-                   T* __restrict__ out, long long n_points, int n_levels,
-                   float bound, float half, int smoothstep, Levels levels) {
+__device__ __forceinline__ void load_row(const T* __restrict__ table, unsigned r, float (&v)[C]) {
   constexpr int kBytes = C * sizeof(T);
   using V = typename Vec<kBytes>::type;
-  constexpr int kVecs = kBytes / sizeof(V);
-
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_points * n_levels) return;
-  const long long n = t / n_levels;
-  const int li = (int)(t - n * n_levels);
-  const Level lv = levels.l[li];
-
   alignas(16) T row[C];
-  V* row_v = reinterpret_cast<V*>(row);
-  V* dst = reinterpret_cast<V*>(out + t * C);
+  const V* src = reinterpret_cast<const V*>(table + (size_t)r * C);
+#pragma unroll
+  for (int q = 0; q < kBytes / (int)sizeof(V); ++q) reinterpret_cast<V*>(row)[q] = __ldg(src + q);
+#pragma unroll
+  for (int c = 0; c < C; ++c) v[c] = Elem<T>::to_float(row[c]);
+}
 
-  const float two_bound = __fmul_rn(2.0f, bound);
-  float x01[3];
-  bool oob = false;
+// The rows r0 and r1 of the x-neighbour corners k, k + 1.  Where two rows
+// fit one load, r0's aligned pair is read whole, and r1 comes from it when
+// it is r0's other half (r1 == r0 ^ 1), from its own load otherwise.
+template <typename T, int C>
+__device__ __forceinline__ void load_corner_pair(const T* __restrict__ table, unsigned r0,
+                                                 unsigned r1, float (&v0)[C], float (&v1)[C]) {
+  constexpr int kBytes = C * sizeof(T);
+  if constexpr (2 * kBytes <= 16) {
+    using P = typename Vec<2 * kBytes>::type;
+    alignas(16) T pair[2 * C];
+    *reinterpret_cast<P*>(pair) = __ldg(reinterpret_cast<const P*>(table + (size_t)(r0 & ~1u) * C));
+    const bool odd = r0 & 1u;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    x01[d] = __fdiv_rn(__fadd_rn(__ldg(x + n * 3 + d), bound), two_bound);
-    oob |= (x01[d] < 0.0f) || (x01[d] > 1.0f);
+    for (int c = 0; c < C; ++c) v0[c] = Elem<T>::to_float(odd ? pair[C + c] : pair[c]);
+    if (r1 == (r0 ^ 1u)) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v1[c] = Elem<T>::to_float(odd ? pair[c] : pair[C + c]);
+    } else {
+      load_row<T, C>(table, r1, v1);
+    }
+  } else {
+    load_row<T, C>(table, r0, v0);
+    load_row<T, C>(table, r1, v1);
   }
-  if (oob) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) row[c] = Elem<T>::from_float(0.0f);
-#pragma unroll
-    for (int q = 0; q < kVecs; ++q) dst[q] = row_v[q];
-    return;
-  }
+}
 
+// One level of one point inside the box: acc = sum_k w_k * table[row_k].
+template <typename T, int C>
+__device__ __forceinline__ void encode_level(const Level& lv, const float (&x01)[3], float half,
+                                             int smoothstep, const T* __restrict__ table,
+                                             float (&acc)[C]) {
   unsigned cell[3];
   float frac[3], one_minus[3];
 #pragma unroll
@@ -142,45 +176,123 @@ hash_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
     frac[d] = f;
     one_minus[d] = __fsub_rn(1.0f, f);
   }
-
-  float acc[C];
+  const bool pow2 = (lv.size & (lv.size - 1u)) == 0u;
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const unsigned c0 = cell[0] + (k & 1);
+  for (int k = 0; k < 8; k += 2) {
     const unsigned c1 = cell[1] + ((k >> 1) & 1);
     const unsigned c2 = cell[2] + ((k >> 2) & 1);
-    const unsigned idx = lv.use_hash
-        ? (c0 ^ (c1 * 2654435761u) ^ (c2 * 805459861u))
-        : (c0 + c1 * lv.side + c2 * (lv.side * lv.side));
-    const unsigned r = idx % lv.size + lv.offset;
-    const float w = __fmul_rn(
-        __fmul_rn((k & 1) ? frac[0] : one_minus[0],
-                  ((k >> 1) & 1) ? frac[1] : one_minus[1]),
-        ((k >> 2) & 1) ? frac[2] : one_minus[2]);
-    const V* src = reinterpret_cast<const V*>(table + (size_t)r * C);
+    unsigned r[2];
 #pragma unroll
-    for (int q = 0; q < kVecs; ++q) row_v[q] = __ldg(src + q);
+    for (int u = 0; u < 2; ++u) {
+      const unsigned c0 = cell[0] + u;
+      const unsigned idx = lv.use_hash
+          ? (c0 ^ (c1 * 2654435761u) ^ (c2 * 805459861u))
+          : (c0 + c1 * lv.side + c2 * (lv.side * lv.side));
+      r[u] = (pow2 ? idx & (lv.size - 1u) : idx % lv.size) + lv.offset;
+    }
+    float v[2][C];
+    load_corner_pair<T, C>(table, r[0], r[1], v[0], v[1]);
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] = fmaf(w, Elem<T>::to_float(row[c]), acc[c]);
+    for (int u = 0; u < 2; ++u) {
+      const float w = __fmul_rn(
+          __fmul_rn(u ? frac[0] : one_minus[0], ((k >> 1) & 1) ? frac[1] : one_minus[1]),
+          ((k >> 2) & 1) ? frac[2] : one_minus[2]);
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = fmaf(w, v[u][c], acc[c]);
+    }
   }
+}
+
+// kDirect: each lane writes its point's output row itself (launch_encode
+// picks it for rows of one 32-byte sector); else the rows are staged.
+template <typename T, int C, bool kDirect>
+__global__ void __launch_bounds__(kThreads)
+hash_encode_kernel(const float* __restrict__ x, const T* __restrict__ table,
+                   T* __restrict__ out, long long n_points, int n_levels,
+                   float bound, float half, int smoothstep, Levels levels) {
+  constexpr int kBytes = C * sizeof(T);  // one level's row of one point
+  using V = typename Vec<kBytes>::type;
+  constexpr int kVecs = kBytes / sizeof(V);
+  constexpr int kGroup = kDirect ? kMaxLevels : kStageBytes / (kThreads * kBytes);
+  // stage[(g * (kThreads + 1) + p) * kVecs + q]: level g of the group, point
+  // p.  The direct kernel keeps no stage: shared memory taken from the L1
+  // would cost its coherent corner reads more than the staging saves.
+  __shared__ V stage[kDirect ? 1 : kGroup * (kThreads + 1) * kVecs];
+
+  const int tid = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * kThreads;
+  const int n_valid = (int)min((long long)kThreads, n_points - p0);
+
+  // the thread's point, mapped to [0, 1] once for all levels
+  const float two_bound = __fmul_rn(2.0f, bound);
+  float x01[3];
+  bool oob = tid >= n_valid;
+  if (!oob) {
 #pragma unroll
-  for (int c = 0; c < C; ++c) row[c] = Elem<T>::from_float(acc[c]);
+    for (int d = 0; d < 3; ++d) {
+      x01[d] = __fdiv_rn(__fadd_rn(__ldg(x + (p0 + tid) * 3 + d), bound), two_bound);
+      oob |= (x01[d] < 0.0f) || (x01[d] > 1.0f);
+    }
+  }
+
+  V* out_v = reinterpret_cast<V*>(out);
+  for (int l0 = 0; l0 < n_levels; l0 += kGroup) {
+    const int n_group = min(kGroup, n_levels - l0);
+    for (int g = 0; g < n_group; ++g) {
+      float acc[C];
+      if (oob) {
 #pragma unroll
-  for (int q = 0; q < kVecs; ++q) dst[q] = row_v[q];
+        for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+      } else {
+        encode_level<T, C>(levels.l[l0 + g], x01, half, smoothstep, table, acc);
+      }
+      alignas(16) T row[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) row[c] = Elem<T>::from_float(acc[c]);
+#pragma unroll
+      for (int q = 0; q < kVecs; ++q) {
+        const V v = reinterpret_cast<const V*>(row)[q];
+        if (!kDirect)
+          stage[(g * (kThreads + 1) + tid) * kVecs + q] = v;
+        else if (tid < n_valid)
+          out_v[((p0 + tid) * n_levels + l0 + g) * kVecs + q] = v;
+      }
+    }
+    if (kDirect) continue;
+    __syncthreads();
+    // the group's columns of the tile's rows; with every level in one group
+    // (both served grids) the tile's output is one contiguous run
+    const int units = n_group * kVecs;  // per point
+    for (int i = tid; i < n_valid * units; i += kThreads) {
+      const int p = i / units, rem = i - p * units, g = rem / kVecs, q = rem - g * kVecs;
+      out_v[((p0 + p) * n_levels + l0 + g) * kVecs + q] =
+          stage[(g * (kThreads + 1) + p) * kVecs + q];
+    }
+    __syncthreads();  // the stage is free for the next group
+  }
 }
 
 template <typename T, int C>
 int launch_encode(const void* x, const void* table, void* out, long long n_points,
                   int n_levels, float bound, float half, int smoothstep,
                   const Levels& levels, cudaStream_t stream) {
-  const long long threads = n_points * n_levels;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
+  const long long blocks = (n_points + kThreads - 1) / kThreads;  // one point per thread
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  hash_encode_kernel<T, C><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const float*)x, (const T*)table, (T*)out, n_points, n_levels, bound, half,
-      smoothstep, levels);
+  // A point's row of one 32-byte sector (the tuned grid's two served levels)
+  // goes out from its own lane as 16-byte stores that fill the sector.  Other
+  // rows are staged so that a warp's stores are contiguous: lanes writing 16
+  // bytes at a wider stride leave half-written sectors.
+  constexpr int kBytes = C * sizeof(T);
+  if (kBytes >= 16 && n_levels * kBytes <= 32)
+    hash_encode_kernel<T, C, true><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        (const float*)x, (const T*)table, (T*)out, n_points, n_levels, bound, half,
+        smoothstep, levels);
+  else
+    hash_encode_kernel<T, C, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        (const float*)x, (const T*)table, (T*)out, n_points, n_levels, bound, half,
+        smoothstep, levels);
   return (int)cudaGetLastError();
 }
 

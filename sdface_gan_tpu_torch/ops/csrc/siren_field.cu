@@ -49,13 +49,31 @@
 //   128, 106,496 at 192, 139,264 at 256, 128,000 at 320, 152,576 at 384,
 //   177,152 at 448, 201,728 at 512 (the card allows 232,448).
 //
-// * f32: siren_field_kernel<float>, on the FMA pipes (an f32 product on the
-//   tensor cores would be TF32, which cannot hold the f32 contract).  A
-//   block of W/2 threads holds one tile of kTile points of one batch
-//   element; the tile's activations live in shared memory as f32 ping-pong
-//   buffers; thread j owns output columns j and j + W/2 and streams
-//   W_l[k, j] from global memory (coalesced, L2-resident) while h[t, k] is
-//   a broadcast read from shared memory.
+// * f32: siren_field_f32_kernel<W>, on the FMA pipes, f32 throughout.  At
+//   the served shape the products are the same 828.66 GFLOP: 12.37 ms at
+//   the card's 67 TFLOP/s FP32, plus the same ~0.76 ms of FiLM-sine
+//   epilogue on those pipes.  The tensor cores would make an f32 product
+//   TF32, which cannot hold the f32 contract; 3xTF32 on mma.sync takes three
+//   products at half the bf16 rate, ~12-13 ms for the products alone by the
+//   bf16 kernel's measured 2.1 ms mma.sync phase: no better than the FMA
+//   bound, and more code.  The design is the bf16 kernel's with f32 parts.
+//   One block of 8 warps takes a tile of `rows` points of one batch element;
+//   each working thread holds an 8-point x 16-column register block (128 f32
+//   accumulators) fed by outer products from shared memory: 512 FMAs per 24
+//   16-byte shared loads, conflict-free (a warp's rows are neighbours in a
+//   buffer padded by 4 floats per row, its column quads contiguous).  The
+//   activations stay in one f32 buffer h [rows, W + 4], updated in place
+//   (K loop, barrier, epilogue writes h, barrier).  The W x W matrices
+//   stream through a 2-stage cp.async ring of [kc, W] f32 K-chunks, across
+//   layer boundaries too, so every block reads the ~2.1 MB of f32 weights
+//   from L2 once per tile (~12.9 GB per request at 128 rows) while it
+//   multiplies the chunk before.  rows = 8 * floor(256 / (W / 16)): 512 at
+//   W = 64, 256 at 128, 168 at 192, 128 at 256, 96 at 320, 80 at 384, 72 at
+//   448, 64 at 512 (at 192, 320, 384 and 448 a few threads only copy);
+//   kc = 32 up to W = 384, 16 above.  Shared memory per block, rows x (W +
+//   12) x 4 B + 2 x kc x W x 4 B: 172,032 B at W = 64, 176,128 at 128,
+//   186,240 at 192, 202,752 at 256, 209,408 at 320, 225,024 at 384, 189,824
+//   at 448, 199,680 at 512.  The small layers run as in the bf16 kernel.
 //
 // C interface for ctypes: siren_field_forward(...) returns a cudaError_t.
 
@@ -63,8 +81,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kTile = 32;  // points per block
 
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvTwoPi = 0.15915494309189535f;
@@ -89,16 +105,6 @@ __device__ __forceinline__ float fast_sin(float x) {
   p = fmaf(p, x2, kS1);
   return __fmul_rn(x, p);
 }
-
-template <typename WT>
-struct Dot;
-
-template <>
-struct Dot<float> {
-  static __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-};
 
 template <typename WT>
 struct FieldArgs {
@@ -129,188 +135,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// acc{0,1}[t] = sum_k h[t, k] * w[k, j{0,1}] for the kTile points of a tile.
-template <typename WT>
-__device__ __forceinline__ void tile_matmul(const float* __restrict__ h,
-                                            const WT* __restrict__ w, int W,
-                                            int j0, int j1, float (&acc0)[kTile],
-                                            float (&acc1)[kTile]) {
-#pragma unroll
-  for (int t = 0; t < kTile; ++t) {
-    acc0[t] = 0.f;
-    acc1[t] = 0.f;
-  }
-#pragma unroll 2
-  for (int k = 0; k < W; k += 4) {
-    float wa[4], wb[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      wa[q] = Dot<WT>::load(w + (size_t)(k + q) * W + j0);
-      wb[q] = Dot<WT>::load(w + (size_t)(k + q) * W + j1);
-    }
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      const float4 hv = *reinterpret_cast<const float4*>(h + t * W + k);
-      acc0[t] = fmaf(hv.x, wa[0], acc0[t]);
-      acc0[t] = fmaf(hv.y, wa[1], acc0[t]);
-      acc0[t] = fmaf(hv.z, wa[2], acc0[t]);
-      acc0[t] = fmaf(hv.w, wa[3], acc0[t]);
-      acc1[t] = fmaf(hv.x, wb[0], acc1[t]);
-      acc1[t] = fmaf(hv.y, wb[1], acc1[t]);
-      acc1[t] = fmaf(hv.z, wb[2], acc1[t]);
-      acc1[t] = fmaf(hv.w, wb[3], acc1[t]);
-    }
-  }
-}
-
-template <typename WT>
-__global__ void __launch_bounds__(256)
-    siren_field_kernel(const FieldArgs<WT> a) {
-  extern __shared__ float4 smem4[];
-  const int W = a.W;
-  float* h_in = reinterpret_cast<float*>(smem4);  // [kTile, W]
-  float* h_out = h_in + kTile * W;                 // [kTile, W]
-  float* xin = h_out + kTile * W;                  // [kTile, 8]: xyz 0..2, dirs 4..6
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int p0 = blockIdx.x * kTile;
-  const int n_valid = min(kTile, a.P - p0);
-  const size_t row0 = (size_t)b * a.P + p0;  // first point of the tile
-  const float* gam = a.gamma + (size_t)b * (a.D + 1) * W;
-  const float* bet = a.beta + (size_t)b * (a.D + 1) * W;
-  const int j0 = tid, j1 = tid + W / 2;
-
-  for (int i = tid; i < kTile * 3; i += blockDim.x) {
-    const int t = i / 3, c = i % 3;
-    float pv = 0.f, vv = 0.f;
-    if (t < n_valid) {
-      pv = a.pts[(row0 + t) * 3 + c];
-      vv = a.views[(row0 + t) * 3 + c];
-    }
-    xin[t * 8 + c] = Dot<WT>::round(pv);
-    xin[t * 8 + 4 + c] = Dot<WT>::round(vv);
-  }
-  __syncthreads();
-
-  // layer 0: 3 -> W
-  {
-    float wa[3], wb[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      wa[c] = Dot<WT>::load(a.w_first + c * W + j0);
-      wb[c] = Dot<WT>::load(a.w_first + c * W + j1);
-    }
-    const float g0 = gam[j0], g1 = gam[j1], e0 = bet[j0], e1 = bet[j1];
-    const float c0 = a.b_first[j0], c1 = a.b_first[j1];
-#pragma unroll 4
-    for (int t = 0; t < kTile; ++t) {
-      const float x0 = xin[t * 8], x1 = xin[t * 8 + 1], x2 = xin[t * 8 + 2];
-      const float z0 = fmaf(x2, wa[2], fmaf(x1, wa[1], x0 * wa[0]));
-      const float z1 = fmaf(x2, wb[2], fmaf(x1, wb[1], x0 * wb[0]));
-      h_in[t * W + j0] = Dot<WT>::round(fast_sin(g0 * (z0 + c0) + e0));
-      h_in[t * W + j1] = Dot<WT>::round(fast_sin(g1 * (z1 + c1) + e1));
-    }
-  }
-  __syncthreads();
-
-  // hidden layers: W -> W
-  float acc0[kTile], acc1[kTile];
-  for (int l = 1; l < a.D; ++l) {
-    tile_matmul<WT>(h_in, a.w_hidden + (size_t)(l - 1) * W * W, W, j0, j1, acc0, acc1);
-    const float g0 = gam[l * W + j0], g1 = gam[l * W + j1];
-    const float e0 = bet[l * W + j0], e1 = bet[l * W + j1];
-    const float c0 = a.b_hidden[(l - 1) * W + j0], c1 = a.b_hidden[(l - 1) * W + j1];
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      h_out[t * W + j0] = Dot<WT>::round(fast_sin(g0 * (acc0[t] + c0) + e0));
-      h_out[t * W + j1] = Dot<WT>::round(fast_sin(g1 * (acc1[t] + c1) + e1));
-    }
-    __syncthreads();
-    float* tmp = h_in;
-    h_in = h_out;
-    h_out = tmp;
-  }
-
-  const int warp = tid / 32, lane = tid % 32, n_warps = blockDim.x / 32;
-
-  // sdf head: W -> 1, one warp per point, lanes split k
-  for (int t = warp; t < kTile; t += n_warps) {
-    float s = 0.f;
-    for (int k = lane; k < W; k += 32) s = fmaf(h_in[t * W + k], Dot<WT>::load(a.w_sdf + k), s);
-    s = warp_sum(s);
-    if (lane == 0 && t < n_valid) a.sdf[row0 + t] = s + a.b_sdf[0];
-  }
-
-  // views layer: [h, dirs] -> W, FiLM and sine; its output is the feature
-  {
-    tile_matmul<WT>(h_in, a.wv_h, W, j0, j1, acc0, acc1);
-    float wa[3], wb[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      wa[c] = Dot<WT>::load(a.wv_d + c * W + j0);
-      wb[c] = Dot<WT>::load(a.wv_d + c * W + j1);
-    }
-    const int D = a.D;
-    const float g0 = gam[D * W + j0], g1 = gam[D * W + j1];
-    const float e0 = bet[D * W + j0], e1 = bet[D * W + j1];
-    const float c0 = a.b_v[j0], c1 = a.b_v[j1];
-#pragma unroll
-    for (int t = 0; t < kTile; ++t) {
-      const float d0 = xin[t * 8 + 4], d1 = xin[t * 8 + 5], d2 = xin[t * 8 + 6];
-      const float u0 = fmaf(d2, wa[2], fmaf(d1, wa[1], d0 * wa[0]));
-      const float u1 = fmaf(d2, wb[2], fmaf(d1, wb[1], d0 * wb[0]));
-      const float f0 = Dot<WT>::round(fast_sin(g0 * ((acc0[t] + u0) + c0) + e0));
-      const float f1 = Dot<WT>::round(fast_sin(g1 * ((acc1[t] + u1) + c1) + e1));
-      h_out[t * W + j0] = f0;
-      h_out[t * W + j1] = f1;
-      if (t < n_valid) {
-        Dot<WT>::store(a.feat + (row0 + t) * W + j0, f0);
-        Dot<WT>::store(a.feat + (row0 + t) * W + j1, f1);
-      }
-    }
-  }
-  __syncthreads();
-
-  // rgb head: W -> 3 on the (rounded) feature, one warp per point
-  for (int t = warp; t < kTile; t += n_warps) {
-    float r0 = 0.f, r1 = 0.f, r2 = 0.f;
-    for (int k = lane; k < W; k += 32) {
-      const float f = h_out[t * W + k];
-      r0 = fmaf(f, Dot<WT>::load(a.w_rgb + k * 3), r0);
-      r1 = fmaf(f, Dot<WT>::load(a.w_rgb + k * 3 + 1), r1);
-      r2 = fmaf(f, Dot<WT>::load(a.w_rgb + k * 3 + 2), r2);
-    }
-    r0 = warp_sum(r0);
-    r1 = warp_sum(r1);
-    r2 = warp_sum(r2);
-    if (lane == 0 && t < n_valid) {
-      a.rgb[(row0 + t) * 3] = r0 + a.b_rgb[0];
-      a.rgb[(row0 + t) * 3 + 1] = r1 + a.b_rgb[1];
-      a.rgb[(row0 + t) * 3 + 2] = r2 + a.b_rgb[2];
-    }
-  }
-}
-
-int launch_fma(const FieldArgs<float>& a, int B, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * kTile * a.W + kTile * 8) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&siren_field_kernel<float>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.P + kTile - 1) / kTile, B);
-  siren_field_kernel<float><<<grid, a.W / 2, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------- bf16, mma.sync
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kStages = 2;     // weight ring depth
-constexpr int kChunk = 64;     // K rows per weight chunk
-constexpr int kPad = 8;        // bf16 pad per shared row
+constexpr int kThreads = 256;  // 8 warps, in both kernels
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -329,6 +154,294 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// ---------------------------------------------------------------- f32, FMA pipes
+
+constexpr int kF32BlocksPerSM = 1;
+
+// Tile geometry of siren_field_f32_kernel<W>.  Each of the kCols x
+// kRowThreads working threads holds a kTM-point x 16-column register block
+// of a layer's output (128 f32 accumulators); the other threads of the
+// block only copy and synchronise.
+template <int W>
+struct F32Tile {
+  static constexpr int kTM = 8;                         // points per thread
+  static constexpr int kCols = W / 16;                  // threads across the columns
+  static constexpr int kRowThreads = kThreads / kCols;  // threads down the rows
+  static constexpr int kWorking = kCols * kRowThreads;
+  static constexpr int rows = kTM * kRowThreads;        // points per tile
+  static constexpr int ld = W + 4;                      // h row pitch, in floats
+  static constexpr int kc = W <= 384 ? 32 : 16;         // K rows per weight chunk
+  static constexpr int n_chunk = W / kc;                // weight chunks per matrix
+  static constexpr int kRing = 2;                       // weight ring depth
+  static constexpr size_t smem =
+      sizeof(float) * ((size_t)rows * 8 + (size_t)rows * ld + (size_t)kRing * kc * W);
+  static_assert(smem * kF32BlocksPerSM <= 232448, "shared memory of the blocks of one SM");
+  static_assert(kc * W / 4 % kThreads == 0, "whole 16-byte copies per thread");
+};
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// Start the cp.async copy of f32 weight chunk c into its ring stage when c
+// is a chunk (c < total), and commit a group either way so that the wait
+// counts stay uniform.  Chunk c is rows [k0, k0 + kc) of matrix c / n_chunk:
+// hidden matrices 0 .. D-2, then the views layer's point rows.
+template <int W>
+__device__ __forceinline__ void fetch_f32_chunk(const float* w_hidden, const float* wv_h, int D,
+                                                float* ring, int c, int total) {
+  using G = F32Tile<W>;
+  constexpr int per_row = W / 4;  // 16-byte pieces per weight row
+  if (c < total) {
+    const int mat = c / G::n_chunk, k0 = (c % G::n_chunk) * G::kc;
+    const float* src = (mat < D - 1 ? w_hidden + (size_t)mat * W * W : wv_h) + (size_t)k0 * W;
+    float* dst = ring + (c % G::kRing) * G::kc * W;
+#pragma unroll
+    for (int j = 0; j < G::kc * per_row / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      cp_async16(dst + i * 4, src + i * 4);  // the chunk is contiguous in both
+    }
+  }
+  cp_async_commit();
+}
+
+// acc[i][4 q + u] is the output at row tr + i * kRowThreads, column
+// q * 4 kCols + 4 tc + u.  h[r, col] = fast_sin(g * (z + bias) + e), z the
+// product (plus, for the views layer, the direction rows' 3 -> W product).
+template <int W, bool kViews>
+__device__ __forceinline__ void film_sine_f32(const float (&acc)[F32Tile<W>::kTM][16], float* h,
+                                              const float* g, const float* e,
+                                              const float* bias, const float* xin,
+                                              const float* wv_d, int tr, int tc) {
+  using G = F32Tile<W>;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int col = q * 4 * G::kCols + 4 * tc;
+    const float4 gg = ldg4(g + col), ee = ldg4(e + col), bb = ldg4(bias + col);
+    float4 w0, w1, w2;
+    if (kViews) {
+      w0 = ldg4(wv_d + col);
+      w1 = ldg4(wv_d + W + col);
+      w2 = ldg4(wv_d + 2 * W + col);
+    }
+#pragma unroll
+    for (int i = 0; i < G::kTM; ++i) {
+      const int r = tr + i * G::kRowThreads;
+      float z0 = acc[i][4 * q], z1 = acc[i][4 * q + 1];
+      float z2 = acc[i][4 * q + 2], z3 = acc[i][4 * q + 3];
+      if (kViews) {
+        const float4 d = *reinterpret_cast<const float4*>(xin + r * 8 + 4);
+        z0 += fmaf(d.z, w2.x, fmaf(d.y, w1.x, d.x * w0.x));
+        z1 += fmaf(d.z, w2.y, fmaf(d.y, w1.y, d.x * w0.y));
+        z2 += fmaf(d.z, w2.z, fmaf(d.y, w1.z, d.x * w0.z));
+        z3 += fmaf(d.z, w2.w, fmaf(d.y, w1.w, d.x * w0.w));
+      }
+      *reinterpret_cast<float4*>(h + r * G::ld + col) = make_float4(
+          fast_sin(fmaf(gg.x, z0 + bb.x, ee.x)), fast_sin(fmaf(gg.y, z1 + bb.y, ee.y)),
+          fast_sin(fmaf(gg.z, z2 + bb.z, ee.z)), fast_sin(fmaf(gg.w, z3 + bb.w, ee.w)));
+    }
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, kF32BlocksPerSM)
+    siren_field_f32_kernel(const FieldArgs<float> a) {
+  using G = F32Tile<W>;
+  constexpr int rows = G::rows, ld = G::ld, kc = G::kc, n_chunk = G::n_chunk;
+  constexpr int TM = G::kTM, TR = G::kRowThreads, TC = G::kCols;
+  extern __shared__ float4 smem4[];
+  float* xin = reinterpret_cast<float*>(smem4);  // [rows, 8]: xyz 0..2, dirs 4..6
+  float* h = xin + rows * 8;                     // [rows, ld]
+  float* ring = h + rows * ld;                   // [kRing, kc, W]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int D = a.D;
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * rows;
+  const int n_valid = min(rows, a.P - p0);
+  const size_t row0 = (size_t)b * a.P + p0;  // first point of the tile
+  const float* gam = a.gamma + (size_t)b * (D + 1) * W;
+  const float* bet = a.beta + (size_t)b * (D + 1) * W;
+
+  const int total = D * n_chunk;  // D - 1 hidden matrices, then wv_h
+  for (int c = 0; c < G::kRing - 1; ++c) fetch_f32_chunk<W>(a.w_hidden, a.wv_h, D, ring, c, total);
+
+  for (int i = tid; i < rows * 3; i += kThreads) {
+    const int t = i / 3, c = i % 3;
+    float pv = 0.f, vv = 0.f;
+    if (t < n_valid) {
+      pv = a.pts[(row0 + t) * 3 + c];
+      vv = a.views[(row0 + t) * 3 + c];
+    }
+    xin[t * 8 + c] = pv;
+    xin[t * 8 + 4 + c] = vv;
+  }
+  __syncthreads();
+
+  // layer 0: 3 -> W; a thread owns four neighbouring columns
+  {
+    constexpr int quads = W / 4, step = kThreads / quads;
+    if (tid < step * quads) {
+      const int j = 4 * (tid % quads);
+      const float4 w0 = ldg4(a.w_first + j), w1 = ldg4(a.w_first + W + j);
+      const float4 w2 = ldg4(a.w_first + 2 * W + j);
+      const float4 g = ldg4(gam + j), e = ldg4(bet + j), bb = ldg4(a.b_first + j);
+      for (int t = tid / quads; t < rows; t += step) {
+        const float x0 = xin[t * 8], x1 = xin[t * 8 + 1], x2 = xin[t * 8 + 2];
+        const float z0 = fmaf(x2, w2.x, fmaf(x1, w1.x, x0 * w0.x));
+        const float z1 = fmaf(x2, w2.y, fmaf(x1, w1.y, x0 * w0.y));
+        const float z2 = fmaf(x2, w2.z, fmaf(x1, w1.z, x0 * w0.z));
+        const float z3 = fmaf(x2, w2.w, fmaf(x1, w1.w, x0 * w0.w));
+        *reinterpret_cast<float4*>(h + t * ld + j) = make_float4(
+            fast_sin(fmaf(g.x, z0 + bb.x, e.x)), fast_sin(fmaf(g.y, z1 + bb.y, e.y)),
+            fast_sin(fmaf(g.z, z2 + bb.z, e.z)), fast_sin(fmaf(g.w, z3 + bb.w, e.w)));
+      }
+    }
+  }
+
+  // hidden layers and the views layer's W x W part: register-blocked outer
+  // products, A = 4 K-columns of the thread's 8 rows of h, B = the thread's
+  // 16 columns of one K-row of the chunk (conflict-free 16-byte shared loads:
+  // a warp's rows are neighbours, its column quads contiguous)
+  const int tr = tid / TC, tc = tid % TC;
+  const bool working = tid < G::kWorking;
+  float acc[TM][16];
+  for (int c = 0; c < total; ++c) {
+    const int m = c / n_chunk, kci = c % n_chunk;
+    cp_async_wait<G::kRing - 2>();  // this thread's part of chunk c has landed
+    __syncthreads();  // chunk c and h complete; chunk c - 1's stage is free
+    fetch_f32_chunk<W>(a.w_hidden, a.wv_h, D, ring, c + G::kRing - 1, total);
+
+    if (m == D - 1 && kci == 0) {
+      // sdf head on h_{D-1}, before the views layer overwrites it: W -> 1,
+      // one warp per point, lanes split k
+      for (int t = warp; t < rows; t += kThreads / 32) {
+        float s = 0.f;
+        for (int k = 4 * lane; k < W; k += 128) {
+          const float4 hv = *reinterpret_cast<const float4*>(h + t * ld + k);
+          const float4 wv = ldg4(a.w_sdf + k);
+          s = fmaf(hv.w, wv.w, fmaf(hv.z, wv.z, fmaf(hv.y, wv.y, fmaf(hv.x, wv.x, s))));
+        }
+        s = warp_sum(s);
+        if (lane == 0 && t < n_valid) a.sdf[row0 + t] = s + a.b_sdf[0];
+      }
+    }
+
+    if (working) {
+      if (kci == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+      }
+      const float* wk = ring + (c % G::kRing) * kc * W + 4 * tc;
+      const float* hk = h + tr * ld + kci * kc;
+#pragma unroll
+      for (int k = 0; k < kc; k += 4) {
+        float4 av[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          av[i] = *reinterpret_cast<const float4*>(hk + i * TR * ld + k);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float4 bv[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            bv[q] = *reinterpret_cast<const float4*>(wk + (k + kk) * W + q * 4 * TC);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc[i][4 * q] = fmaf(x, bv[q].x, acc[i][4 * q]);
+              acc[i][4 * q + 1] = fmaf(x, bv[q].y, acc[i][4 * q + 1]);
+              acc[i][4 * q + 2] = fmaf(x, bv[q].z, acc[i][4 * q + 2]);
+              acc[i][4 * q + 3] = fmaf(x, bv[q].w, acc[i][4 * q + 3]);
+            }
+          }
+        }
+      }
+    }
+
+    if (kci == n_chunk - 1) {
+      __syncthreads();  // every warp has read h for this layer
+      if (working) {
+        if (m < D - 1) {
+          film_sine_f32<W, false>(acc, h, gam + (m + 1) * W, bet + (m + 1) * W,
+                                  a.b_hidden + m * W, xin, a.wv_d, tr, tc);
+        } else {
+          film_sine_f32<W, true>(acc, h, gam + D * W, bet + D * W, a.b_v, xin, a.wv_d, tr, tc);
+        }
+      }
+    }
+  }
+  __syncthreads();  // h holds the feature
+
+  // the feature out, coalesced 16-byte stores
+  {
+    constexpr int per_row = W / 4;
+    for (int i = tid; i < n_valid * per_row; i += kThreads) {
+      const int t = i / per_row, q = i % per_row;
+      *reinterpret_cast<float4*>(a.feat + (row0 + t) * W + q * 4) =
+          *reinterpret_cast<const float4*>(h + t * ld + q * 4);
+    }
+  }
+
+  // rgb head: W -> 3 on the feature, one warp per point
+  for (int t = warp; t < rows; t += kThreads / 32) {
+    float r0 = 0.f, r1 = 0.f, r2 = 0.f;
+    for (int k = lane; k < W; k += 32) {
+      const float f = h[t * ld + k];
+      const float* w = a.w_rgb + k * 3;
+      r0 = fmaf(f, __ldg(w), r0);
+      r1 = fmaf(f, __ldg(w + 1), r1);
+      r2 = fmaf(f, __ldg(w + 2), r2);
+    }
+    r0 = warp_sum(r0);
+    r1 = warp_sum(r1);
+    r2 = warp_sum(r2);
+    if (lane == 0 && t < n_valid) {
+      a.rgb[(row0 + t) * 3] = r0 + a.b_rgb[0];
+      a.rgb[(row0 + t) * 3 + 1] = r1 + a.b_rgb[1];
+      a.rgb[(row0 + t) * 3 + 2] = r2 + a.b_rgb[2];
+    }
+  }
+}
+
+template <int W>
+int launch_f32(const FieldArgs<float>& a, int B, cudaStream_t stream) {
+  using G = F32Tile<W>;
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&siren_field_f32_kernel<W>),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.P + G::rows - 1) / G::rows, B);
+  siren_field_f32_kernel<W><<<grid, kThreads, G::smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(const FieldArgs<float>& a, int B, cudaStream_t stream) {
+  switch (a.W) {
+    case 64: return launch_f32<64>(a, B, stream);
+    case 128: return launch_f32<128>(a, B, stream);
+    case 192: return launch_f32<192>(a, B, stream);
+    case 256: return launch_f32<256>(a, B, stream);
+    case 320: return launch_f32<320>(a, B, stream);
+    case 384: return launch_f32<384>(a, B, stream);
+    case 448: return launch_f32<448>(a, B, stream);
+    case 512: return launch_f32<512>(a, B, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------- bf16, mma.sync
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kStages = 2;     // weight ring depth
+constexpr int kChunk = 64;     // K rows per weight chunk
+constexpr int kPad = 8;        // bf16 pad per shared row
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -630,7 +743,7 @@ extern "C" {
 
 // dot_bf16 selects the dot type of the weights and of `feat`, and with it
 // the kernel: 1 = bf16 (siren_field_mma_kernel), 0 = f32
-// (siren_field_kernel<float>).  Every other tensor is f32.  W must be a
+// (siren_field_f32_kernel).  Every other tensor is f32.  W must be a
 // multiple of 64 in [64, 512], and every pointer 16-byte aligned; the
 // wrapper checks both too.
 int siren_field_forward(int dot_bf16, const void* pts, const void* views,
@@ -663,7 +776,7 @@ int siren_field_forward(int dot_bf16, const void* pts, const void* views,
       (const float*)b_sdf, (const T*)w_rgb, (const float*)b_rgb,
       (const float*)gamma, (const float*)beta, (float*)rgb, (float*)sdf,
       (T*)feat, P, D, W};
-  return launch_fma(a, B, s);
+  return launch_f32(a, B, s);
 }
 
 const char* kernel_error_string(int code) {

@@ -36,7 +36,7 @@ import torch
 from . import _ext
 from .transcendental import fast_sin
 
-_KERNELS = {torch.bfloat16: "siren_field_mma_kernel", torch.float32: "siren_field_kernel<float>"}
+_KERNELS = {torch.bfloat16: "siren_field_mma_kernel", torch.float32: "siren_field_f32_kernel"}
 
 
 def kernel_name(dot_dtype: torch.dtype) -> str:

@@ -109,6 +109,26 @@ def test_bf16_field_kernel_holds_the_bf16_contract(cuda, depth, width, p):
     assert err_kernel <= 1.2 * err_plain + 1e-4, (err_kernel, err_plain)
 
 
+@pytest.mark.parametrize("p", [1, 700, 128 * 3 + 5])
+@pytest.mark.parametrize("width", [64, 192, 256, 512])
+@pytest.mark.parametrize("depth", [1, 3, 8])
+def test_f32_field_kernel_matches_plain_version(cuda, depth, width, p):
+    """The f32 register-blocked kernel against the plain f32 field (only the
+    summation order differs), over widths (tiles of 512, 168, 128, 64
+    points), depths and ragged last tiles; one launch per call."""
+    args = _field_args(torch.float32, depth=depth, width=width, p=p, seed=depth + width + p)
+    with torch.no_grad():
+        want = siren_kernel.siren_field_reference(*args)
+        before = _ext.LAUNCHES["siren_field"]
+        got = siren_kernel.siren_field_fused_parts(*args)
+        torch.cuda.synchronize()
+        assert _ext.LAUNCHES["siren_field"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-3
+        assert bool(torch.isfinite(g).all())
+
+
 def test_field_kernel_rejects_what_it_does_not_take(cuda):
     pack, pts, views, gamma, beta = _field_args(torch.float32)
     with torch.no_grad():
@@ -139,9 +159,10 @@ def test_sampler_runs_the_field_kernel(cuda):
     # each request through the kernel of its dtype, seen by name on the card
     names16 = _device_kernels(lambda: bf16.sample(seed=1))
     assert any(siren_kernel.kernel_name(torch.bfloat16) in k for k in names16), names16
-    assert not any("siren_field_kernel" in k for k in names16), names16
+    assert not any(siren_kernel.kernel_name(torch.float32) in k for k in names16), names16
     names32 = _device_kernels(lambda: fused.sample(seed=1))
     assert any(siren_kernel.kernel_name(torch.float32) in k for k in names32), names32
+    assert not any(siren_kernel.kernel_name(torch.bfloat16) in k for k in names32), names32
     assert model.cfg.renderer.use_fused_kernel is False  # the model's cfg is untouched
 
 
@@ -188,6 +209,49 @@ def test_hash_encode_kernel_matches_plain_version(cuda, name, dtype):
     c = spec.level_dim
     cols = np.r_[c:2 * c, 3 * c:4 * c]
     np.testing.assert_array_equal(part.float().cpu().numpy(), g[:, cols])
+
+
+def _request_points(batch=2, res=64, samples=24, seed=0):
+    """A random-camera request's sample points [batch * res^2 * samples, 3]
+    in the renderer's order (a ray's samples, then the next ray), normalized
+    as ``render`` normalizes them."""
+    from sdface_gan_tpu_torch.geometry import generate_camera_params
+    from sdface_gan_tpu_torch.geometry.rays import get_rays
+    from sdface_gan_tpu_torch.models.renderer import _sample_z_vals
+
+    rcfg = RendererConfig(out_im_res=res, n_samples=samples)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cams = generate_camera_params(res, gen, batch=batch, device="cuda")
+    rays = get_rays(cams.focal, cams.extrinsics, res)
+    near, far = cams.near.reshape(batch, 1, 1, 1), cams.far.reshape(batch, 1, 1, 1)
+    z = _sample_z_vals(rcfg, near, far, batch, gen)
+    pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z[..., None]
+    return (pts * 2.0 / (far - near)[..., None]).reshape(-1, 3).contiguous()
+
+
+@pytest.mark.parametrize("name", list(GRIDS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hash_encode_kernel_on_request_points(cuda, name, dtype):
+    """A real request's points, whose coherence the kernel's speed depends
+    on and its result must not: every level, and the tuned grid's served
+    subset (the levels the packed path leaves to the encode)."""
+    spec, table, _ = _grid_inputs(name, n=10)
+    table = table.to(getattr(torch, dtype))
+    x = _request_points()
+    subsets = [None, (2, 3)] if name == "tuned" else [None]
+    for levels in subsets:
+        with torch.no_grad():
+            before = _ext.LAUNCHES["hash_encode"]
+            got = hg.hash_encode(x, table, spec, bound=2.0, levels=levels)
+            torch.cuda.synchronize()
+            assert _ext.LAUNCHES["hash_encode"] == before + 1
+            want = hg.hash_encode_reference(x, table, spec, bound=2.0, levels=levels)
+        assert got.dtype == want.dtype == table.dtype and got.shape == want.shape
+        g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+        if dtype == "float32":
+            assert np.abs(g - w).max() <= 1e-5
+        else:
+            assert np.all(np.abs(g - w) <= 8e-3 * np.abs(w) + 1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

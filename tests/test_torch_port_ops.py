@@ -199,7 +199,7 @@ def test_fused_field_refuses_grad(field_case):
 def test_field_kernel_is_chosen_by_dot_dtype():
     """bf16 runs on the tensor cores, f32 on the FMA pipes; nothing else."""
     assert siren_kernel.kernel_name(torch.bfloat16) == "siren_field_mma_kernel"
-    assert siren_kernel.kernel_name(torch.float32) == "siren_field_kernel<float>"
+    assert siren_kernel.kernel_name(torch.float32) == "siren_field_f32_kernel"
     with pytest.raises(ValueError, match="dot dtype"):
         siren_kernel.kernel_name(torch.float16)
 
