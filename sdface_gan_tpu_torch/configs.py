@@ -26,17 +26,20 @@ def _options(name: str, stage_a: bool, ngp: bool = False, batch: int = 8) -> Con
     return build.stage_options(cfg, stage_a, ngp=ngp, batch=batch)
 
 
-def ffhq_256_sdf_ngp_tpu() -> GeneratorConfig:
-    """``ffhq_256_sdf_ngp_tpu.yaml``, stage B: the tuned grid, 4 levels x 8
-    features, T = 2^15, finest resolution 256, packed tables at 64 MB; 4096
-    eikonal points, no remat."""
-    return build.generator_config(_options("ffhq_256_sdf_ngp_tpu", False), stage_a=False)
+def ffhq_256_sdf_ngp_tpu(stage_a: bool = False) -> GeneratorConfig:
+    """``ffhq_256_sdf_ngp_tpu.yaml``, stage B (or A): the tuned grid, 4
+    levels x 8 features, T = 2^15, finest resolution 256, packed tables at
+    64 MB (inference); 4096 eikonal points, no remat (its bf16 G parameters
+    are ``train_hparams(tpu=True, ngp=True)``)."""
+    return build.generator_config(_options("ffhq_256_sdf_ngp_tpu", stage_a), stage_a=stage_a)
 
 
-def ffhq_256_sdf_ngp() -> GeneratorConfig:
-    """``ffhq_256_sdf_ngp.yaml`` with ``--ngp 1``, stage B: the upstream
-    grid, 16 levels x 2 features, T = 2^19, finest resolution 4096."""
-    return build.generator_config(_options("ffhq_256_sdf_ngp", False, ngp=True), stage_a=False)
+def ffhq_256_sdf_ngp(stage_a: bool = False) -> GeneratorConfig:
+    """``ffhq_256_sdf_ngp.yaml`` with ``--ngp 1``, stage B (or A): the
+    upstream grid, 16 levels x 2 features, T = 2^19, finest resolution
+    4096; the eikonal term over every rendered point, remat."""
+    return build.generator_config(_options("ffhq_256_sdf_ngp", stage_a, ngp=True),
+                                  stage_a=stage_a)
 
 
 def ffhq_256_sdf(stage_a: bool) -> GeneratorConfig:
@@ -53,11 +56,12 @@ def ffhq_256_sdf_tpu(stage_a: bool) -> GeneratorConfig:
     return build.generator_config(_options("ffhq_256_sdf_tpu", stage_a), stage_a=stage_a)
 
 
-def train_hparams(tpu: bool = False, batch: int = 8) -> TrainHParams:
+def train_hparams(tpu: bool = False, batch: int = 8, ngp: bool = False) -> TrainHParams:
     """The training hyperparameters of ``ffhq_256_sdf.yaml`` (or, with
-    ``tpu``, of ``ffhq_256_sdf_tpu.yaml``: bf16 G parameters)."""
-    return build.train_hparams(
-        _options("ffhq_256_sdf_tpu" if tpu else "ffhq_256_sdf", True, batch=batch))
+    ``tpu``, of ``ffhq_256_sdf_tpu.yaml``: bf16 G parameters); with ``ngp``
+    those of ``ffhq_256_sdf_ngp.yaml`` (``ffhq_256_sdf_ngp_tpu.yaml``)."""
+    name = "ffhq_256_sdf" + ("_ngp" if ngp else "") + ("_tpu" if tpu else "")
+    return build.train_hparams(_options(name, True, ngp=ngp, batch=batch))
 
 
 def discriminator_configs(size: int = 256) -> Tuple[VolumeRenderDiscConfig, StyleDiscConfig]:

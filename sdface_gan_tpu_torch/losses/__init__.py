@@ -11,6 +11,7 @@ from .gan_losses import (
 from .geometry_losses import (
     distortion_loss,
     eikonal_loss,
+    hash_smoothness_loss,
     occupancy_sparsity_loss,
     sphere_init_loss,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "viewpoints_loss",
     "distortion_loss",
     "eikonal_loss",
+    "hash_smoothness_loss",
     "occupancy_sparsity_loss",
     "sphere_init_loss",
 ]

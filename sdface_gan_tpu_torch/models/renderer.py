@@ -10,8 +10,9 @@ Training: ``render(..., return_eikonal=True)`` adds d sdf / d world points
 is differentiable with respect to the field's parameters), over every
 rendered point or at ``eikonal_subsample`` fresh frustum points;
 :func:`mlp_init_pass` is the sphere-init regression pass.  Training never
-runs the fused kernels: they have no backward and refuse tensors that need
-a gradient.
+runs the fused SIREN field: it has no backward and refuses tensors that
+need a gradient.  The NGP field's encode is differentiable: on the card its
+forward, backward and double backward are the hash-grid kernels.
 """
 
 from __future__ import annotations
@@ -68,9 +69,10 @@ class RendererConfig:
     view_independent: bool = False
     perturb: float = 1.0
     raw_noise_std: float = 0.0
-    # Evaluate the field through the port's CUDA kernels: the fused SIREN
-    # field ('sdf', ops/siren_kernel.py) or the hash-grid encode and table
-    # gather ('ngp', ops/hash_encoder.py).  Off: plain PyTorch throughout.
+    # Evaluate the SIREN field through the port's fused CUDA kernel
+    # ('sdf', ops/siren_kernel.py; inference only), as in the JAX package.
+    # The NGP field's encode takes the hash-grid kernels on a CUDA tensor
+    # (``models.siren.plain_encode`` asks for their plain versions).
     use_fused_kernel: bool = False
     # 'lastsample': the final sample gets an infinite bin (reference
     # semantics); 'white' / 'gray' / 'black' composite leftover visibility
@@ -153,12 +155,14 @@ def _apply_network(
     """Evaluate the field on [B, H, W, S, 3] inputs over one flat point axis.
 
     Returns ``(rgb, sdf, features | None)`` as separate [B, H, W, S, C]
-    tensors.  With ``use_fused_kernel`` the port's kernels run (each on a
-    CUDA tensor, its plain version on a CPU one): the fused SIREN field,
-    from ``field_pack`` or from weights packed for this call, or the NGP
-    field's hash-grid kernels.  Otherwise the plain field (SIREN, NGP or
-    FC) runs, under ``checkpoint`` when ``remat`` is on and autograd is
-    recording.
+    tensors.  With ``use_fused_kernel`` the fused SIREN field runs (the
+    kernel on a CUDA tensor, its plain version on a CPU one), from
+    ``field_pack`` or from weights packed for this call.  Otherwise the
+    field module (SIREN, NGP or FC) runs, under ``checkpoint`` when
+    ``remat`` is on and autograd is recording.  The NGP field encodes
+    through the hash-grid kernels on a CUDA tensor (the packed table where
+    there is one), or through their plain versions on a CPU tensor or
+    inside ``plain_encode``.
     """
     b, h, w, s, _ = pts.shape
     flat_pts = pts.reshape(b, h * w * s, 3).float().contiguous()
@@ -168,8 +172,6 @@ def _apply_network(
         pack = field_pack if field_pack is not None else pack_siren_field(net)
         gamma, beta = film_coeffs(net, style)
         rgb, sdf, feat = siren_field_fused_parts(pack, flat_pts, flat_views, gamma, beta)
-    elif cfg.use_fused_kernel and cfg.type == "ngp":
-        rgb, sdf, feat = net.forward_parts(flat_pts, flat_views, style, use_kernels=True)
     elif cfg.remat and torch.is_grad_enabled():
         # The network's tensors go in as inputs, so the recomputation sees
         # the ones of the forward even under a caller's parameter cast.

@@ -2,7 +2,7 @@
 
 * ``SirenGenerator``    - the 8-layer FiLM-SIREN field;
 * ``NGPSIRENGenerator`` - hash-grid encode + SH view encode + a short
-  FiLM-SIREN stack (inference: the encode has no backward kernel yet);
+  FiLM-SIREN stack;
 * ``FCGenerator``       - the plain ReLU MLP with NeRF positional encoding.
 
 Module and parameter names follow the reference ``g_ema`` state dict
@@ -18,6 +18,8 @@ GEMMs in bf16.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -202,6 +204,23 @@ class HashGridEncoder(nn.Module):
         self.packed = pack_hash_table(self.embeddings, plan, dtype=self.embeddings.dtype)
 
 
+_PLAIN_ENCODE = contextvars.ContextVar("plain_encode", default=False)
+
+
+@contextlib.contextmanager
+def plain_encode():
+    """Within this block the NGP field encodes through the plain versions
+    of the hash-grid kernels whatever the device: the kernels' yardstick,
+    which ``SDFaceSampler(use_fused_kernel=False)`` serves.  For inference:
+    a field that ``remat`` recomputes in a backward pass run after the
+    block would encode through the kernels there."""
+    token = _PLAIN_ENCODE.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_ENCODE.reset(token)
+
+
 class NGPSIRENGenerator(nn.Module):
     """Hash-grid encode, SH-encoded view directions, ``depth + 1`` FiLM-SIREN
     layers of width W, sdf and rgb heads (reference ``NGPSIRENGenerator``)."""
@@ -229,11 +248,14 @@ class NGPSIRENGenerator(nn.Module):
         if plan is not None and self.encoder.packed is None:
             self.encoder.pack(plan)
 
-    def encode(self, pts: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+    def encode(self, pts: torch.Tensor) -> torch.Tensor:
         """Hash encoding of [B, P, 3] points, through the packed table when
-        there is one.  ``use_kernels``: the CUDA kernels on a CUDA tensor
-        (their plain versions on a CPU one); otherwise the plain versions."""
+        there is one (inference).  By the tensor's device: the CUDA kernels
+        on a CUDA tensor (with autograd, the differentiable encode), their
+        plain versions on a CPU one; inside :func:`plain_encode` the plain
+        versions whatever the device."""
         cfg, table = self.cfg, self.encoder.embeddings
+        use_kernels = not _PLAIN_ENCODE.get()
         if cfg.pack_mb > 0 and self.encoder.packed is not None:
             return hash_encode_packed(pts, table, self.encoder.packed, cfg.pack_plan,
                                       bound=cfg.bound, use_kernels=use_kernels)
@@ -241,11 +263,10 @@ class NGPSIRENGenerator(nn.Module):
         return encode(pts, table, cfg.grid, bound=cfg.bound)
 
     def forward_parts(
-        self, pts: torch.Tensor, views: torch.Tensor, style: torch.Tensor,
-        use_kernels: bool = False,
+        self, pts: torch.Tensor, views: torch.Tensor, style: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         """``(rgb [B,P,3], sdf [B,P,1], features [B,P,W] | None)``."""
-        enc = self.encode(pts, use_kernels)
+        enc = self.encode(pts)
         dirs = sh_encode(views, degree=self.cfg.sh_degree)
         h = self.input_linear(enc.to(pts.dtype))
         for layer in self.pts_linears:

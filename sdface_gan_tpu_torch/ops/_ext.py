@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-LAUNCHES: Dict[str, int] = {"siren_field": 0, "hash_encode": 0, "table_gather": 0}
+LAUNCHES: Dict[str, int] = {"siren_field": 0, "hash_encode": 0, "hash_encode_backward": 0,
+                             "hash_encode_double_backward": 0, "table_gather": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

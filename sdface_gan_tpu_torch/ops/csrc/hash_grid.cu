@@ -1,5 +1,5 @@
-// Multiresolution hash-grid kernels for Hopper (sm_90a): the encode forward
-// and a row gather.
+// Multiresolution hash-grid kernels for Hopper (sm_90a): the encode forward,
+// its backward and double backward, and a row gather.
 //
 // hash_encode_kernel replaces the forward of `hash_encode`
 // (sdface_gan_tpu/ops/hash_encoder.py:205), which the JAX package leaves to
@@ -54,6 +54,43 @@
 //   rows.
 // The arithmetic is fixed: x01, pos and f as above, weights multiplied
 // d = 0, 1, 2, corners summed k = 0..7 with fmaf.
+
+// hash_encode_backward_kernel (K1) and hash_encode_double_backward_kernel (K2)
+// replace the gradient of `hash_encode` that the JAX package takes by
+// autodiff (jax.grad of sdface_gan_tpu/ops/hash_encoder.py:205: XLA's
+// deterministic scatter-add for the table, the interpolation weights'
+// derivative for the points) and its explicit table VJP
+// `hash_encode_vjp_sorted` (:245, a sort and a sorted segment sum).  With
+// g = d loss / d enc [N, L * C] and, for K2, v = the cotangent of d x [N, 3]:
+//
+//   K1  d table[row_k] += w_k * g_l                         (every point, level, corner)
+//       d x = tie / (2 bound) * sum_l scale_l * s'(f) * sum_k dw_k/df * <g_l, table[row_k]>
+//   K2  q_k = sum_d u_d dw_k/df_d,   u_d = v_d * tie_d / (2 bound) * scale_l * s'(f_d)
+//       d table[row_k] += q_k * g_l,  d g_l = sum_k q_k * table[row_k]
+//
+// tie_d is 1/2 where x01_d lies exactly on a face of the box (0 or 1), as
+// jnp.clip's derivative splits a tie, else 1; s' is the smoothstep's
+// derivative (1 for linear).  Points outside the box give zeros in every
+// output.  The second-order term of K2 with respect to x (the d-linear
+// weights' cross derivatives) is not computed: the callers' points are
+// detached leaves with no parameter upstream.  Each output is written only
+// when its pointer is not null.
+//
+// The table gradients are summed with atomicAdd into an f32 buffer that the
+// caller zeroes (and casts once to a bf16 table's type): as the upstream
+// CUDA encoder scatters (gridencoder.cu:249-336), not as XLA's
+// deterministic scatter.  Their summation order is not deterministic, so
+// reruns differ in the last bits; the plain version (the sorted segment
+// sum) is deterministic.  The cell arithmetic is the forward's (__f*_rn, the
+// same weights in the same order), so a point on a cell face takes the same
+// corners, and the one-sided derivative of floor agrees with the plain one.
+//
+// What bounds them on this card: bytes in the count (x, g and v read once,
+// the table read once, d table and d x or d g written once), but the real
+// cost is L * 8 * C f32 atomics per point into the L2 (for the stage-A
+// render of the tuned grid 786,432 x 4 x 8 x 8 = 201 M) and 8 random row
+// reads per (point, level).  The design is the forward's simplest form: one
+// point per thread, the levels in a loop, the corner rows recomputed.
 
 // table_gather_kernel replaces the Pallas probe `probe_pallas_gather.kernel`
 // (scripts/bench_packed_gather.py:128): `o = t[i, :][..., 0]`, a row gather
@@ -121,7 +158,7 @@ struct Vec {
 };
 
 template <typename T, int C>
-__device__ __forceinline__ void load_row(const T* __restrict__ table, unsigned r, float (&v)[C]) {
+__device__ __forceinline__ void load_row(const T* __restrict__ table, size_t r, float (&v)[C]) {
   constexpr int kBytes = C * sizeof(T);
   using V = typename Vec<kBytes>::type;
   alignas(16) T row[C];
@@ -309,6 +346,246 @@ int dispatch_encode(int C, const void* x, const void* table, void* out,
   }
 }
 
+// The 8 corners of one level of a point inside the box: table rows,
+// d-linear weights, the factors (1 - f, f) per axis and d f / d pos.
+struct Corners {
+  unsigned row[8];
+  float w[8];
+  float fac[2][3];  // fac[0][d] = 1 - f_d, fac[1][d] = f_d
+  float dfrac[3];   // d f_d / d pos_d: 1, or the smoothstep's derivative
+};
+
+__device__ __forceinline__ void level_corners(const Level& lv, const float (&x01)[3],
+                                              float half, int smoothstep, Corners& cr) {
+  unsigned cell[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float xc = fminf(fmaxf(x01[d], 0.0f), 1.0f);
+    const float pos = __fadd_rn(__fmul_rn(xc, lv.scale), half);
+    const float base = floorf(pos);
+    float f = __fsub_rn(pos, base);
+    cr.dfrac[d] = 1.0f;
+    if (smoothstep) {  // s = f f (3 - 2 f), s' = (f + f)(3 - 2 f) - 2 f f
+      const float ff = __fmul_rn(f, f), b = __fsub_rn(3.0f, __fmul_rn(2.0f, f));
+      cr.dfrac[d] = __fsub_rn(__fmul_rn(__fadd_rn(f, f), b), __fmul_rn(2.0f, ff));
+      f = __fmul_rn(ff, b);
+    }
+    cell[d] = (unsigned)base;
+    cr.fac[1][d] = f;
+    cr.fac[0][d] = __fsub_rn(1.0f, f);
+  }
+  const bool pow2 = (lv.size & (lv.size - 1u)) == 0u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int b0 = k & 1, b1 = (k >> 1) & 1, b2 = (k >> 2) & 1;
+    const unsigned c0 = cell[0] + b0, c1 = cell[1] + b1, c2 = cell[2] + b2;
+    const unsigned idx = lv.use_hash
+        ? (c0 ^ (c1 * 2654435761u) ^ (c2 * 805459861u))
+        : (c0 + c1 * lv.side + c2 * (lv.side * lv.side));
+    cr.row[k] = (pow2 ? idx & (lv.size - 1u) : idx % lv.size) + lv.offset;
+    cr.w[k] = __fmul_rn(__fmul_rn(cr.fac[b0][0], cr.fac[b1][1]), cr.fac[b2][2]);
+  }
+}
+
+// d w_k / d f_d for the three axes.
+__device__ __forceinline__ void weight_derivs(const Corners& cr, int k, float (&dw)[3]) {
+  const int b0 = k & 1, b1 = (k >> 1) & 1, b2 = (k >> 2) & 1;
+  const float p12 = __fmul_rn(cr.fac[b1][1], cr.fac[b2][2]);
+  const float p02 = __fmul_rn(cr.fac[b0][0], cr.fac[b2][2]);
+  const float p01 = __fmul_rn(cr.fac[b0][0], cr.fac[b1][1]);
+  dw[0] = b0 ? p12 : -p12;
+  dw[1] = b1 ? p02 : -p02;
+  dw[2] = b2 ? p01 : -p01;
+}
+
+// The point mapped to [0, 1] as the forward maps it; whether it lies
+// outside the box; and d x01 / d x with jnp.clip's half derivative on a face.
+__device__ __forceinline__ bool map_point(const float* __restrict__ x, long long p,
+                                          float bound, float (&x01)[3], float (&dx01)[3]) {
+  const float two_bound = __fmul_rn(2.0f, bound);
+  bool oob = false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    x01[d] = __fdiv_rn(__fadd_rn(__ldg(x + p * 3 + d), bound), two_bound);
+    oob |= (x01[d] < 0.0f) || (x01[d] > 1.0f);
+    const float tie = (x01[d] == 0.0f || x01[d] == 1.0f) ? 0.5f : 1.0f;
+    dx01[d] = __fdiv_rn(tie, two_bound);
+  }
+  return oob;
+}
+
+template <typename T, int C>
+__device__ __forceinline__ void store_row(T* __restrict__ out, size_t r, const float (&v)[C]) {
+  constexpr int kBytes = C * sizeof(T);
+  using V = typename Vec<kBytes>::type;
+  alignas(16) T row[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) row[c] = Elem<T>::from_float(v[c]);
+  V* dst = reinterpret_cast<V*>(out + r * C);
+#pragma unroll
+  for (int q = 0; q < kBytes / (int)sizeof(V); ++q) dst[q] = reinterpret_cast<const V*>(row)[q];
+}
+
+// K1.  dx (f32 [N, 3]) and dtable (f32 [T, C], zeroed by the caller) may
+// each be null; the table is read only for dx.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+hash_encode_backward_kernel(const float* __restrict__ x, const T* __restrict__ table,
+                            const T* __restrict__ g, float* __restrict__ dx,
+                            float* __restrict__ dtable, long long n_points, int n_levels,
+                            float bound, float half, int smoothstep, Levels levels) {
+  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n_points) return;
+  float x01[3], dx01[3];
+  if (map_point(x, p, bound, x01, dx01)) {
+    if (dx)
+      for (int d = 0; d < 3; ++d) dx[p * 3 + d] = 0.0f;
+    return;
+  }
+  float gx[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < n_levels; ++l) {
+    const Level& lv = levels.l[l];
+    Corners cr;
+    level_corners(lv, x01, half, smoothstep, cr);
+    float gl[C];
+    load_row<T, C>(g, (size_t)p * n_levels + l, gl);
+    if (dtable) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float* dst = dtable + (size_t)cr.row[k] * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c) atomicAdd(dst + c, __fmul_rn(cr.w[k], gl[c]));
+      }
+    }
+    if (dx) {
+      float gf[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float v[C], dw[3];
+        load_row<T, C>(table, cr.row[k], v);
+        float dot = 0.0f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) dot = fmaf(gl[c], v[c], dot);
+        weight_derivs(cr, k, dw);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) gf[d] = fmaf(dot, dw[d], gf[d]);
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) gx[d] = fmaf(__fmul_rn(gf[d], cr.dfrac[d]), lv.scale, gx[d]);
+    }
+  }
+  if (dx)
+    for (int d = 0; d < 3; ++d) dx[p * 3 + d] = __fmul_rn(gx[d], dx01[d]);
+}
+
+// K2.  v is the cotangent of K1's dx; dtable (f32, zeroed by the caller)
+// and dg ([N, L * C] in the table's type) may each be null.
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+hash_encode_double_backward_kernel(const float* __restrict__ x, const T* __restrict__ table,
+                                   const T* __restrict__ g, const float* __restrict__ v,
+                                   float* __restrict__ dtable, T* __restrict__ dg,
+                                   long long n_points, int n_levels, float bound, float half,
+                                   int smoothstep, Levels levels) {
+  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n_points) return;
+  float x01[3], dx01[3];
+  if (map_point(x, p, bound, x01, dx01)) {
+    if (dg) {
+      const float zeros[C] = {};
+      for (int l = 0; l < n_levels; ++l) store_row<T, C>(dg, (size_t)p * n_levels + l, zeros);
+    }
+    return;
+  }
+  float vs[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) vs[d] = __fmul_rn(__ldg(v + p * 3 + d), dx01[d]);
+  for (int l = 0; l < n_levels; ++l) {
+    const Level& lv = levels.l[l];
+    Corners cr;
+    level_corners(lv, x01, half, smoothstep, cr);
+    float u[3], q[8];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) u[d] = __fmul_rn(__fmul_rn(vs[d], lv.scale), cr.dfrac[d]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float dw[3];
+      weight_derivs(cr, k, dw);
+      q[k] = fmaf(u[2], dw[2], fmaf(u[1], dw[1], __fmul_rn(u[0], dw[0])));
+    }
+    if (dtable) {
+      float gl[C];
+      load_row<T, C>(g, (size_t)p * n_levels + l, gl);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float* dst = dtable + (size_t)cr.row[k] * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c) atomicAdd(dst + c, __fmul_rn(q[k], gl[c]));
+      }
+    }
+    if (dg) {
+      float acc[C] = {};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        float tv[C];
+        load_row<T, C>(table, cr.row[k], tv);
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[c] = fmaf(q[k], tv[c], acc[c]);
+      }
+      store_row<T, C>(dg, (size_t)p * n_levels + l, acc);
+    }
+  }
+}
+
+struct GradArgs {
+  const void *x, *table, *g, *v;
+  void *dx, *dtable, *dg;
+  long long n_points;
+  int n_levels;
+  float bound, half;
+  int smoothstep;
+};
+
+template <typename T, int C>
+int launch_grad(bool second, const GradArgs& a, const Levels& levels, cudaStream_t stream) {
+  const long long blocks = (a.n_points + kThreads - 1) / kThreads;  // one point per thread
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (second)
+    hash_encode_double_backward_kernel<T, C><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        (const float*)a.x, (const T*)a.table, (const T*)a.g, (const float*)a.v,
+        (float*)a.dtable, (T*)a.dg, a.n_points, a.n_levels, a.bound, a.half, a.smoothstep,
+        levels);
+  else
+    hash_encode_backward_kernel<T, C><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        (const float*)a.x, (const T*)a.table, (const T*)a.g, (float*)a.dx, (float*)a.dtable,
+        a.n_points, a.n_levels, a.bound, a.half, a.smoothstep, levels);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_grad(int C, bool second, const GradArgs& a, const Levels& levels,
+                  cudaStream_t s) {
+  switch (C) {
+    case 1: return launch_grad<T, 1>(second, a, levels, s);
+    case 2: return launch_grad<T, 2>(second, a, levels, s);
+    case 4: return launch_grad<T, 4>(second, a, levels, s);
+    case 8: return launch_grad<T, 8>(second, a, levels, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The selected levels' geometry as the kernels take it; false on bad input.
+bool make_levels(int n_levels, const float* scales, const unsigned* sides,
+                 const unsigned* sizes, const unsigned* offsets, const unsigned* use_hash,
+                 Levels& levels) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return false;
+  for (int l = 0; l < n_levels; ++l) {
+    if (sizes[l] == 0) return false;
+    levels.l[l] = Level{scales[l], sides[l], sizes[l], offsets[l], use_hash[l]};
+  }
+  return true;
+}
+
 template <typename E>
 __device__ __forceinline__ void copy_elems(const char* src, char* dst, int nbytes) {
   for (int b = 0; b < nbytes; b += (int)sizeof(E))
@@ -352,13 +629,9 @@ int hash_encode_forward(int table_bf16, const void* x, const void* table, void* 
                         const unsigned* sides, const unsigned* sizes,
                         const unsigned* offsets, const unsigned* use_hash,
                         void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels || n_points < 1)
-    return (int)cudaErrorInvalidValue;
   Levels levels;
-  for (int l = 0; l < n_levels; ++l) {
-    if (sizes[l] == 0) return (int)cudaErrorInvalidValue;
-    levels.l[l] = Level{scales[l], sides[l], sizes[l], offsets[l], use_hash[l]};
-  }
+  if (n_points < 1 || !make_levels(n_levels, scales, sides, sizes, offsets, use_hash, levels))
+    return (int)cudaErrorInvalidValue;
   const float half = align_corners ? 0.0f : 0.5f;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table_bf16)
@@ -366,6 +639,44 @@ int hash_encode_forward(int table_bf16, const void* x, const void* table, void* 
                                           bound, half, smoothstep, levels, s);
   return dispatch_encode<float>(C, x, table, out, n_points, n_levels, bound, half,
                                 smoothstep, levels, s);
+}
+
+// K1: g is d loss / d out [n_points, n_levels * C] in the table's type; dx
+// f32 [n_points, 3] and dtable f32 [T, C] (zeroed by the caller) may each be
+// null.  The level arguments are hash_encode_forward's.
+int hash_encode_backward(int table_bf16, const void* x, const void* table, const void* g,
+                         void* dx, void* dtable, long long n_points, int n_levels, int C,
+                         float bound, int align_corners, int smoothstep, const float* scales,
+                         const unsigned* sides, const unsigned* sizes,
+                         const unsigned* offsets, const unsigned* use_hash, void* stream) {
+  Levels levels;
+  if (n_points < 1 || !make_levels(n_levels, scales, sides, sizes, offsets, use_hash, levels))
+    return (int)cudaErrorInvalidValue;
+  const GradArgs a{x, table, g, nullptr, dx, dtable, nullptr, n_points, n_levels, bound,
+                   align_corners ? 0.0f : 0.5f, smoothstep};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return table_bf16 ? dispatch_grad<__nv_bfloat16>(C, false, a, levels, s)
+                    : dispatch_grad<float>(C, false, a, levels, s);
+}
+
+// K2: v f32 [n_points, 3] is the cotangent of K1's dx; dtable f32 [T, C]
+// (zeroed by the caller) and dg [n_points, n_levels * C] in the table's type
+// may each be null.
+int hash_encode_double_backward(int table_bf16, const void* x, const void* table,
+                                const void* g, const void* v, void* dtable, void* dg,
+                                long long n_points, int n_levels, int C, float bound,
+                                int align_corners, int smoothstep, const float* scales,
+                                const unsigned* sides, const unsigned* sizes,
+                                const unsigned* offsets, const unsigned* use_hash,
+                                void* stream) {
+  Levels levels;
+  if (n_points < 1 || !make_levels(n_levels, scales, sides, sizes, offsets, use_hash, levels))
+    return (int)cudaErrorInvalidValue;
+  const GradArgs a{x, table, g, v, nullptr, dtable, dg, n_points, n_levels, bound,
+                   align_corners ? 0.0f : 0.5f, smoothstep};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return table_bf16 ? dispatch_grad<__nv_bfloat16>(C, true, a, levels, s)
+                    : dispatch_grad<float>(C, true, a, levels, s);
 }
 
 // out[i, :] = bytes [col_bytes, col_bytes + out_bytes) of table row

@@ -1,29 +1,38 @@
-"""Multiresolution hash-grid encoding (Instant-NGP), inference half.
+"""Multiresolution hash-grid encoding (Instant-NGP).
 
 Port of ``sdface_gan_tpu/ops/hash_encoder.py``: the grid geometry
-(:class:`HashGridSpec`), the encode forward, and the corner-packed
+(:class:`HashGridSpec`), the encode and its gradients, the table VJP by
+sort and segment sum (:func:`hash_encode_vjp_sorted`), the total-variation
+regularizer (:func:`hash_table_total_variation`), and the corner-packed
 inference tables (:class:`PackPlan`, :func:`plan_packing`,
-:func:`pack_hash_table`, :func:`hash_encode_packed`).  The table backward
-(``hash_encode_vjp_sorted``) and the total-variation loss belong to
-training and are not ported yet.
+:func:`pack_hash_table`, :func:`hash_encode_packed`).
 
-Two hand-written CUDA kernels (``csrc/hash_grid.cu``) carry the path, each
+Hand-written CUDA kernels (``csrc/hash_grid.cu``) carry the path, each
 beside its plain PyTorch version:
 
 * :func:`hash_encode` - the 8-corner encode of a set of levels (plain
   version :func:`hash_encode_reference`, which follows the JAX function
   step for step: ``[K, N]`` corner-major indices and weights, one gather
-  per level, OOB points zeroed at every level).
+  per level, OOB points zeroed at every level).  Under autograd it is a
+  ``torch.autograd.Function`` whose backward is itself a ``Function``, so
+  ``create_graph=True`` (the eikonal term) reaches the double backward:
+* :func:`hash_encode_backward` - d table and d x of the encode (plain
+  version :func:`hash_encode_backward_reference`: the sorted segment sum
+  for the table, autograd through the plain encode for the points);
+* :func:`hash_encode_double_backward` - d table and d g of ``<v, d x>``
+  (plain version :func:`hash_encode_double_backward_reference`, autograd's
+  double backward through the plain encode);
 * :func:`table_gather` - ``table[idx, col:col + ncols]``, the port of the
   Pallas probe ``probe_pallas_gather.kernel``
   (``scripts/bench_packed_gather.py:128``), whose production form is the
   packed-level gather of :func:`hash_encode_packed` (plain version
-  :func:`table_gather_reference`).
+  :func:`table_gather_reference`).  Inference only: training never packs,
+  and the wrapper refuses tensors that require grad while grad mode is on.
 
 A wrapper runs its plain version on a CPU tensor and launches its kernel
-on a CUDA tensor, or raises: nothing falls back.  The kernels have no
-backward, so the wrappers refuse tensors that require grad while grad mode
-is on.
+on a CUDA tensor, or raises: nothing falls back.  The kernels' table
+gradients are summed with f32 atomics, so their last bits vary from run
+to run; the plain versions are deterministic.
 
 The hash is the reference's prime XOR in wrapping uint32 arithmetic
 (``x*1 ^ y*2654435761 ^ z*805459861``, then ``% size``).  The plain
@@ -138,10 +147,13 @@ def _corner_offsets(dim: int) -> np.ndarray:
 
 
 def _normalize(x: torch.Tensor, spec: HashGridSpec, bound: float):
-    """Flat positions mapped to [0, 1]: ``(x01 clipped f32 [N, D], oob [N, 1])``."""
+    """Flat positions mapped to [0, 1]: ``(x01 clipped f32 [N, D], oob [N, 1])``.
+    The clip is ``jnp.clip``'s ``minimum(maximum(x, 0), 1)``, whose
+    derivative is 1/2 on a face of the box (``clamp``'s would be 1)."""
     x01 = (x.reshape(-1, spec.input_dim) + bound) / (2.0 * bound)
     oob = ((x01 < 0.0) | (x01 > 1.0)).any(-1, keepdim=True)
-    return x01.float().clamp(0.0, 1.0), oob
+    x01f = x01.float()
+    return torch.minimum(torch.maximum(x01f, x01f.new_zeros(())), x01f.new_ones(())), oob
 
 
 def _cell(x01f: torch.Tensor, spec: HashGridSpec, lvl: int):
@@ -172,18 +184,22 @@ def _level_index_weight(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global table rows (int64) and weights (f32) of one level, both [K, N]."""
     pg, frac = _cell(x01f, spec, lvl)
-    cg = pg.t()[None, :, :] + torch.from_numpy(corners).to(pg.device)[:, :, None]  # [K, D, N]
-    idx = torch.zeros_like(cg[:, 0, :])
+    cg = pg[None, :, :] + torch.from_numpy(corners).to(pg.device)[:, None, :]  # [K, N, D]
+    return _corner_rows(cg, spec, lvl), _corner_weights(frac, corners)
+
+
+def _corner_rows(cg: torch.Tensor, spec: HashGridSpec, lvl: int) -> torch.Tensor:
+    """Global table rows (int64 [...]) of integer grid coordinates [..., D]."""
+    idx = torch.zeros_like(cg[..., 0])
     if spec.level_uses_hash(lvl):
         for d in range(spec.input_dim):
-            idx = idx ^ ((cg[:, d, :] * _PRIMES[d]) & _U32)
+            idx = idx ^ ((cg[..., d] * _PRIMES[d]) & _U32)
     else:
         stride = 1
         for d in range(spec.input_dim):
-            idx = (idx + cg[:, d, :] * stride) & _U32
+            idx = (idx + cg[..., d] * stride) & _U32
             stride *= spec.level_side(lvl)
-    idx = idx % spec.level_table_size(lvl) + spec.offsets[lvl]
-    return idx, _corner_weights(frac, corners)
+    return idx % spec.level_table_size(lvl) + spec.offsets[lvl]
 
 
 def _check_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -226,23 +242,92 @@ def hash_encode_reference(
     return out.reshape(x.shape[:-1] + (len(levels) * spec.level_dim,)).to(table.dtype)
 
 
-def hash_encode(
+def hash_encode_vjp_sorted(
     x: torch.Tensor,
     table: torch.Tensor,
     spec: HashGridSpec,
+    cotangent: torch.Tensor,
     bound: float = 1.0,
     levels: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """The encode of ``levels`` (default: all): the CUDA kernel on a CUDA
-    tensor, :func:`hash_encode_reference` on a CPU tensor.
+    """Table gradient of the encode of ``levels`` (default: all) by sort +
+    sorted segment sum: the (row, value) update pairs of all levels are
+    sorted by row (stable), then each row's values are summed in order
+    (``segment_reduce``).  Deterministic; f32 sums cast once to the table's
+    dtype.  Returns d loss / d table ``[table_size, level_dim]`` for
+    ``cotangent`` = d loss / d encode ``[..., len(levels) * level_dim]``."""
+    levels = _levels(spec, levels)
+    c = spec.level_dim
+    x01f, oob = _normalize(x.detach(), spec, bound)
+    n = x01f.shape[0]
+    cot = cotangent.detach().reshape(n, len(levels), c).float()
+    cot = torch.where(oob[:, :, None], 0.0, cot)  # OOB points contribute nothing
+    corners = _corner_offsets(spec.input_dim)
+    keys, vals = [], []
+    for i, lvl in enumerate(levels):
+        idx, w = _level_index_weight(x01f, spec, lvl, corners)  # [K, N] each
+        keys.append(idx.reshape(-1))
+        vals.append((w[:, :, None] * cot[None, :, i, :]).reshape(-1, c))
+    skeys, order = torch.sort(torch.cat(keys), stable=True)
+    rows, counts = torch.unique_consecutive(skeys, return_counts=True)
+    sums = torch.segment_reduce(torch.cat(vals)[order], "sum", lengths=counts, axis=0)
+    grad = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+    grad[rows] = sums
+    return grad.to(table.dtype)
 
-    The kernel takes f32 positions with D = 3, an f32 or bf16 ``[T, C]``
-    table with C in (1, 2, 4, 8), and at most 32 levels."""
-    _check_grad("hash_encode", x, table)
-    if x.device.type == "cpu":
-        return hash_encode_reference(x, table, spec, bound, levels)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+
+def hash_encode_backward_reference(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    g: torch.Tensor,
+    spec: HashGridSpec,
+    bound: float = 1.0,
+    levels: Optional[Sequence[int]] = None,
+    need_x: bool = True,
+    need_table: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Plain version of :func:`hash_encode_backward`: d x by autograd
+    through the plain encode on an f32 copy of the table, d table by
+    :func:`hash_encode_vjp_sorted`'s segment sum."""
+    dx = dtable = None
+    if need_x:
+        with torch.enable_grad():
+            xg = x.detach().requires_grad_(True)
+            out = hash_encode_reference(xg, table.detach().float(), spec, bound, levels)
+            (dx,) = torch.autograd.grad(out, xg, g.detach().float())
+    if need_table:
+        dtable = hash_encode_vjp_sorted(x, table, spec, g, bound, levels)
+    return dx, dtable
+
+
+def hash_encode_double_backward_reference(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    g: torch.Tensor,
+    v: torch.Tensor,
+    spec: HashGridSpec,
+    bound: float = 1.0,
+    levels: Optional[Sequence[int]] = None,
+    need_table: bool = True,
+    need_g: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Plain version of :func:`hash_encode_double_backward`: autograd's
+    double backward through the plain encode, in f32 on f32 copies of the
+    table and g, cast to their dtypes."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        tg = table.detach().float().requires_grad_(True)
+        gg = g.detach().float().requires_grad_(True)
+        out = hash_encode_reference(xg, tg, spec, bound, levels)
+        (dx,) = torch.autograd.grad(out, xg, gg, create_graph=True)
+        dtable, dg = torch.autograd.grad(dx, (tg, gg), v.detach().float(), allow_unused=True)
+    dtable = dtable.to(table.dtype) if need_table and dtable is not None else None
+    dg = dg.to(g.dtype) if need_g and dg is not None else None
+    return dtable, dg
+
+
+def _check_kernel_inputs(x, table, spec, levels) -> Tuple[int, ...]:
+    """The CUDA kernels' input checks; returns the selected levels."""
     levels = _levels(spec, levels)
     if x.shape[-1] != 3 or spec.input_dim != 3 or x.dtype != torch.float32:
         raise ValueError(f"the CUDA encode takes f32 [..., 3] positions, got "
@@ -259,37 +344,271 @@ def hash_encode(
         raise ValueError("the CUDA encode takes contiguous tensors on one device")
     if table.data_ptr() % 16:
         raise ValueError("the CUDA encode takes a 16-byte aligned table")
-    n = x.numel() // 3
-    out = torch.empty(x.shape[:-1] + (len(levels) * c,), dtype=table.dtype, device=x.device)
-    if n == 0:
-        return out
+    return levels
 
+
+def _level_args(spec: HashGridSpec, levels: Tuple[int, ...]) -> list:
+    """The selected levels' f32 scales, dense sides, slice sizes, offsets
+    and hash flags as ctypes arrays."""
     def arr(ctype, values):
         return (ctype * len(values))(*values)
 
-    scales = arr(ctypes.c_float, [float(np.float32(spec.level_scale(l))) for l in levels])
-    geometry = [arr(ctypes.c_uint, vals) for vals in (
-        [spec.level_side(l) for l in levels],
-        [spec.level_table_size(l) for l in levels],
-        [spec.offsets[l] for l in levels],
-        [int(spec.level_uses_hash(l)) for l in levels],
-    )]
+    return [arr(ctypes.c_float, [float(np.float32(spec.level_scale(l))) for l in levels])] + [
+        arr(ctypes.c_uint, vals) for vals in (
+            [spec.level_side(l) for l in levels],
+            [spec.level_table_size(l) for l in levels],
+            [spec.offsets[l] for l in levels],
+            [int(spec.level_uses_hash(l)) for l in levels],
+        )]
+
+
+_GEOMETRY_ARGTYPES = ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
+                      + [ctypes.POINTER(ctypes.c_uint)] * 4 + [ctypes.c_void_p])
+
+
+def _launch(name: str, symbol: str, device: torch.device, pointers: list, n: int,
+            levels: Tuple[int, ...], spec: HashGridSpec, bound: float) -> None:
+    """Call ``csrc/hash_grid.cu``'s ``symbol(table_bf16, *pointers, n,
+    n_levels, C, bound, align_corners, smoothstep, *level_args, stream)``
+    on the device's current stream; raise on a CUDA error; count it."""
     lib = _ext.load("hash_grid")
-    fn = lib.hash_encode_forward
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
-                   + [ctypes.POINTER(ctypes.c_uint)] * 4 + [ctypes.c_void_p])
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (len(pointers) - 1) + _GEOMETRY_ARGTYPES
     fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = fn(int(table.dtype == torch.bfloat16), x.data_ptr(), table.data_ptr(),
-                  out.data_ptr(), n, len(levels), c, float(bound),
+        code = fn(*pointers, n, len(levels), spec.level_dim, float(bound),
                   int(spec.align_corners), int(spec.interpolation == "smoothstep"),
-                  scales, *geometry, stream)
-    _ext.check(lib, code, "hash_encode")
-    _ext.LAUNCHES["hash_encode"] += 1
+                  *_level_args(spec, levels), stream)
+    _ext.check(lib, code, name)
+    _ext.LAUNCHES[name] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _encode_kernel(x, table, spec, bound, levels) -> torch.Tensor:
+    n = x.numel() // 3
+    out = torch.empty(x.shape[:-1] + (len(levels) * spec.level_dim,), dtype=table.dtype,
+                      device=x.device)
+    if n:
+        _launch("hash_encode", "hash_encode_forward", x.device,
+                [int(table.dtype == torch.bfloat16), x.data_ptr(), table.data_ptr(),
+                 out.data_ptr()], n, levels, spec, bound)
     return out
+
+
+def _encode(x, table, spec, bound, levels) -> torch.Tensor:
+    """The encode without autograd: the plain version on a CPU tensor, the
+    kernel on a CUDA one."""
+    if x.device.type == "cpu":
+        return hash_encode_reference(x, table, spec, bound, levels)
+    return _encode_kernel(x, table, spec, bound, _check_kernel_inputs(x, table, spec, levels))
+
+
+def hash_encode_backward(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    g: torch.Tensor,
+    spec: HashGridSpec,
+    bound: float = 1.0,
+    levels: Optional[Sequence[int]] = None,
+    need_x: bool = True,
+    need_table: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``(d x [..., 3] f32, d table [T, C] in the table's dtype)`` of
+    ``<g, encode(x, table, levels)>``, each None unless asked for: the
+    kernel ``hash_encode_backward`` on a CUDA tensor (f32 atomics, cast
+    once; not deterministic in the last bits), the plain version on a CPU
+    one.  Points on a face of the box take half the derivative, as
+    ``jnp.clip``'s does."""
+    if x.device.type == "cpu":
+        return hash_encode_backward_reference(x, table, g, spec, bound, levels, need_x,
+                                              need_table)
+    levels = _check_kernel_inputs(x, table, spec, levels)
+    n = x.numel() // 3
+    g = g.to(table.dtype).reshape(n, len(levels) * spec.level_dim).contiguous()
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device) if need_x else None
+    scratch = (torch.zeros(table.shape, dtype=torch.float32, device=x.device)
+               if need_table else None)
+    if n and (need_x or need_table):
+        _launch("hash_encode_backward", "hash_encode_backward", x.device,
+                [int(table.dtype == torch.bfloat16), x.data_ptr(), table.data_ptr(),
+                 g.data_ptr(), _ptr(dx), _ptr(scratch)], n, levels, spec, bound)
+    return dx, None if scratch is None else scratch.to(table.dtype)
+
+
+def hash_encode_double_backward(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    g: torch.Tensor,
+    v: torch.Tensor,
+    spec: HashGridSpec,
+    bound: float = 1.0,
+    levels: Optional[Sequence[int]] = None,
+    need_table: bool = True,
+    need_g: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``(d table [T, C], d g)`` of ``<v, d x>``, d x being
+    :func:`hash_encode_backward`'s for ``g``, each None unless asked for:
+    the kernel ``hash_encode_double_backward`` on a CUDA tensor, the plain
+    version on a CPU one.  The term with respect to x (the d-linear
+    weights' cross derivatives) is not computed."""
+    if x.device.type == "cpu":
+        return hash_encode_double_backward_reference(x, table, g, v, spec, bound, levels,
+                                                     need_table, need_g)
+    levels = _check_kernel_inputs(x, table, spec, levels)
+    n = x.numel() // 3
+    shape = g.shape
+    g = g.to(table.dtype).reshape(n, len(levels) * spec.level_dim).contiguous()
+    v = v.float().reshape(n, 3).contiguous()
+    scratch = (torch.zeros(table.shape, dtype=torch.float32, device=x.device)
+               if need_table else None)
+    dg = torch.empty(g.shape, dtype=table.dtype, device=x.device) if need_g else None
+    if n and (need_table or need_g):
+        _launch("hash_encode_double_backward", "hash_encode_double_backward", x.device,
+                [int(table.dtype == torch.bfloat16), x.data_ptr(), table.data_ptr(),
+                 g.data_ptr(), v.data_ptr(), _ptr(scratch), _ptr(dg)], n, levels, spec,
+                bound)
+    return (None if scratch is None else scratch.to(table.dtype),
+            None if dg is None else dg.reshape(shape))
+
+
+# PyTorch's private query of the running backward pass: will it execute this
+# node?  Its one use is :func:`_wanted`.  Without it (a PyTorch that drops
+# the symbol) every gradient that ``needs_input_grad`` names is computed: the
+# eikonal's first pass then scatters a table gradient that nothing reads
+# (about 1 % of an upstream-grid G step), and
+# ``test_engine_query_is_available`` fails.
+_WILL_ENGINE_EXECUTE = getattr(torch._C, "_will_engine_execute_node", None)
+
+
+def _wanted(ctx, i: int) -> bool:
+    """Whether the running backward needs the gradient of input ``i``.
+    ``needs_input_grad`` is fixed at the forward; the engine also knows
+    which nodes this backward pass executes (an eikonal's
+    ``autograd.grad(sdf, points)`` needs no table gradient).  The engine is
+    not asked about a leaf (it cannot answer under ``autograd.grad``):
+    :func:`hash_encode` hands it views of its leaves instead."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    node = ctx.next_functions[i][0]
+    if (_WILL_ENGINE_EXECUTE is None or node is None
+            or type(node).__name__ == "AccumulateGrad"):
+        return True
+    return bool(_WILL_ENGINE_EXECUTE(node))
+
+
+class _HashEncode(torch.autograd.Function):
+    """``encode(x, table)``; its backward is :class:`_HashEncodeBackward`,
+    a ``Function`` too, so ``create_graph=True`` reaches the double
+    backward.  ``geom`` is ``(spec, bound, levels)``."""
+
+    @staticmethod
+    def forward(ctx, x, table, geom):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, table)
+        ctx.geom = geom
+        return _encode(x, table, *geom)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None, None
+        x, table = ctx.saved_tensors
+        dx, dtable = _HashEncodeBackward.apply(x, table, g, ctx.geom, _wanted(ctx, 0),
+                                               _wanted(ctx, 1))
+        return dx, dtable, None
+
+
+class _HashEncodeBackward(torch.autograd.Function):
+    """``(d x, d table)`` of the encode for the cotangent ``g``."""
+
+    @staticmethod
+    def forward(ctx, x, table, g, geom, need_x, need_table):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, table, g)
+        ctx.geom = geom
+        return hash_encode_backward(x, table, g, *geom, need_x=need_x,
+                                    need_table=need_table)
+
+    @staticmethod
+    def backward(ctx, v, w):
+        """``v``, ``w``: the cotangents of d x and d table.  The gradient
+        with respect to x is None: it is the d-linear weights' second
+        derivative term, and every caller's points are detached leaves with
+        no parameter upstream (the renderer's eikonal points), so no
+        parameter's gradient needs it."""
+        x, table, g = ctx.saved_tensors
+        need_table, need_g = _wanted(ctx, 1), _wanted(ctx, 2)
+        d_table = d_g = None
+        if v is not None and (need_table or need_g):
+            d_table, d_g = hash_encode_double_backward(x, table, g, v, *ctx.geom,
+                                                       need_table=need_table, need_g=need_g)
+        if w is not None and need_g:
+            # d table = sum_k w_k g scattered, so its d g is an encode of w
+            enc = _encode(x, w.to(table.dtype).contiguous(), *ctx.geom)
+            d_g = enc if d_g is None else d_g + enc
+        return None, d_table, d_g, None, None, None
+
+
+def _engine_view(t: torch.Tensor) -> torch.Tensor:
+    """A view of a leaf that requires grad, so that :func:`_wanted` can ask
+    the engine about its node."""
+    return t.view_as(t) if t.requires_grad and t.grad_fn is None else t
+
+
+def hash_encode(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    spec: HashGridSpec,
+    bound: float = 1.0,
+    levels: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """The encode of ``levels`` (default: all): the CUDA kernel on a CUDA
+    tensor, :func:`hash_encode_reference` (and its autograd) on a CPU
+    tensor.  On the card, when autograd records, the encode is
+    :class:`_HashEncode`, whose backward and double backward are the
+    kernels ``hash_encode_backward`` and ``hash_encode_double_backward``.
+
+    The kernels take f32 positions with D = 3, an f32 or bf16 ``[T, C]``
+    table with C in (1, 2, 4, 8), and at most 32 levels."""
+    if x.device.type == "cpu":
+        return hash_encode_reference(x, table, spec, bound, levels)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    levels = _check_kernel_inputs(x, table, spec, levels)
+    if torch.is_grad_enabled() and (x.requires_grad or table.requires_grad):
+        return _HashEncode.apply(_engine_view(x), _engine_view(table),
+                                 (spec, float(bound), levels))
+    return _encode_kernel(x, table, spec, bound, levels)
+
+
+def hash_table_total_variation(
+    table: torch.Tensor,
+    spec: HashGridSpec,
+    x: torch.Tensor,
+    bound: float = 1.0,
+) -> torch.Tensor:
+    """TV regularizer over grid embeddings at sampled locations: the mean
+    over the points of the squared differences between each point's cell
+    row and its +1 neighbours' along each axis, summed over the levels
+    (the differentiable analog of the reference's ``kernel_grad_tv``,
+    ``gridencoder.cu:507``).  Plain PyTorch; no training step calls it."""
+    x01f, _ = _normalize(x.detach(), spec, bound)
+    total = x01f.new_zeros(())
+    for lvl in range(spec.num_levels):
+        pos = x01f * spec.level_scale(lvl) + (0.0 if spec.align_corners else 0.5)
+        pg = torch.floor(pos).long()
+        center = table[_corner_rows(pg, spec, lvl)]
+        for d in range(spec.input_dim):
+            nb = pg.clone()
+            nb[:, d] += 1
+            diff = center - table[_corner_rows(nb, spec, lvl)]
+            total = total + torch.sum(diff.float() ** 2)
+    return total / x01f.shape[0]
 
 
 # ---------------------------------------------------------------------------

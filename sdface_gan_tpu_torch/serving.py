@@ -5,7 +5,7 @@ Port of ``sdface_gan_tpu/serving.py``:
 * truncation statistics (``mean_latent``) computed once at construction,
 * the port's CUDA kernels on by default (``use_fused_kernel``): the fused
   SIREN field, whose weights are packed once here, or the NGP field's
-  hash-grid encode and table gather,
+  hash-grid encode and table gather (off: every kernel's plain version),
 * the NGP corner-packed tables built once here (``ngp_pack_mb`` > 0),
 * a fixed batch, and camera handling (random poses or explicit angles).
 
@@ -21,6 +21,7 @@ Not ported yet: the JAX sampler's ``mesh`` (data parallelism) and orbax
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import replace
 from typing import Dict, Optional, Tuple, Union
 
@@ -34,6 +35,7 @@ from .models.generator import (
     mean_latent,
     pack_generator_for_inference,
 )
+from .models.siren import plain_encode
 from .ops.siren_kernel import pack_siren_field
 from .utils.convert import jax_params_to_state_dict
 
@@ -59,6 +61,7 @@ class SDFaceSampler:
             cfg = replace(cfg, renderer=replace(cfg.renderer, use_fused_kernel=True))
         self.model = pack_generator_for_inference(model.eval())
         self.cfg = cfg
+        self.use_fused_kernel = use_fused_kernel
         self.batch = batch
         self.truncation = truncation
         self.device = next(model.parameters()).device
@@ -131,10 +134,11 @@ class SDFaceSampler:
                                               locations=loc.expand(self.batch, 2))
             else:
                 cams = generate_camera_params(res, gen, batch=self.batch, device=self.device)
-            out = generator_forward(
-                self.model, self.cfg, [z], cams.extrinsics, cams.focal, cams.near,
-                cams.far, generator=gen, truncation=self.truncation,
-                truncation_latent=self._trunc, randomize_noise=False,
-                field_pack=self._field_pack,
-            )
+            with nullcontext() if self.use_fused_kernel else plain_encode():
+                out = generator_forward(
+                    self.model, self.cfg, [z], cams.extrinsics, cams.focal, cams.near,
+                    cams.far, generator=gen, truncation=self.truncation,
+                    truncation_latent=self._trunc, randomize_noise=False,
+                    field_pack=self._field_pack,
+                )
             return out.rgb if out.rgb is not None else out.thumb_rgb

@@ -11,8 +11,10 @@ Stage A writes ``out/<exp>/volume_renderer/`` and is skipped when its
 A's ``sdf_init_models``.  A stage whose periodic ``models_*`` checkpoint
 exists resumes from it; ``--exit-after`` seconds saves and exits with code
 3.  Runs on ``--device cuda`` (the default; raises without a card) or
-``--device cpu``, with TF32 off so that f32 stays f32.  Paths not yet ported raise ``NotImplementedError``
-(``--sdf 0``, ``--vae``/``--psp``, NGP stage A; see ROADMAP.md).
+``--device cpu``, with TF32 off so that f32 stays f32.  The NGP field
+trains by ``--ngp 1`` or by the yaml's ``rendering: type: ngp``.  Paths not
+yet ported raise ``NotImplementedError`` (``--sdf 0``, ``--vae``/``--psp``;
+see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -77,7 +79,6 @@ def train_sdf(args, cfg) -> None:
         stage_options,
         train_hparams,
     )
-    from .config.sdf_options import resolve_renderer_type
     from .data import DataLoader, MultiResolutionDataset, resolve_record_dir
     from .training.loop import train_full_pipeline, train_volume_renderer
     from .utils.checkpoints import checkpoint_exists
@@ -102,10 +103,6 @@ def train_sdf(args, cfg) -> None:
     need_b = not checkpoint_exists(out_base, "full_pipeline")
     if args.wod:
         need_a, need_b = False, True
-    if need_a and resolve_renderer_type(cfg, bool(args.ngp)):
-        raise NotImplementedError(
-            "NGP stage A (the hash-grid smoothness term and the table backward) is not "
-            "ported yet; see ROADMAP.md")
 
     exit_after = args.exit_after if args.exit_after > 0 else None
     data_path = args.dataset_path or resolve_record_dir(cfg["data"]["path"])

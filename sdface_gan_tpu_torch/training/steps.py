@@ -3,7 +3,8 @@
 * sphere init - L1-regress the SDF to a centered sphere;
 * stage A D / G - the volume renderer against the CoordConv D, with R1
   (every step, or lazily every ``a_d_reg_every``), viewpoint, eikonal and
-  minimal-surface terms (and the optional sparsity and distortion priors);
+  minimal-surface terms (and the optional sparsity and distortion priors,
+  and for the NGP field the hash-grid smoothness);
 * stage B D / G / path - the StyleGAN2 decoder against the StyleGAN2 D,
   with lazy R1 every ``d_reg_every``, the content loss and path-length
   regularization every ``g_reg_every``.
@@ -13,7 +14,8 @@ draws from its key: z (in stage B also the style-mixing code and injection
 index) and the cameras, from one ``torch.Generator``, which the forward then
 also uses for the depth jitter, decoder noise, eikonal points and path
 noise.  ``StepInputs(generator=None)`` is deterministic (fixed depths, the
-stored decoder noise; the path step then needs ``path_noise``), so tests
+stored decoder noise; the path step then needs ``path_noise``, the
+subsampled eikonal ``eikonal_draws``, the NGP smoothness ``smooth_draws``), so tests
 can feed the JAX package and the port the same inputs.  The ``*_loss``
 functions compute a loss and its metrics from the inputs; the ``*_step``
 functions take the gradients of the optimizer's parameters (zero where a
@@ -47,6 +49,7 @@ from ..losses.gan_losses import (
 from ..losses.geometry_losses import (
     distortion_loss,
     eikonal_loss,
+    hash_smoothness_loss,
     occupancy_sparsity_loss,
     sphere_init_loss,
 )
@@ -103,7 +106,7 @@ class TrainHParams:
 
 
 # The stage-A hash-grid smoothness box (axis-aligned min/max), reference
-# ``training_utils.py:433-437``; NGP training will sample its TV grid in it.
+# ``training_utils.py:433-437``: NGP training samples its TV grid in it.
 SMOOTH_BBOX = ((-1.0, 7.0), (-1.3, 3.7), (-1.7, 1.4))
 
 
@@ -111,8 +114,10 @@ class StepInputs(NamedTuple):
     """What one step draws: z [B, style_dim], the cameras, in stage B the
     mixing code z2 (z itself when unmixed) and the injection index (a 0-d
     tensor or an int), and the generator the forward draws from (None:
-    deterministic).  ``path_noise`` fixes the path step's projection noise
-    and ``eikonal_draws`` the subsampled eikonal points (``render``)."""
+    deterministic).  ``path_noise`` fixes the path step's projection noise,
+    ``eikonal_draws`` the subsampled eikonal points (``render``) and
+    ``smooth_draws`` the NGP smoothness grid's offset and jitter
+    (``hash_smoothness_loss``)."""
 
     z: torch.Tensor
     cams: CameraParams
@@ -121,6 +126,7 @@ class StepInputs(NamedTuple):
     generator: Optional[torch.Generator] = None
     path_noise: Optional[torch.Tensor] = None
     eikonal_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    smooth_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def sample_inputs(
@@ -249,10 +255,8 @@ def stage_a_g_loss(
     hp: TrainHParams, inputs: StepInputs,
 ) -> Tuple[torch.Tensor, Metrics]:
     """Nonsaturating + viewpoint + eikonal + minimal surface (+ sparsity and
-    distortion when their weights are > 0)."""
-    if gcfg.renderer.type == "ngp" and hp.smooth_lambda > 0:
-        raise NotImplementedError("the hash-grid smoothness loss comes with NGP training, "
-                                  "which is not ported yet")
+    distortion when their weights are > 0, and the NGP field's hash-grid
+    smoothness on its f32 master table, uncast, as the JAX step feeds it)."""
     use_eik, use_msurf = hp.eikonal_lambda > 0, hp.min_surf_lambda > 0
     use_sparsity, use_dist = hp.sparsity_lambda > 0, hp.distortion_lambda > 0
     use_view = hp.view_lambda > 0 and dcfg.viewpoint_head
@@ -282,6 +286,13 @@ def stage_a_g_loss(
         dist = distortion_loss(out.weights, out.s_vals)
         loss = loss + hp.distortion_lambda * dist
         metrics["g_distortion"] = hp.distortion_lambda * dist
+    if gcfg.renderer.type == "ngp" and hp.smooth_lambda > 0:
+        net = g.renderer.network
+        smooth = hash_smoothness_loss(net.encoder.embeddings, net.cfg.grid, SMOOTH_BBOX,
+                                      bound=net.cfg.bound, generator=inputs.generator,
+                                      draws=inputs.smooth_draws)
+        loss = loss + hp.smooth_lambda * smooth
+        metrics["g_smooth"] = hp.smooth_lambda * smooth
     return loss, _detached(metrics)
 
 

@@ -405,3 +405,176 @@ def test_training_render_never_launches_the_field_kernel(cuda):
         names = _device_kernels(lambda: _loss_and_grads(case, "stage_a_g", "cuda"))
     assert names and not any("siren_field" in n for n in names)
     assert _ext.LAUNCHES["siren_field"] == before
+
+
+# ---------------------------------------------------------------------------
+# The encode's backward (K1) and double backward (K2), and NGP training
+# ---------------------------------------------------------------------------
+
+GRAD_GRIDS = dict(GRIDS, tiny=dict(num_levels=4, level_dim=2, desired_resolution=64,
+                                   log2_hashmap_size=7))
+# ||kernel - plain|| / ||plain||: f32 outputs differ in the atomics' and the
+# sums' order; a bf16 output by one bf16 rounding of f32 sums
+GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _grad_inputs(name, dtype, n=30000, seed=3, bound=2.0):
+    """A std-1 table, g and v; uniform points a little beyond the box, points
+    on cell faces of every level and on the faces of the box."""
+    spec, table, x = _grid_inputs(name if name in GRIDS else "tuned", n=n, seed=seed,
+                                  bound=bound)
+    if name not in GRIDS:
+        spec = hg.HashGridSpec.create(**GRAD_GRIDS[name])
+        rng = np.random.default_rng(seed)
+        table = torch.from_numpy(rng.standard_normal(
+            (spec.table_size, spec.level_dim)).astype(np.float32)).cuda()
+    rng = np.random.default_rng(seed + 1)
+    faces = rng.uniform(-bound, bound, (300, 3))
+    faces[np.arange(300), np.arange(300) % 3] = np.where(np.arange(300) % 2, bound, -bound)
+    x = torch.cat([x, torch.from_numpy(faces.astype(np.float32)).cuda()]).contiguous()
+    g = torch.from_numpy(rng.standard_normal((x.shape[0], spec.output_dim)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((x.shape[0], 3)).astype(np.float32))
+    return spec, x, table.to(dtype), g.cuda().to(dtype), v.cuda()
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.parametrize("name", list(GRAD_GRIDS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encode_backward_kernel_matches_plain_version(cuda, name, dtype):
+    """K1: d x and d table together and each alone, against the plain
+    version (sorted segment sum; autograd through the plain encode)."""
+    dt = getattr(torch, dtype)
+    spec, x, table, g, _ = _grad_inputs(name, dt)
+    before = _ext.LAUNCHES["hash_encode_backward"]
+    dx, dtable = hg.hash_encode_backward(x, table, g, spec, 2.0)
+    dx_alone, none = hg.hash_encode_backward(x, table, g, spec, 2.0, need_table=False)
+    none2, dtable_alone = hg.hash_encode_backward(x, table, g, spec, 2.0, need_x=False)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["hash_encode_backward"] == before + 3
+    assert none is None and none2 is None
+    want_dx, want_dtable = hg.hash_encode_backward_reference(x, table, g, spec, 2.0)
+    assert dx.dtype == torch.float32 and dtable.dtype == dt
+    oob = (x.abs() > 2.0).any(-1)
+    assert oob.any() and bool((dx[oob] == 0).all())
+    for got in (dx, dx_alone):
+        assert _rel(got, want_dx) <= GRAD_RTOL[torch.float32]
+    for got in (dtable, dtable_alone):
+        assert _rel(got, want_dtable) <= GRAD_RTOL[dt]
+
+
+@pytest.mark.parametrize("name", list(GRAD_GRIDS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encode_double_backward_kernel_matches_plain_version(cuda, name, dtype):
+    """K2: d table and d g of <v, d x> against autograd's double backward
+    through the plain encode."""
+    dt = getattr(torch, dtype)
+    spec, x, table, g, v = _grad_inputs(name, dt, seed=5)
+    before = _ext.LAUNCHES["hash_encode_double_backward"]
+    dtable, dg = hg.hash_encode_double_backward(x, table, g, v, spec, 2.0)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["hash_encode_double_backward"] == before + 1
+    want_dtable, want_dg = hg.hash_encode_double_backward_reference(x, table, g, v, spec, 2.0)
+    assert dtable.dtype == dg.dtype == dt and dg.shape == g.shape
+    assert _rel(dtable, want_dtable) <= GRAD_RTOL[dt]
+    assert _rel(dg, want_dg) <= GRAD_RTOL[dt]
+
+
+def test_encode_autograd_on_the_card_matches_the_cpu(cuda):
+    """``hash_encode`` under autograd on the card: first-order gradients and
+    the eikonal-style second-order table and cotangent gradients, against
+    the CPU's autograd through the plain encode; K1 and K2 launch."""
+    spec, x, table, g, _ = _grad_inputs("tuned", torch.float32, n=5000, seed=7)
+
+    def run(device):
+        xt = x.to(device).requires_grad_()
+        tt = table.to(device).requires_grad_()
+        a = g.to(device).requires_grad_()
+        out = hg.hash_encode(xt, tt, spec, bound=2.0)
+        (dx,) = torch.autograd.grad(torch.sum(out * a), xt, create_graph=True)
+        loss = torch.sum(out * a) + torch.sum(dx ** 2)
+        return [t.cpu() for t in torch.autograd.grad(loss, (tt, a))]
+
+    before = dict(_ext.LAUNCHES)
+    card = run("cuda")
+    assert _ext.LAUNCHES["hash_encode_backward"] > before["hash_encode_backward"]
+    assert (_ext.LAUNCHES["hash_encode_double_backward"]
+            == before["hash_encode_double_backward"] + 1)
+    for got, want in zip(card, run("cpu")):
+        assert _rel(got, want) <= 1e-5
+
+
+def _ngp_train_case():
+    from sdface_gan_tpu_torch.geometry import generate_camera_params
+    from sdface_gan_tpu_torch.models import VolumeRenderDiscConfig, VolumeRenderDiscriminator
+
+    rkw = dict(type="ngp", out_im_res=8, n_samples=6, style_dim=16, width=16, ngp_num_levels=4,
+               ngp_level_dim=8, ngp_finest_res=64, ngp_log2_hashmap_size=12,
+               output_features=False, return_sdf=True)
+    cfg = GeneratorConfig(size=16, style_dim=16, full_pipeline=False,
+                          renderer=RendererConfig(**rkw))
+    seed = torch.Generator().manual_seed
+    g = Generator(cfg, "cpu", seed(1))
+    with torch.no_grad():
+        emb = g.renderer.network.encoder.embeddings
+        emb.copy_(0.3 * torch.randn(emb.shape, generator=seed(2)))
+    gen = seed(9)
+    vcfg = VolumeRenderDiscConfig(in_res=8)
+    return dict(cfg=cfg, vcfg=vcfg, g=g, d=VolumeRenderDiscriminator(vcfg, seed(3)),
+                z=torch.randn((2, 16), generator=gen),
+                cams=generate_camera_params(8, gen, batch=2, device="cpu"),
+                smooth=(torch.rand(3, generator=gen), torch.rand(3, generator=gen)))
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_ngp_stage_a_step_on_the_card_launches_the_kernels(cuda, monkeypatch, remat):
+    """The NGP stage-A G loss (full eikonal, smoothness) on the card: the
+    forward, K1 and K2 launch, the plain encode is never called on a CUDA
+    tensor, and the loss and every gradient agree with the CPU (loss rel
+    1e-4, each gradient within 1e-3 of its norm + 1e-6)."""
+    from dataclasses import replace
+
+    from sdface_gan_tpu_torch.geometry import CameraParams
+    from sdface_gan_tpu_torch.models import siren
+    from sdface_gan_tpu_torch.training import steps
+
+    case = _ngp_train_case()
+    cfg = replace(case["cfg"], renderer=replace(case["cfg"].renderer, remat=remat))
+    plain_on_card = []
+    for module in (hg, siren):
+        original = module.hash_encode_reference
+
+        def counted(x, *args, _original=original, **kw):
+            if x.is_cuda:
+                plain_on_card.append(tuple(x.shape))
+            return _original(x, *args, **kw)
+
+        monkeypatch.setattr(module, "hash_encode_reference", counted)
+
+    def run(device):
+        g, d = copy.deepcopy(case["g"]).to(device), copy.deepcopy(case["d"]).to(device)
+        inputs = steps.StepInputs(case["z"].to(device),
+                                  CameraParams(*[t.to(device) for t in case["cams"]]),
+                                  smooth_draws=tuple(t.to(device) for t in case["smooth"]))
+        loss, m = steps.stage_a_g_loss(g, d, cfg, case["vcfg"],
+                                       steps.TrainHParams(batch=2, style_dim=16), inputs)
+        grads = torch.autograd.grad(loss, list(g.parameters()), allow_unused=True)
+        return loss.item(), m, [None if t is None else t.cpu() for t in grads]
+
+    with torch.enable_grad():
+        _ext.reset_launch_counts()
+        lc, mc, gc = run("cuda")
+        launches = dict(_ext.LAUNCHES)
+        lh, _, gh = run("cpu")
+    for name in ("hash_encode", "hash_encode_backward", "hash_encode_double_backward"):
+        assert launches[name] > 0, launches
+    assert not plain_on_card
+    assert all(bool(torch.isfinite(v)) for v in mc.values()) and mc["g_smooth"] > 0
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    for a, b in zip(gc, gh):
+        if b is None:
+            assert a is None
+            continue
+        assert (a - b).norm() <= 1e-3 * b.norm() + 1e-6

@@ -202,15 +202,21 @@ def test_table_gather_columns_and_clamping(dtype):
 
 
 def test_wrappers_refuse_grad_mode():
+    """``table_gather`` (inference only) refuses a table that requires grad;
+    ``hash_encode`` has a gradient, equal to the plain one."""
     _, p = _specs("small")
     table = torch.from_numpy(_table(p)).requires_grad_()
-    x = torch.zeros(4, 3)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ph.hash_encode(x, table, p)
+    x = torch.from_numpy(_points(p, 40, 1.0)).requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         ph.table_gather(table, torch.zeros(3, dtype=torch.int32))
+    out = ph.hash_encode(x, table, p)
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(out.shape).astype(np.float32))
+    dx, dtable = torch.autograd.grad(out, (x, table), g)
+    want_dx, want_dtable = ph.hash_encode_backward_reference(x, table, g, p)
+    torch.testing.assert_close(dx, want_dx, **F32_TOL)
+    torch.testing.assert_close(dtable, want_dtable, **F32_TOL)
     with torch.no_grad():
-        assert ph.hash_encode(x, table, p).shape == (4, p.output_dim)
+        assert ph.hash_encode(x, table, p).shape == (x.shape[0], p.output_dim)
 
 
 @pytest.mark.parametrize("degree", range(1, 9))

@@ -184,20 +184,41 @@ def test_wod_starts_stage_b_from_the_sphere_init(ws, monkeypatch):
         assert torch.equal(final["g"][k], init["g_ema"][k]), k
 
 
-@pytest.mark.parametrize("case", ["sdf0", "vae", "psp", "ngp_flag", "ngp_yaml"])
+@pytest.mark.parametrize("case", ["sdf0", "vae", "psp"])
 def test_paths_not_ported_raise(ws, case):
-    """``--sdf 0``, stage C and NGP stage A (by flag or by the yaml's
-    ``rendering.type``) raise before anything is written."""
-    extra = "  type: ngp\n" if case == "ngp_yaml" else ""
-    config = _write_config(ws, f"tiny_{case}", extra=extra)
-    more = {"sdf0": [], "vae": ["--vae", "1"], "psp": ["--psp", "1"],
-            "ngp_flag": ["--ngp", "1"], "ngp_yaml": []}[case]
+    """``--sdf 0`` and stage C raise before anything is written."""
+    config = _write_config(ws, f"tiny_{case}")
+    more = {"sdf0": [], "vae": ["--vae", "1"], "psp": ["--psp", "1"]}[case]
     args = _args(config, *more)
     if case == "sdf0":
         args[args.index("--sdf") + 1] = "0"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_cli.main(args)
     assert not (ws / "out" / f"tiny_{case}").exists()
+
+
+# a small hash grid for the NGP runs (the field's width is its style_dim, 16)
+NGP_GRID = "  num_levels: 2\n  level_dim: 2\n  finest_res: 32\n  log2_hashmap_size: 10\n"
+
+
+@pytest.mark.parametrize("case", ["ngp_flag", "ngp_yaml"])
+def test_ngp_trains_both_stages(ws, case):
+    """NGP by ``--ngp 1`` or by the yaml's ``rendering: type: ngp``: sphere
+    init, stage A with the hash-grid smoothness term, then stage B; both
+    artifacts carry the hash table, and every logged loss is finite."""
+    extra = NGP_GRID + ("  type: ngp\n" if case == "ngp_yaml" else "")
+    config = _write_config(ws, f"tiny_{case}", extra=extra)
+    train_cli.main(_args(config, *(["--ngp", "1"] if case == "ngp_flag" else [])))
+    out = ws / "out" / f"tiny_{case}"
+    vr = out / "volume_renderer"
+    rows_a = [r for r in _rows(vr / "vol_render_metrics.jsonl") if "g" in r]
+    assert [r["step"] for r in rows_a] == [0, 1]
+    for r in rows_a + _rows(out / "full_pipeline_metrics.jsonl"):
+        assert all(math.isfinite(v) for v in r.values()), r
+    assert all(r["g_smooth"] > 0 for r in rows_a)
+    for d, name in ((vr, "vol_renderer"), (out, "full_pipeline")):
+        state = checkpoints.load_checkpoint(str(d), name)["g_ema"]
+        assert state["renderer.network.encoder.embeddings"].shape[1] == 2, name
 
 
 def test_the_default_device_refuses_a_missing_card(ws):
