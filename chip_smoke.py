@@ -36,6 +36,10 @@ non-zero with no ``ok`` line:
                hash_encode_double_backward (K2: d table and d g) on the tuned,
                the upstream and a tiny (T = 2^7) grid, f32 and bf16 tables,
                2^17 uniform, out-of-box, cell-face and box-face points,
+               the points that put a warp's lanes on one row (every point
+               in one cell of level 0, rays of 24 sorted samples, warps
+               mixing in-box, out-of-box and box-face points with tail
+               lanes at n = 1, 31, 33, 700),
                then at the NGP stage-A G step's shapes on a request's points
                ((t) tuned, bf16, 786,432 and 32,768 points; (u) upstream,
                f32, 786,432): ||kernel - plain|| <= 1e-5 of the plain norm
@@ -522,13 +526,63 @@ def hold_encode_grads(case: str, spec, x, dtypes, seed: int) -> list:
     return recs
 
 
+CONTENTION_POINTS = (("one_cell", 4096), ("rays", 24 * 4096), ("mixed", 1), ("mixed", 31),
+                     ("mixed", 33), ("mixed", 700))
+
+
+def contention_points(spec, kind: str, n: int, seed: int):
+    """Points that put many lanes of a warp on one table row, for the
+    kernels' warp-level sums: ``one_cell`` (every point in one cell of level
+    0: all 32 lanes on one row at every corner of that level), ``rays`` (24
+    sorted samples per ray, neighbouring rays next to each other, as the
+    renderer orders them: lanes share rows in runs) and ``mixed`` (in-box,
+    out-of-box, box-face points and one point repeated, shuffled so that
+    every warp mixes them; the first point in the box; n not a multiple of
+    32 leaves tail lanes)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda", dtype=torch.float64)
+
+    if kind == "one_cell":
+        scale = spec.level_scale(0)
+        cell = torch.tensor([2.0, 3.0, 1.0], device="cuda", dtype=torch.float64)
+        pos = cell + 0.1 + 0.8 * rand(n, 3)
+        x = (pos - 0.5) / scale * 2.0 * NGP_BOUND - NGP_BOUND
+    elif kind == "rays":
+        rays = n // 24
+        side = int(rays ** 0.5)
+        i = torch.arange(rays, device="cuda", dtype=torch.float64)
+        d = torch.stack([(i % side) / side - 0.5, (i // side) / side - 0.5,
+                         torch.full_like(i, 2.0)], -1)
+        d = d / d.norm(dim=-1, keepdim=True)
+        t = torch.sort(0.5 + 1.8 * rand(rays, 24), dim=-1).values
+        x = (torch.tensor([0.1, -0.2, -1.4 * NGP_BOUND], device="cuda", dtype=torch.float64)
+             + t[..., None] * NGP_BOUND * d[:, None, :]).reshape(-1, 3)
+    else:
+        x = (rand(n, 3) * 2.0 - 1.0) * 1.1 * NGP_BOUND
+        kinds = torch.randint(0, 4, (n,), generator=gen, device="cuda")
+        axis = torch.randint(0, 3, (n,), generator=gen, device="cuda")
+        face = kinds == 1
+        x[face, axis[face]] = torch.where(rand(n)[face] < 0.5, -NGP_BOUND, NGP_BOUND).double()
+        x[kinds == 2] = torch.tensor([0.11, -0.52, 0.93], device="cuda",
+                                     dtype=torch.float64) * NGP_BOUND
+        x[0] = torch.tensor([0.3, 0.2, -0.1], device="cuda", dtype=torch.float64) * NGP_BOUND
+    return x.float().contiguous()
+
+
 def check_encode_grads() -> list:
     """K1 and K2 against their plain versions: on three grids, f32 and bf16
     tables, 2^17 points of every kind (uniform, out-of-box, cell-face and
-    box-face); then at the NGP stage-A G step's shapes (``time_grad_kernels``'),
-    batch 8, on a real request's points: (t) the tuned grid, bf16, the
-    render's 786,432 points and the subsampled eikonal's 32,768, (u) the
-    upstream grid, f32, 786,432 points."""
+    box-face); on the same grids and tables, the points that put a warp's
+    lanes on one row (``contention_points``: one cell of level 0, a ray's
+    samples, and warps mixing in-box, out-of-box and box-face points with
+    tail lanes at n = 1, 31, 33, 700); then at the NGP stage-A G step's
+    shapes (``GRAD_CASES``), batch 8, on a real request's points: (t) the
+    tuned grid, bf16, the render's 786,432 points and the subsampled
+    eikonal's 32,768, (u) the upstream grid, f32, 786,432 points."""
     import torch
 
     recs = []
@@ -536,13 +590,19 @@ def check_encode_grads() -> list:
     for name, spec in grids.items():
         recs += hold_encode_grads(name, spec, grad_points(spec, GRAD_CHECK_POINTS, seed=31),
                                   (torch.float32, torch.bfloat16), seed=32)
-    x = request_points(ngp_configs()["tuned"].renderer, seed=43)
-    eik = x[:BATCH * EIKONAL_SUBSAMPLE].contiguous()
-    recs += hold_encode_grads("t_render", grids["tuned"], x, (torch.bfloat16,), seed=41)
-    recs += hold_encode_grads("t_eikonal", grids["tuned"], eik, (torch.bfloat16,), seed=41)
-    recs += hold_encode_grads("u_render_and_eikonal", grids["upstream"], x, (torch.float32,),
+        for i, (kind, n) in enumerate(CONTENTION_POINTS):
+            x = contention_points(spec, kind, n, seed=51 + i)
+            check(x.shape[0] == n, f"{kind}: {n} points")
+            recs += hold_encode_grads(f"{name}_{kind}_{n}", spec, x,
+                                      (torch.float32, torch.bfloat16), seed=52 + i)
+    points = grad_case_points()
+    recs += hold_encode_grads("t_render", grids["tuned"], points["render"], (torch.bfloat16,),
                               seed=41)
-    check(x.shape[0] == BATCH * POINTS, "K1/K2 held at the G step's render points")
+    recs += hold_encode_grads("t_eikonal", grids["tuned"], points["eikonal"], (torch.bfloat16,),
+                              seed=41)
+    recs += hold_encode_grads("u_render_and_eikonal", grids["upstream"], points["render"],
+                              (torch.float32,), seed=41)
+    check(points["render"].shape[0] == BATCH * POINTS, "K1/K2 held at the G step's render points")
     return recs
 
 
@@ -974,33 +1034,40 @@ def grad_kernel_case(spec, dtype, x, kernel: str, need_x: bool, need_table: bool
     return rec
 
 
+# K1 and K2 at the shapes of the NGP stage-A G step, batch 8, on the points of
+# a real request: name -> (grid, table dtype, points, kernel, need_x,
+# need_table, need_g).  (t) the tuned yaml: a bf16 table, the render's table
+# gradient over 786,432 points, the subsampled eikonal's 32,768 points; (u)
+# the upstream grid: f32, the full eikonal over 786,432 points (the first
+# pass's d x alone, the table gradient alone, both, as the first pass would
+# cost without asking the engine, and K2).
+GRAD_CASES = {
+    "t_render_k1": ("tuned", "bfloat16", "render", "backward", False, True, False),
+    "t_eikonal_k1_first_pass": ("tuned", "bfloat16", "eikonal", "backward", True, False, False),
+    "t_eikonal_k2": ("tuned", "bfloat16", "eikonal", "double", False, True, True),
+    "u_render_k1": ("upstream", "float32", "render", "backward", False, True, False),
+    "u_eikonal_k1_first_pass": ("upstream", "float32", "render", "backward", True, False, False),
+    "u_k1_both": ("upstream", "float32", "render", "backward", True, True, False),
+    "u_eikonal_k2": ("upstream", "float32", "render", "double", False, True, True),
+}
+
+
+def grad_case_points() -> dict:
+    """The G step's points: a request's 786,432 render points and the first
+    32,768 of them, as the subsampled eikonal's."""
+    x = request_points(ngp_configs()["tuned"].renderer, seed=43)
+    return {"render": x, "eikonal": x[:BATCH * EIKONAL_SUBSAMPLE].contiguous()}
+
+
 def time_grad_kernels(results: dict) -> dict:
-    """K1 and K2 at the shapes of the NGP stage-A G step, batch 8, on the
-    points of a real request: (t) the tuned yaml (bf16 table, the render's
-    table gradient over 786,432 points; the subsampled eikonal's 32,768
-    points), (u) the upstream grid (f32, the full eikonal over 786,432
-    points: the first pass's d x alone, the table gradient alone, both, as
-    the first pass would cost without asking the engine, and K2)."""
+    """Each case of ``GRAD_CASES`` timed by ``grad_kernel_case``."""
     import torch
 
-    cfgs = ngp_configs()
-    grids = grad_grids()
-    x = request_points(cfgs["tuned"].renderer, seed=43)
-    eik = x[:BATCH * EIKONAL_SUBSAMPLE].contiguous()
-    bf16, f32 = torch.bfloat16, torch.float32
-    out = {
-        "t_render_k1": grad_kernel_case(grids["tuned"], bf16, x, "backward", False, True),
-        "t_eikonal_k1_first_pass": grad_kernel_case(grids["tuned"], bf16, eik, "backward",
-                                                    True, False),
-        "t_eikonal_k2": grad_kernel_case(grids["tuned"], bf16, eik, "double", False, True,
-                                         True),
-        "u_render_k1": grad_kernel_case(grids["upstream"], f32, x, "backward", False, True),
-        "u_eikonal_k1_first_pass": grad_kernel_case(grids["upstream"], f32, x, "backward",
-                                                    True, False),
-        "u_k1_both": grad_kernel_case(grids["upstream"], f32, x, "backward", True, True),
-        "u_eikonal_k2": grad_kernel_case(grids["upstream"], f32, x, "double", False, True,
-                                         True),
-    }
+    grids, points = grad_grids(), grad_case_points()
+    out = {name: grad_kernel_case(grids[grid], getattr(torch, dtype), points[pts], kernel,
+                                  need_x, need_table, need_g)
+           for name, (grid, dtype, pts, kernel, need_x, need_table, need_g)
+           in GRAD_CASES.items()}
     out["u_first_pass_avoided_scatter_ms"] = (out["u_k1_both"]["ms"]
                                               - out["u_eikonal_k1_first_pass"]["ms"])
     results["grad_timing"] = out

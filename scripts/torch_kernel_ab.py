@@ -15,6 +15,9 @@ timing functions at batch 8:
 * ``time_ngp_kernels``: ``table_gather`` and ``hash_encode`` (the tuned
   grid's served levels, all its levels, the upstream grid), profiler device
   time per launch on a real request's points;
+* ``time_grad_kernels``: the encode's backward (K1) and double backward
+  (K2) at the seven shapes of the NGP stage-A G step, profiler device time
+  per launch, beside one ``index_add_`` of the same table-gradient pairs;
 * one f32 SIREN request (f32 weights, batch 8): its profiled device ms, the
   f32 field kernel's ms in it, and images/s.
 
@@ -60,6 +63,7 @@ def child_run() -> None:
     ngp = cs.time_ngp_kernels({}, tuned)
     del tuned
     torch.cuda.empty_cache()
+    grad = cs.time_grad_kernels({})
     sampler = SDFaceSampler(Generator(cs.full_config(), device="cuda", generator=seed(0)),
                             batch=cs.BATCH)
     sampler.warmup()
@@ -67,7 +71,7 @@ def child_run() -> None:
     prof = cs.profile_request(sampler, [f32])
     request = dict(kernel=f32, device_ms_total=prof["device_ms_total"],
                    kernel_ms=prof["kernel_ms"][f32], images_per_s=cs.images_per_s(sampler))
-    print(json.dumps(dict(field=field, ngp=ngp, f32_request=request)), flush=True)
+    print(json.dumps(dict(field=field, ngp=ngp, grad=grad, f32_request=request)), flush=True)
 
 
 def spawn(tree: str, mode: str) -> subprocess.Popen:
@@ -119,7 +123,11 @@ def main() -> int:
              encode_ms=r["ngp"]["hash_encode"]["ms"],
              encode_upstream_ms=r["ngp"]["hash_encode_upstream"]["ms"],
              f32_request_device_ms=r["f32_request"]["device_ms_total"],
-             f32_images_per_s=r["f32_request"]["images_per_s"]) for r in runs])), flush=True)
+             f32_images_per_s=r["f32_request"]["images_per_s"],
+             grad_ms={k: v["ms"] for k, v in r["grad"].items() if isinstance(v, dict)},
+             grad_index_add_ms={k: v["library_ms"] for k, v in r["grad"].items()
+                                if isinstance(v, dict) and v["library_ms"] is not None})
+        for r in runs])), flush=True)
     return 0
 
 

@@ -87,10 +87,34 @@
 //
 // What bounds them on this card: bytes in the count (x, g and v read once,
 // the table read once, d table and d x or d g written once), but the real
-// cost is L * 8 * C f32 atomics per point into the L2 (for the stage-A
-// render of the tuned grid 786,432 x 4 x 8 x 8 = 201 M) and 8 random row
-// reads per (point, level).  The design is the forward's simplest form: one
-// point per thread, the levels in a loop, the corner rows recomputed.
+// cost is the L * 8 corner rows per point reduced into the L2 (for the
+// stage-A render of the tuned grid 786,432 x 4 x 8 rows of 8 channels) and 8
+// random row reads per (point, level).  One point per thread, the levels in
+// a loop, so a warp's 32 lanes are 32 consecutive points at one level: in
+// the renderer's flat order a ray's samples, which share cells at the coarse
+// levels.  The design:
+// * a corner row goes to the L2 as one vector reduction (atomicAdd of a
+//   float4 per 4 channels, a float2 for C = 2; sm_90 and later), not C
+//   scalar ones: a row's channels arrive together, as neighbouring
+//   index_add_ threads write them.  At C <= 2 the x-neighbour corners'
+//   rows, where they form an aligned pair (as load_corner_pair reads
+//   them), go out as one reduction;
+// * at the levels whose cells are coarse (scale <= kAggregateMaxScale),
+//   the lanes whose points lie in one cell (one __match_any_sync of the
+//   cell per level: equal cells give equal rows at all 8 corners) first sum
+//   their values by shuffles, and only the group's lowest lane reduces the
+//   row: 32 lanes in one cell make one reduction per row, not 32 that the L2
+//   serialises;
+// * every lane of the block reaches the ballot that names the lanes whose
+//   point is in the box; the collectives name only those, and the others
+//   write their zeros and leave;
+// * d x and d g read the corner rows as the forward does, an x-neighbour
+//   pair in one load where two rows fit 16 bytes;
+// * a launch asked for both outputs runs twice the blocks: the first half
+//   computes d x (K1) or d g (K2), reading the table, the second half
+//   scatters d table.  On the upstream grid (a 50 MB f32 table and as
+//   large a gradient) one thread doing both took more than the two outputs
+//   alone together; the halves take about that sum.
 
 // table_gather_kernel replaces the Pallas probe `probe_pallas_gather.kernel`
 // (scripts/bench_packed_gather.py:128): `o = t[i, :][..., 0]`, a row gather
@@ -117,10 +141,17 @@ namespace {
 constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
 constexpr int kStageBytes = 16384;  // the encode's output tile per level group
+// K1 and K2 sum a cell's lanes in the warp first at the levels of at most
+// this scale (the tuned grid's levels 0-1, the upstream grid's 0-3).  On the
+// H100 (scripts/torch_hash_grad_ablations.py) a threshold of 16 was up to
+// 10 % slower, 40 to 128 the same, and every level up to 0.7 % slower: above
+// it, a warp's points rarely share a cell.
+constexpr float kAggregateMaxScale = 64.0f;
 
 struct Level {
   float scale;
   unsigned side, size, offset, use_hash;
+  bool aggregate;  // K1 and K2: sum equal cells' rows in the warp first
 };
 
 struct Levels {
@@ -346,9 +377,10 @@ int dispatch_encode(int C, const void* x, const void* table, void* out,
   }
 }
 
-// The 8 corners of one level of a point inside the box: table rows,
-// d-linear weights, the factors (1 - f, f) per axis and d f / d pos.
+// The 8 corners of one level of a point inside the box: the cell, table
+// rows, d-linear weights, the factors (1 - f, f) per axis and d f / d pos.
 struct Corners {
+  unsigned long long cell;  // the cell's coordinates, 21 bits each
   unsigned row[8];
   float w[8];
   float fac[2][3];  // fac[0][d] = 1 - f_d, fac[1][d] = f_d
@@ -374,6 +406,7 @@ __device__ __forceinline__ void level_corners(const Level& lv, const float (&x01
     cr.fac[1][d] = f;
     cr.fac[0][d] = __fsub_rn(1.0f, f);
   }
+  cr.cell = cell[0] | ((unsigned long long)cell[1] << 21) | ((unsigned long long)cell[2] << 42);
   const bool pow2 = (lv.size & (lv.size - 1u)) == 0u;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
@@ -426,19 +459,141 @@ __device__ __forceinline__ void store_row(T* __restrict__ out, size_t r, const f
   for (int q = 0; q < kBytes / (int)sizeof(V); ++q) dst[q] = reinterpret_cast<const V*>(row)[q];
 }
 
+// The lanes of `active` whose point lies in this lane's cell, chained for a
+// pointer-jumping sum: nxt[s] is the member 2^s places above this lane (32:
+// none).  Returns the number of steps that sum the largest group; `leader`
+// is true on each group's lowest lane.  Every lane of `active` calls it.
+constexpr int kMaxSteps = 5;  // 2^5 = 32 lanes
+
+__device__ __forceinline__ int group_chain(unsigned active, unsigned long long cell,
+                                           int (&nxt)[kMaxSteps], bool& leader) {
+  const int lane = threadIdx.x & 31;
+  const unsigned group = __match_any_sync(active, cell);
+  leader = (group & ((1u << lane) - 1u)) == 0u;
+  const unsigned above = group & ~((2u << lane) - 1u);  // lane 31: 2u << 31 == 0
+  const unsigned largest = __reduce_max_sync(active, (unsigned)__popc(group));
+  const int steps = largest > 1u ? 32 - __clz((int)(largest - 1u)) : 0;
+  int n = above ? __ffs(above) - 1 : 32;
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s) {
+    nxt[s] = n;
+    if (s + 1 < steps) {
+      const int m = __shfl_sync(active, n, n < 32 ? n : lane);
+      n = n < 32 ? m : 32;
+    }
+  }
+  return steps;
+}
+
+// After `steps` steps each lane holds the sum of its value and those of
+// the group's members above it: the lowest lane holds the group's sum.
+template <int C>
+__device__ __forceinline__ void group_sum(unsigned active, int steps,
+                                          const int (&nxt)[kMaxSteps], float (&v)[C]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s) {
+    if (s < steps) {
+      const bool has = nxt[s] < 32;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float o = __shfl_sync(active, v[c], has ? nxt[s] : lane);
+        if (has) v[c] += o;
+      }
+    }
+  }
+}
+
+// dst[0:C] += v as vector reductions: a float4 per 4 channels, a float2 for
+// C = 2 (global memory, sm_90 and later; dst is C * 4-byte aligned).
+template <int C>
+__device__ __forceinline__ void add_row(float* __restrict__ dst, const float (&v)[C]) {
+  if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q)
+      atomicAdd(reinterpret_cast<float4*>(dst) + q,
+                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+  } else if constexpr (C == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) atomicAdd(dst + c, v[c]);
+  }
+}
+
+// The rows r0, r1 of the x-neighbour corners k, k + 1: where r1 is r0's
+// other half of an aligned pair and the pair fits one vector (C <= 2), one
+// reduction adds both (the pair's lower row first), as load_corner_pair
+// reads them; else one each.
+template <int C>
+__device__ __forceinline__ void add_corner_pair(float* __restrict__ dtable, unsigned r0,
+                                                unsigned r1, const float (&v0)[C],
+                                                const float (&v1)[C]) {
+  if constexpr (C <= 2) {
+    if (r1 == (r0 ^ 1u)) {
+      const bool odd = r0 & 1u;
+      float both[2 * C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        both[c] = odd ? v1[c] : v0[c];
+        both[C + c] = odd ? v0[c] : v1[c];
+      }
+      add_row<2 * C>(dtable + (size_t)(r0 & ~1u) * C, both);
+      return;
+    }
+  }
+  add_row<C>(dtable + (size_t)r0 * C, v0);
+  add_row<C>(dtable + (size_t)r1 * C, v1);
+}
+
+// d table[row_k] += coef_k * g for the 8 corners of one level of a point
+// inside the box.  At an aggregating level the lanes of one cell sum first
+// and their lowest lane adds the sum.  Every lane of `active` calls it.
+template <int C>
+__device__ __forceinline__ void scatter_level(float* __restrict__ dtable, bool aggregate,
+                                              unsigned active, const Corners& cr,
+                                              const float (&coef)[8], const float (&gl)[C]) {
+  int nxt[kMaxSteps];
+  bool leader = true;
+  const int steps = aggregate ? group_chain(active, cr.cell, nxt, leader) : 0;
+#pragma unroll
+  for (int k = 0; k < 8; k += 2) {
+    float v[2][C];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[u][c] = __fmul_rn(coef[k + u], gl[c]);
+      if (steps) group_sum<C>(active, steps, nxt, v[u]);
+    }
+    if (leader) add_corner_pair<C>(dtable, cr.row[k], cr.row[k + 1], v[0], v[1]);
+  }
+}
+
 // K1.  dx (f32 [N, 3]) and dtable (f32 [T, C], zeroed by the caller) may
-// each be null; the table is read only for dx.
+// each be null; the table is read only for dx.  With both, the grid is
+// twice the points' blocks (launch_grad), a half for each output.
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_backward_kernel(const float* __restrict__ x, const T* __restrict__ table,
                             const T* __restrict__ g, float* __restrict__ dx,
                             float* __restrict__ dtable, long long n_points, int n_levels,
                             float bound, float half, int smoothstep, Levels levels) {
-  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n_points) return;
+  long long block = blockIdx.x;
+  if (dx && dtable) {  // the first half of the blocks d x, the second d table
+    const long long n_blocks = (n_points + kThreads - 1) / kThreads;
+    if (block < n_blocks) {
+      dtable = nullptr;
+    } else {
+      dx = nullptr;
+      block -= n_blocks;
+    }
+  }
+  const long long p = block * kThreads + threadIdx.x;
   float x01[3], dx01[3];
-  if (map_point(x, p, bound, x01, dx01)) {
-    if (dx)
+  const bool in_box = p < n_points && !map_point(x, p, bound, x01, dx01);
+  const unsigned active = __ballot_sync(~0u, in_box);
+  if (!in_box) {
+    if (dx && p < n_points)
       for (int d = 0; d < 3; ++d) dx[p * 3 + d] = 0.0f;
     return;
   }
@@ -449,37 +604,34 @@ hash_encode_backward_kernel(const float* __restrict__ x, const T* __restrict__ t
     level_corners(lv, x01, half, smoothstep, cr);
     float gl[C];
     load_row<T, C>(g, (size_t)p * n_levels + l, gl);
-    if (dtable) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float* dst = dtable + (size_t)cr.row[k] * C;
-#pragma unroll
-        for (int c = 0; c < C; ++c) atomicAdd(dst + c, __fmul_rn(cr.w[k], gl[c]));
-      }
-    }
     if (dx) {
       float gf[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float v[C], dw[3];
-        load_row<T, C>(table, cr.row[k], v);
-        float dot = 0.0f;
+      for (int k = 0; k < 8; k += 2) {
+        float v[2][C];
+        load_corner_pair<T, C>(table, cr.row[k], cr.row[k + 1], v[0], v[1]);
 #pragma unroll
-        for (int c = 0; c < C; ++c) dot = fmaf(gl[c], v[c], dot);
-        weight_derivs(cr, k, dw);
+        for (int u = 0; u < 2; ++u) {
+          float dot = 0.0f, dw[3];
 #pragma unroll
-        for (int d = 0; d < 3; ++d) gf[d] = fmaf(dot, dw[d], gf[d]);
+          for (int c = 0; c < C; ++c) dot = fmaf(gl[c], v[u][c], dot);
+          weight_derivs(cr, k + u, dw);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) gf[d] = fmaf(dot, dw[d], gf[d]);
+        }
       }
 #pragma unroll
       for (int d = 0; d < 3; ++d) gx[d] = fmaf(__fmul_rn(gf[d], cr.dfrac[d]), lv.scale, gx[d]);
     }
+    if (dtable) scatter_level<C>(dtable, lv.aggregate, active, cr, cr.w, gl);
   }
   if (dx)
     for (int d = 0; d < 3; ++d) dx[p * 3 + d] = __fmul_rn(gx[d], dx01[d]);
 }
 
 // K2.  v is the cotangent of K1's dx; dtable (f32, zeroed by the caller)
-// and dg ([N, L * C] in the table's type) may each be null.
+// and dg ([N, L * C] in the table's type) may each be null; with both, a
+// half of the blocks for each, as K1.
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
 hash_encode_double_backward_kernel(const float* __restrict__ x, const T* __restrict__ table,
@@ -487,11 +639,22 @@ hash_encode_double_backward_kernel(const float* __restrict__ x, const T* __restr
                                    float* __restrict__ dtable, T* __restrict__ dg,
                                    long long n_points, int n_levels, float bound, float half,
                                    int smoothstep, Levels levels) {
-  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n_points) return;
+  long long block = blockIdx.x;
+  if (dtable && dg) {  // the first half of the blocks d g, the second d table
+    const long long n_blocks = (n_points + kThreads - 1) / kThreads;
+    if (block < n_blocks) {
+      dtable = nullptr;
+    } else {
+      dg = nullptr;
+      block -= n_blocks;
+    }
+  }
+  const long long p = block * kThreads + threadIdx.x;
   float x01[3], dx01[3];
-  if (map_point(x, p, bound, x01, dx01)) {
-    if (dg) {
+  const bool in_box = p < n_points && !map_point(x, p, bound, x01, dx01);
+  const unsigned active = __ballot_sync(~0u, in_box);
+  if (!in_box) {
+    if (dg && p < n_points) {
       const float zeros[C] = {};
       for (int l = 0; l < n_levels; ++l) store_row<T, C>(dg, (size_t)p * n_levels + l, zeros);
     }
@@ -513,26 +676,23 @@ hash_encode_double_backward_kernel(const float* __restrict__ x, const T* __restr
       weight_derivs(cr, k, dw);
       q[k] = fmaf(u[2], dw[2], fmaf(u[1], dw[1], __fmul_rn(u[0], dw[0])));
     }
-    if (dtable) {
-      float gl[C];
-      load_row<T, C>(g, (size_t)p * n_levels + l, gl);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float* dst = dtable + (size_t)cr.row[k] * C;
-#pragma unroll
-        for (int c = 0; c < C; ++c) atomicAdd(dst + c, __fmul_rn(q[k], gl[c]));
-      }
-    }
     if (dg) {
       float acc[C] = {};
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        float tv[C];
-        load_row<T, C>(table, cr.row[k], tv);
+      for (int k = 0; k < 8; k += 2) {
+        float tv[2][C];
+        load_corner_pair<T, C>(table, cr.row[k], cr.row[k + 1], tv[0], tv[1]);
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] = fmaf(q[k], tv[c], acc[c]);
+        for (int u2 = 0; u2 < 2; ++u2)
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] = fmaf(q[k + u2], tv[u2][c], acc[c]);
       }
       store_row<T, C>(dg, (size_t)p * n_levels + l, acc);
+    }
+    if (dtable) {
+      float gl[C];
+      load_row<T, C>(g, (size_t)p * n_levels + l, gl);
+      scatter_level<C>(dtable, lv.aggregate, active, cr, q, gl);
     }
   }
 }
@@ -548,7 +708,8 @@ struct GradArgs {
 
 template <typename T, int C>
 int launch_grad(bool second, const GradArgs& a, const Levels& levels, cudaStream_t stream) {
-  const long long blocks = (a.n_points + kThreads - 1) / kThreads;  // one point per thread
+  long long blocks = (a.n_points + kThreads - 1) / kThreads;  // one point per thread
+  if (second ? a.dtable && a.dg : a.dx && a.dtable) blocks *= 2;  // each output its half
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (second)
     hash_encode_double_backward_kernel<T, C><<<(unsigned)blocks, kThreads, 0, stream>>>(
@@ -581,7 +742,8 @@ bool make_levels(int n_levels, const float* scales, const unsigned* sides,
   if (n_levels < 1 || n_levels > kMaxLevels) return false;
   for (int l = 0; l < n_levels; ++l) {
     if (sizes[l] == 0) return false;
-    levels.l[l] = Level{scales[l], sides[l], sizes[l], offsets[l], use_hash[l]};
+    levels.l[l] = Level{scales[l], sides[l], sizes[l], offsets[l], use_hash[l],
+                        scales[l] <= kAggregateMaxScale};
   }
   return true;
 }

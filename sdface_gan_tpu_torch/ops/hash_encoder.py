@@ -408,6 +408,17 @@ def _encode(x, table, spec, bound, levels) -> torch.Tensor:
     return _encode_kernel(x, table, spec, bound, _check_kernel_inputs(x, table, spec, levels))
 
 
+def _table_grad_scratch(table: torch.Tensor) -> torch.Tensor:
+    """The zeroed f32 buffer that K1 and K2 reduce the table gradient into.
+    They add a corner row's channels as one vector (a float4 per 4
+    channels), and at C <= 2 an aligned pair of rows as one, so the buffer
+    must start on a 16-byte boundary (8 for C = 1)."""
+    scratch = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+    if scratch.data_ptr() % min(16, 8 * table.shape[1]):
+        raise RuntimeError("the table gradient's buffer is not aligned to its rows' vectors")
+    return scratch
+
+
 def hash_encode_backward(
     x: torch.Tensor,
     table: torch.Tensor,
@@ -431,8 +442,7 @@ def hash_encode_backward(
     n = x.numel() // 3
     g = g.to(table.dtype).reshape(n, len(levels) * spec.level_dim).contiguous()
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device) if need_x else None
-    scratch = (torch.zeros(table.shape, dtype=torch.float32, device=x.device)
-               if need_table else None)
+    scratch = _table_grad_scratch(table) if need_table else None
     if n and (need_x or need_table):
         _launch("hash_encode_backward", "hash_encode_backward", x.device,
                 [int(table.dtype == torch.bfloat16), x.data_ptr(), table.data_ptr(),
@@ -464,8 +474,7 @@ def hash_encode_double_backward(
     shape = g.shape
     g = g.to(table.dtype).reshape(n, len(levels) * spec.level_dim).contiguous()
     v = v.float().reshape(n, 3).contiguous()
-    scratch = (torch.zeros(table.shape, dtype=torch.float32, device=x.device)
-               if need_table else None)
+    scratch = _table_grad_scratch(table) if need_table else None
     dg = torch.empty(g.shape, dtype=table.dtype, device=x.device) if need_g else None
     if n and (need_table or need_g):
         _launch("hash_encode_double_backward", "hash_encode_double_backward", x.device,

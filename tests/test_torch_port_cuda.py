@@ -416,11 +416,46 @@ GRAD_GRIDS = dict(GRIDS, tiny=dict(num_levels=4, level_dim=2, desired_resolution
 # ||kernel - plain|| / ||plain||: f32 outputs differ in the atomics' and the
 # sums' order; a bf16 output by one bf16 rounding of f32 sums
 GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+CONTENTION_N = {"one_cell": 4096, "rays": 24 * 1024}
+# the spread points, and points that put a warp's lanes on one row
+# (``_contention_points``), on every grid; the spread cases keep their ids
+GRAD_POINTS = ["spread", "one_cell", "rays", "mixed_1", "mixed_31", "mixed_33", "mixed_700"]
+GRAD_CASES = [pytest.param(name, points, id=name if points == "spread" else f"{name}-{points}")
+              for name in GRAD_GRIDS for points in GRAD_POINTS]
 
 
-def _grad_inputs(name, dtype, n=30000, seed=3, bound=2.0):
-    """A std-1 table, g and v; uniform points a little beyond the box, points
-    on cell faces of every level and on the faces of the box."""
+def _contention_points(spec, kind, n, rng, bound):
+    """Points that put many lanes of a warp on one table row: ``one_cell``
+    (every point in one cell of level 0), ``rays`` (24 sorted samples per
+    ray, neighbouring rays next to each other, as the renderer orders them)
+    and ``mixed`` (in-box, out-of-box, box-face points and one point
+    repeated, shuffled; the first point in the box; n not a multiple of 32
+    leaves tail lanes)."""
+    if kind == "one_cell":
+        pos = np.array([2.0, 3.0, 1.0]) + rng.uniform(0.1, 0.9, (n, 3))
+        return (pos - 0.5) / spec.level_scale(0) * 2.0 * bound - bound
+    if kind == "rays":
+        i = np.arange(n // 24)
+        side = int(np.sqrt(len(i)))
+        d = np.stack([(i % side) / side - 0.5, (i // side) / side - 0.5, np.full(len(i), 2.0)], -1)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = np.sort(rng.uniform(0.5, 2.3, (len(i), 24)), axis=-1)
+        x = np.array([0.1, -0.2, -1.4 * bound]) + t[..., None] * bound * d[:, None]
+        return x.reshape(-1, 3)
+    x = rng.uniform(-1.1 * bound, 1.1 * bound, (n, 3))
+    kinds, axis = rng.integers(0, 4, n), rng.integers(0, 3, n)
+    face = kinds == 1
+    x[face, axis[face]] = np.where(rng.integers(0, 2, face.sum()) == 1, bound, -bound)
+    x[kinds == 2] = np.array([0.11, -0.52, 0.93]) * bound
+    x[0] = np.array([0.3, 0.2, -0.1]) * bound
+    return x
+
+
+def _grad_inputs(name, dtype, n=30000, seed=3, bound=2.0, points="spread"):
+    """A std-1 table, g and v; the points: ``spread`` (uniform points a
+    little beyond the box, points on cell faces of every level and on the
+    faces of the box) or a kind of ``_contention_points`` (``mixed_<n>``: n
+    mixed points)."""
     spec, table, x = _grid_inputs(name if name in GRIDS else "tuned", n=n, seed=seed,
                                   bound=bound)
     if name not in GRIDS:
@@ -429,9 +464,15 @@ def _grad_inputs(name, dtype, n=30000, seed=3, bound=2.0):
         table = torch.from_numpy(rng.standard_normal(
             (spec.table_size, spec.level_dim)).astype(np.float32)).cuda()
     rng = np.random.default_rng(seed + 1)
-    faces = rng.uniform(-bound, bound, (300, 3))
-    faces[np.arange(300), np.arange(300) % 3] = np.where(np.arange(300) % 2, bound, -bound)
-    x = torch.cat([x, torch.from_numpy(faces.astype(np.float32)).cuda()]).contiguous()
+    if points == "spread":
+        faces = rng.uniform(-bound, bound, (300, 3))
+        faces[np.arange(300), np.arange(300) % 3] = np.where(np.arange(300) % 2, bound, -bound)
+        x = torch.cat([x, torch.from_numpy(faces.astype(np.float32)).cuda()]).contiguous()
+    else:
+        kind, _, count = points.rpartition("_") if points.startswith("mixed_") else (points, "", "")
+        pts = _contention_points(spec, kind, int(count) if count else CONTENTION_N[kind], rng,
+                                 bound)
+        x = torch.from_numpy(pts.astype(np.float32)).cuda()
     g = torch.from_numpy(rng.standard_normal((x.shape[0], spec.output_dim)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((x.shape[0], 3)).astype(np.float32))
     return spec, x, table.to(dtype), g.cuda().to(dtype), v.cuda()
@@ -441,13 +482,13 @@ def _rel(got, want):
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
-@pytest.mark.parametrize("name", list(GRAD_GRIDS))
+@pytest.mark.parametrize("name,points", GRAD_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_encode_backward_kernel_matches_plain_version(cuda, name, dtype):
+def test_encode_backward_kernel_matches_plain_version(cuda, name, points, dtype):
     """K1: d x and d table together and each alone, against the plain
     version (sorted segment sum; autograd through the plain encode)."""
     dt = getattr(torch, dtype)
-    spec, x, table, g, _ = _grad_inputs(name, dt)
+    spec, x, table, g, _ = _grad_inputs(name, dt, points=points)
     before = _ext.LAUNCHES["hash_encode_backward"]
     dx, dtable = hg.hash_encode_backward(x, table, g, spec, 2.0)
     dx_alone, none = hg.hash_encode_backward(x, table, g, spec, 2.0, need_table=False)
@@ -458,20 +499,21 @@ def test_encode_backward_kernel_matches_plain_version(cuda, name, dtype):
     want_dx, want_dtable = hg.hash_encode_backward_reference(x, table, g, spec, 2.0)
     assert dx.dtype == torch.float32 and dtable.dtype == dt
     oob = (x.abs() > 2.0).any(-1)
-    assert oob.any() and bool((dx[oob] == 0).all())
+    assert bool(oob.any()) or points != "spread"
+    assert bool((dx[oob] == 0).all()) and bool((dx_alone[oob] == 0).all())
     for got in (dx, dx_alone):
         assert _rel(got, want_dx) <= GRAD_RTOL[torch.float32]
     for got in (dtable, dtable_alone):
         assert _rel(got, want_dtable) <= GRAD_RTOL[dt]
 
 
-@pytest.mark.parametrize("name", list(GRAD_GRIDS))
+@pytest.mark.parametrize("name,points", GRAD_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_encode_double_backward_kernel_matches_plain_version(cuda, name, dtype):
+def test_encode_double_backward_kernel_matches_plain_version(cuda, name, points, dtype):
     """K2: d table and d g of <v, d x> against autograd's double backward
     through the plain encode."""
     dt = getattr(torch, dtype)
-    spec, x, table, g, v = _grad_inputs(name, dt, seed=5)
+    spec, x, table, g, v = _grad_inputs(name, dt, seed=5, points=points)
     before = _ext.LAUNCHES["hash_encode_double_backward"]
     dtable, dg = hg.hash_encode_double_backward(x, table, g, v, spec, 2.0)
     torch.cuda.synchronize()
@@ -480,6 +522,7 @@ def test_encode_double_backward_kernel_matches_plain_version(cuda, name, dtype):
     assert dtable.dtype == dg.dtype == dt and dg.shape == g.shape
     assert _rel(dtable, want_dtable) <= GRAD_RTOL[dt]
     assert _rel(dg, want_dg) <= GRAD_RTOL[dt]
+    assert bool((dg[(x.abs() > 2.0).any(-1)] == 0).all())
 
 
 def test_encode_autograd_on_the_card_matches_the_cpu(cuda):

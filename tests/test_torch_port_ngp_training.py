@@ -90,10 +90,32 @@ def _specs(name):
     return jh.HashGridSpec.create(**GRIDS[name]), ph.HashGridSpec.create(**GRIDS[name])
 
 
-def _points(spec, n, bound, seed):
-    """Uniform points a little beyond the box (some outside), points on the
-    cell faces of every level and points on the faces of the box."""
+def _points(spec, n, bound, seed, kind="spread"):
+    """``spread``: uniform points a little beyond the box (some outside),
+    points on the cell faces of every level and points on the faces of the
+    box.  The kinds that put many points on one table row, as the kernels'
+    warp-level sums meet them: ``one_cell`` (every point in one cell of
+    level 0), ``rays`` (24 sorted samples per ray, neighbouring rays next to
+    each other, as the renderer orders them) and ``mixed`` (in-box,
+    out-of-box, box-face points and one point repeated, shuffled)."""
     rng = np.random.default_rng(seed)
+    if kind == "one_cell":
+        pos = np.array([1.0, 2.0, 1.0]) + rng.uniform(0.1, 0.9, (n, 3))
+        return ((pos - 0.5) / spec.level_scale(0) * 2.0 * bound - bound).astype(np.float32)
+    if kind == "rays":
+        i = np.arange(-(-n // 24))
+        d = np.stack([(i % 4) / 4 - 0.5, (i // 4) / 4 - 0.5, np.full(len(i), 2.0)], -1)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = np.sort(rng.uniform(0.5, 2.3, (len(i), 24)), axis=-1)
+        x = np.array([0.1, -0.2, -1.4 * bound]) + t[..., None] * bound * d[:, None]
+        return x.reshape(-1, 3)[:n].astype(np.float32)
+    if kind == "mixed":
+        x = rng.uniform(-1.1 * bound, 1.1 * bound, (n, 3))
+        kinds, axis = rng.integers(0, 4, n), rng.integers(0, 3, n)
+        face = kinds == 1
+        x[face, axis[face]] = np.where(rng.integers(0, 2, face.sum()) == 1, bound, -bound)
+        x[kinds == 2] = np.array([0.11, -0.52, 0.93]) * bound
+        return x.astype(np.float32)
     x = [rng.uniform(-1.15 * bound, 1.15 * bound, (n, 3))]
     for lvl in range(spec.num_levels):
         scale = spec.level_scale(lvl)
@@ -105,11 +127,11 @@ def _points(spec, n, bound, seed):
     return np.concatenate(x).astype(np.float32)
 
 
-def _inputs(name, bound, seed=0, n=200):
+def _inputs(name, bound, seed=0, n=200, kind="spread"):
     j, p = _specs(name)
     rng = np.random.default_rng(seed)
     table = rng.standard_normal((p.table_size, p.level_dim)).astype(np.float32)
-    x = _points(p, n, bound, seed + 1)
+    x = _points(p, n, bound, seed + 1, kind)
     g = rng.standard_normal((x.shape[0], p.output_dim)).astype(np.float32)
     return j, p, table, x, g
 
@@ -135,14 +157,23 @@ ROUTES = ["cpu_autograd", "function"]
 # The encode's gradients
 # ---------------------------------------------------------------------------
 
+# the points that put many points on one row (``_points``), each on every grid
+DUPLICATE_KINDS = ("one_cell", "rays", "mixed")
+ENCODE_GRAD_CASES = ([pytest.param(n, b, "spread", id=f"{n}-{b}") for n, b in
+                      (("tiny", 1.0), ("tiny", 2.0), ("wide", 2.0), ("tuned_like", 1.0))]
+                     + [pytest.param(n, 2.0, kind, id=f"{n}-2.0-{kind}")
+                        for n in ("tiny", "wide", "tuned_like") for kind in DUPLICATE_KINDS])
+
+
 @pytest.mark.parametrize("route", ROUTES)
-@pytest.mark.parametrize("name,bound", [("tiny", 1.0), ("tiny", 2.0), ("wide", 2.0),
-                                        ("tuned_like", 1.0)])
-def test_encode_table_and_point_grads_match_jax(route, name, bound):
+@pytest.mark.parametrize("name,bound,kind", ENCODE_GRAD_CASES)
+def test_encode_table_and_point_grads_match_jax(route, name, bound, kind):
     """d table and d x of ``<g, encode>`` against ``jax.grad``: collisions,
     out-of-box points (zero), cell faces and box faces (half the derivative,
-    as ``jnp.clip``'s)."""
-    j, p, table, x, g = _inputs(name, bound)
+    as ``jnp.clip``'s); the table gradient also against JAX's explicit
+    ``hash_encode_vjp_sorted``.  The duplicate-heavy kinds hold the plain
+    versions (the port's CPU path) where the kernels sum lanes of one row."""
+    j, p, table, x, g = _inputs(name, bound, kind=kind)
 
     def jloss(xx, tt):
         return jnp.sum(jh.hash_encode(xx, tt, j, bound=bound) * g)
@@ -153,13 +184,15 @@ def test_encode_table_and_point_grads_match_jax(route, name, bound):
     dx, dt = torch.autograd.grad(out, (xt, tt), _t(g))
     oob = np.any(np.abs(x) > bound, -1)
     on_face = np.any(np.abs(x) == bound, -1) & ~oob
-    assert oob.any() and on_face.any()
+    assert (oob.any() and on_face.any()) or kind in ("one_cell", "rays")
     np.testing.assert_array_equal(dx.numpy()[oob], 0.0)
     _close(dx, jdx)
     _close(dt, jdt)
     want_dx, want_dt = ph.hash_encode_backward_reference(_t(x), _t(table), _t(g), p, bound)
     _close(want_dx, jdx)
     _close(want_dt, jdt)
+    _close(want_dt, jh.hash_encode_vjp_sorted(jnp.asarray(x), jnp.asarray(table), j,
+                                              jnp.asarray(g), bound=bound))
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -260,16 +293,19 @@ def test_vjp_sorted_matches_jax(name, bound):
 
 
 SECOND_ORDER = ["eikonal_table", "eikonal_cotangent", "table_grad_cotangent"]
+SECOND_ORDER_CASES = [pytest.param(case, kind, id=case if kind == "spread" else f"{case}-{kind}")
+                      for case in SECOND_ORDER for kind in ("spread",) + DUPLICATE_KINDS]
 
 
 @pytest.mark.parametrize("route", ROUTES)
-@pytest.mark.parametrize("case", SECOND_ORDER)
-def test_second_order_grads_match_jax(route, case):
+@pytest.mark.parametrize("case,kind", SECOND_ORDER_CASES)
+def test_second_order_grads_match_jax(route, case, kind):
     """Second-order losses through the encode against ``jax.grad``:
     ``sum ||d <enc, a> / d x||^2`` with respect to the table (the eikonal
     term's table gradient) and to ``a``, and ``sum (d <enc, a> / d table)^2``
-    with respect to ``a`` (an encode of the cotangent)."""
-    j, p, table, x, a = _inputs("tiny", 2.0, seed=9, n=120)
+    with respect to ``a`` (an encode of the cotangent); on the spread points
+    and on the duplicate-heavy kinds of ``_points``."""
+    j, p, table, x, a = _inputs("tiny", 2.0, seed=9, n=120, kind=kind)
 
     def inner(xx, tt, aa):
         return jnp.sum(jh.hash_encode(xx, tt, j, bound=2.0) * aa)
