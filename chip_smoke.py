@@ -22,7 +22,8 @@ non-zero with no ``ok`` line:
                against f32 truth <= 1.2x the plain bf16 version's + 1e-4;
                max abs against the plain bf16 version reported); the f32
                kernel also at W=64, 192, 256, 320, 512 (each tile geometry
-               class), depth 3, P=1 and 700 (ragged tiles);
+               class), depth 3, P=1 and 700 (ragged tiles), and at sdf_mesh's
+               surface probe, full width, B=1, P=128^3=2,097,152;
              * table_gather at the Pallas probe's shapes ([512, 128] f32,
                [8, 128] int32, one column) and at the packed NGP encode's
                (bf16, 64-wide rows, [2, 786432] indices): bit-equal;
@@ -141,7 +142,31 @@ non-zero with no ``ok`` line:
              yaml's type) likewise: exit 0, both artifacts, finite losses with
              g_smooth.  Each command runs in a
              ``.chip_smoke_train_*`` directory with a ``configs`` symlink.
-9. the ``kernels`` line, then the nvidia-smi line, then the ``ok`` line.
+9. evaluate - the evaluation and geometry tools over train_cli's two
+             artifacts, in its directory: 48 procedural 256^2 heads into a
+             store (``python -m sdface_gan_tpu_torch.data.synthetic``) and
+             their FID stats (``calc_fid_stats``); ``eval.main`` in this
+             process, f32 with the PNG dump against the store (finite FID
+             and KID), then bf16 and f32 with ``--no_dump`` against the
+             stats (images/s: generation + Inception, host clock after a
+             synchronise), then the NGP artifact: siren_field (or
+             hash_encode and table_gather) launched once per batch, the
+             plain field and the plain encode never on a CUDA tensor, and a
+             short profiled run of each dtype showing its field kernel by
+             name (f32: siren_field_f32_kernel, bf16: siren_field_mma_kernel)
+             and not the other; ``probe_geometry --stage a`` and ``--stage b
+             --mesh`` (four identities and a verdict) and ``sdf_mesh
+             --identities 2`` (32 view PNGs, a mesh or its failure line per
+             identity), started with the heads' store before the timed
+             evals, and ``eval_files`` on the dump after them, each exit 0;
+             the FID Inception on the card against the CPU (TF32
+             off, <= 1e-4 of max |activation|, 256^2 and 512^2) and its ms
+             per batch of 8; sdf_mesh's surface probe at 128^3 timed, its
+             volume's align_volume on the card against the CPU (<= 1e-6),
+             the f32 field kernel alone at that shape beside its plain
+             version and bound; marching cubes on a sphere made on the card
+             at 128^3 (a closed mesh; host seconds); the phase's wall time.
+10. the ``kernels`` line, then the nvidia-smi line, then the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32: this process
 turns it off, and the train entry turns it off in its own (train_cli checks
 the line it prints).
@@ -288,7 +313,8 @@ def field_inputs(net, b: int, p: int, seed: int):
     return pts, views, style
 
 
-def check_field(depth: int, p: int, seed: int, width: int = WIDTH, bf16: bool = True) -> dict:
+def check_field(depth: int, p: int, seed: int, width: int = WIDTH, bf16: bool = True,
+                batch: int = 2) -> dict:
     """The field kernel against its plain version at one shape, f32 and
     (unless ``bf16`` is False) bf16."""
     import copy
@@ -300,7 +326,7 @@ def check_field(depth: int, p: int, seed: int, width: int = WIDTH, bf16: bool = 
 
     net32 = SirenGenerator(SirenConfig(depth=depth, width=width, style_dim=STYLE),
                            generator=torch.Generator().manual_seed(seed)).cuda()
-    pts, views, style = field_inputs(net32, 2, p, seed)
+    pts, views, style = field_inputs(net32, batch, p, seed)
 
     def run(net, fn):
         pack = sk.pack_siren_field(net)
@@ -315,14 +341,14 @@ def check_field(depth: int, p: int, seed: int, width: int = WIDTH, bf16: bool = 
     check(bool(torch.isfinite(kern32).all()), "f32 field kernel output finite")
     check(err32 <= 1e-3, f"f32 field kernel vs plain: max abs err {err32} <= 1e-3")
     if not bf16:
-        return dict(depth=depth, width=width, style=STYLE, batch=2, points=p,
+        return dict(depth=depth, width=width, style=STYLE, batch=batch, points=p,
                     f32_max_abs_err=err32)
     net16 = copy.deepcopy(net32).to(torch.bfloat16)
     plain16 = run(net16, sk.siren_field_reference)
     kern16 = run(net16, sk.siren_field_fused_parts)
     err16_kernel = (kern16 - truth).abs().mean().item()
     err16_plain = (plain16 - truth).abs().mean().item()
-    rec = dict(depth=depth, width=width, style=STYLE, batch=2, points=p,
+    rec = dict(depth=depth, width=width, style=STYLE, batch=batch, points=p,
                f32_max_abs_err=err32, bf16_mean_err_kernel=err16_kernel,
                bf16_mean_err_plain=err16_plain,
                bf16_max_abs_kernel_vs_plain=(kern16 - plain16).abs().max().item())
@@ -1931,14 +1957,395 @@ def train_cli(results: dict, smi: str) -> None:
                        stage_a=_step_medians(ngp_a), stage_b=_step_medians(ngp_b),
                        g_smooth=[r["g_smooth"] for r in adv])
         emit(phase="train_cli_ngp", **rec_ngp)
-    results["train_cli"] = dict(store=rec_store, loader=rec_loader, entry=rec_entry,
-                                flow=rec_flow, ngp=rec_ngp)
-    emit(phase="train_cli", nvidia_smi=smi, records=records, store_bytes=store_bytes,
-         store_s=prep["seconds"], loader_ms_per_batch=loader_ms,
-         batch_work_ms_median=rec_loader["batch_work_ms_median"], stage_a_step_ms=step_a_ms,
-         loader_keeps_up=rec_loader["keeps_up"], entry_rc=entry["rc"],
-         entry_s=entry["seconds"], stage_a=stage_a, stage_b=stage_b, rerun_rc=rerun["rc"],
-         exit_after_rc=cut["rc"], resume_rc=resume["rc"])
+        results["train_cli"] = dict(store=rec_store, loader=rec_loader, entry=rec_entry,
+                                    flow=rec_flow, ngp=rec_ngp)
+        emit(phase="train_cli", nvidia_smi=smi, records=records, store_bytes=store_bytes,
+             store_s=prep["seconds"], loader_ms_per_batch=loader_ms,
+             batch_work_ms_median=rec_loader["batch_work_ms_median"], stage_a_step_ms=step_a_ms,
+             loader_keeps_up=rec_loader["keeps_up"], entry_rc=entry["rc"],
+             entry_s=entry["seconds"], stage_a=stage_a, stage_b=stage_b, rerun_rc=rerun["rc"],
+             exit_after_rc=cut["rc"], resume_rc=resume["rc"])
+        # the evaluation and geometry tools over the artifacts just trained
+        evaluate(results, smi, td)
+
+
+# The evaluate phase: evaluation and geometry over train_cli's artifacts.
+EVAL_HEADS, EVAL_HEAD_RES = 48, 256
+EVAL_DUMP_IMAGES, EVAL_RATE_IMAGES, EVAL_NGP_IMAGES = 48, 128, 32
+SURFACE_RES = 128
+INCEPTION_TOL = 1e-4  # card vs CPU, TF32 off, of max |activation|
+ALIGN_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def plain_fields_on_card():
+    """Count the calls of the plain SIREN field (the fused field's plain
+    version, and the field module's own forward) on CUDA tensors while the
+    block runs; eval's path on the card makes none."""
+    from sdface_gan_tpu_torch.models import siren
+    from sdface_gan_tpu_torch.ops import siren_kernel as sk
+
+    calls = []
+    reference, forward = sk.siren_field_reference, siren.SirenGenerator.forward_parts
+
+    def counted_reference(pack, pts, *args, **kwargs):
+        if pts.is_cuda:
+            calls.append("siren_field_reference")
+        return reference(pack, pts, *args, **kwargs)
+
+    def counted_forward(self, pts, *args, **kwargs):
+        if pts.is_cuda:
+            calls.append("SirenGenerator.forward_parts")
+        return forward(self, pts, *args, **kwargs)
+
+    sk.siren_field_reference = counted_reference
+    siren.SirenGenerator.forward_parts = counted_forward
+    try:
+        yield calls
+    finally:
+        sk.siren_field_reference = reference
+        siren.SirenGenerator.forward_parts = forward
+
+
+def run_eval(td: str, args: list, kernels: tuple, n_batches: int) -> dict:
+    """``sdface_gan_tpu_torch.eval.main(args)`` in this process, in ``td``:
+    the launch counts of the run (each of ``kernels`` once per batch), no
+    plain field or plain encode on the card, the entry's printed lines."""
+    import io
+
+    import torch
+
+    from sdface_gan_tpu_torch import eval as eval_cli
+    from sdface_gan_tpu_torch.ops import _ext
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _ext.reset_launch_counts()
+    with contextlib.chdir(td), plain_fields_on_card() as fields, \
+            plain_encodes_on_card() as encodes, contextlib.redirect_stdout(out):
+        stats = eval_cli.main(args)
+    torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    text = out.getvalue()
+    for name in kernels:
+        check(launches[name] == n_batches,
+              f"eval {' '.join(args)}: {name} launched {launches[name]} times in {n_batches} "
+              "batches")
+    check(not fields and not encodes, f"eval {' '.join(args)}: no plain field or encode on "
+          f"the card ({len(fields)} fields, {len(encodes)} encodes)")
+    check("precision: f32 matmuls and convolutions without TF32" in text, "eval turns TF32 off")
+    n = stats["n_images"]
+    warm_s = stats["seconds"] - stats["seconds_first_batch"]
+    rates = dict(images_per_s=n / stats["seconds"],
+                 warm_images_per_s=(n - n // n_batches) / warm_s if n_batches > 1 else None)
+    return dict(stats=stats, launches=launches, lines=text.strip().splitlines()[-2:], **rates)
+
+
+def eval_kernel_names(td: str, args: list) -> list:
+    """Names of the CUDA kernels one short eval run launches (profiler)."""
+    import io
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdface_gan_tpu_torch import eval as eval_cli
+
+    with contextlib.chdir(td), contextlib.redirect_stdout(io.StringIO()), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eval_cli.main(args)
+        torch.cuda.synchronize()
+    return [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+
+
+def run_modules_together(jobs: dict, cwd: str) -> dict:
+    """Run the jobs at once, each a list of ``(module, args)`` run in turn as
+    ``python -m sdface_gan_tpu_torch.<module> <args>``; every command must
+    exit 0 (else the other processes are killed and this raises).  Returns
+    each job's last command's output and the job's seconds."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    live, lock, t0 = [], threading.Lock(), time.perf_counter()
+
+    def chain(commands):
+        for module, args in commands:
+            with lock:
+                proc = subprocess.Popen([sys.executable, "-m", f"sdface_gan_tpu_torch.{module}",
+                                         *args], cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                live.append(proc)
+            stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+            check(proc.returncode == 0, f"{module} {' '.join(args)} exited {proc.returncode}:"
+                  f"\n{stdout[-3000:]}\n{stderr[-3000:]}")
+        return dict(rc=proc.returncode, seconds=time.perf_counter() - t0, stdout=stdout)
+
+    try:
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futures = {name: pool.submit(chain, commands) for name, commands in jobs.items()}
+            return {name: future.result() for name, future in futures.items()}
+    finally:
+        with lock:
+            for proc in live:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
+def closed_mesh(faces) -> bool:
+    """Every edge shared by exactly two triangles."""
+    from collections import Counter
+
+    edges = Counter()
+    for f in faces:
+        for a, b in ((f[0], f[1]), (f[1], f[2]), (f[2], f[0])):
+            edges[(min(a, b), max(a, b))] += 1
+    return set(edges.values()) == {2}
+
+
+def surface_probe(td: str) -> dict:
+    """sdf_mesh's surface probe on the SIREN artifact, in this process: its
+    time at 128^3 (the f32 field kernel at B = 1, P = 2,097,152 inside), the
+    volume's frustum alignment on the card against the CPU, and the kernel
+    alone at that shape beside its plain version and bound."""
+    import torch
+
+    from sdface_gan_tpu_torch import sdf_mesh
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.build import generator_config, stage_options
+    from sdface_gan_tpu_torch.geometry import generate_camera_params
+    from sdface_gan_tpu_torch.geometry.mesh import align_volume
+    from sdface_gan_tpu_torch.models import Generator, mean_latent
+    from sdface_gan_tpu_torch.ops import siren_kernel as sk
+    from sdface_gan_tpu_torch.training.loop import copy_matching
+    from sdface_gan_tpu_torch.utils.checkpoints import load_generator
+
+    with contextlib.chdir(td):
+        cfg = load_config(CLI_CONFIG)
+    view_cfg, surf_cfg = sdf_mesh.mesh_configs(
+        generator_config(stage_options(cfg, False), stage_a=False), SURFACE_RES)
+    full = load_generator(os.path.join(td, "out", CLI_EXP), "full_pipeline", view_cfg,
+                          device="cuda")
+    surf = Generator(surf_cfg, device="cuda")
+    copy_matching(surf, full.state_dict())
+    surf.eval()
+    pack = sk.pack_siren_field(surf.renderer.network)
+    front = generate_camera_params(SURFACE_RES, batch=1,
+                                   locations=torch.zeros((1, 2), device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    z = torch.randn((1, surf_cfg.style_dim), device="cuda", generator=gen)
+    trunc = mean_latent(full, gen)
+    probe_ms = cuda_ms(lambda: sdf_mesh.probe_surface(surf, surf_cfg, z, front, trunc, 0.5,
+                                                      pack), iters=3, warmup=1)
+    sdf = sdf_mesh.probe_surface(surf, surf_cfg, z, front, trunc, 0.5, pack)
+    check(tuple(sdf.shape) == (1,) + (SURFACE_RES,) * 3 + (1,) and bool(torch.isfinite(sdf).all()),
+          "surface probe volume")
+    on_card = align_volume(sdf)
+    on_cpu = align_volume(sdf.cpu())
+    align_err = (on_card.cpu() - on_cpu).abs().max().item()
+    check(torch.equal(on_card.cpu() == 1.0, on_cpu == 1.0) and align_err <= ALIGN_TOL,
+          f"align_volume card vs CPU: max abs {align_err} <= {ALIGN_TOL}")
+    align_ms = cuda_ms(lambda: align_volume(sdf), iters=5)
+
+    # the field kernel alone at the probe's shape
+    net = surf.renderer.network
+    pts, views, style = field_inputs(net, 1, SURFACE_RES ** 3, 16)
+    gamma, beta = sk.film_coeffs(net, style)
+    args = (pack, pts, views, gamma, beta)
+    ms = cuda_ms(lambda: sk.siren_field_fused_parts(*args), iters=5)
+    plain_ms = cuda_ms(lambda: sk.siren_field_reference(*args), iters=2, warmup=1)
+    flops = field_flops(DEPTH, WIDTH) * SURFACE_RES ** 3
+    kernel = dict(kernel=sk.kernel_name(torch.float32), batch=1, points=SURFACE_RES ** 3, ms=ms,
+                  plain_ms=plain_ms,
+                  **bound(flops, field_bytes(pack, 1, SURFACE_RES ** 3), PEAK_F32_FLOPS))
+    del args, pts, views, full, surf
+    torch.cuda.empty_cache()
+    return dict(probe_surface_ms=probe_ms, align_volume_ms=align_ms,
+                align_max_abs_err=align_err, sdf_range=[sdf.min().item(), sdf.max().item()],
+                field_at_probe_shape=kernel)
+
+
+def inception_checks() -> dict:
+    """The FID Inception on the card against the CPU (same random weights,
+    TF32 off) at 256^2 (grows to 299) and 512^2 (shrinks, antialiased), and
+    its device time per batch of 8 at 256^2."""
+    import torch
+
+    from sdface_gan_tpu_torch.evaluation import load_inception
+
+    card, cpu = load_inception(device="cuda"), load_inception(device="cpu")
+    errs = {}
+    for size in (256, 512):
+        x = torch.rand((4, size, size, 3), generator=torch.Generator().manual_seed(size)) * 2 - 1
+        want = cpu(x)
+        got = card(x.cuda()).cpu()
+        errs[size] = ((got - want).abs().max() / want.abs().max()).item()
+        check(errs[size] <= INCEPTION_TOL, f"Inception card vs CPU at {size}^2: {errs[size]} "
+              f"of max |activation| <= {INCEPTION_TOL}")
+    x8 = torch.rand((8, 256, 256, 3), device="cuda") * 2 - 1
+    ms = cuda_ms(lambda: card(x8), iters=10)
+    # the card's busy time inside that: the kernels' device time (profiler)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            card(x8)
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            us = getattr(ev, "device_time_total", None)
+            kernels[ev.key] = (us if us is not None else ev.cuda_time_total) / 5 / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    return dict(rel_err_256=errs[256], rel_err_512=errs[512], ms_per_batch_of_8=ms,
+                device_busy_ms_per_batch_of_8=sum(kernels.values()),
+                top=[(k[:80], v) for k, v in top])
+
+
+def marching_cubes_check() -> dict:
+    """Marching cubes on a sphere SDF made on the card at 128^3: a closed
+    mesh of the right radius, and its host seconds."""
+    import torch
+
+    from sdface_gan_tpu_torch import native
+
+    lin = torch.linspace(-1, 1, SURFACE_RES, device="cuda")
+    x, y, z = torch.meshgrid(lin, lin, lin, indexing="ij")
+    vol = (torch.sqrt(x ** 2 + y ** 2 + z ** 2) - 0.5).cpu().numpy()
+    t0 = time.perf_counter()
+    verts, faces = native.marching_cubes(vol, 0.0)
+    seconds = time.perf_counter() - t0
+    import numpy as np
+
+    r = np.linalg.norm(verts / (SURFACE_RES - 1) * 2 - 1, axis=1)
+    check(abs(float(r.mean()) - 0.5) < 0.01 and float(r.std()) < 0.01 and closed_mesh(faces),
+          "marching cubes: a closed sphere of radius 0.5")
+    return dict(resolution=SURFACE_RES, seconds=seconds, verts=len(verts), faces=len(faces))
+
+
+def evaluate(results: dict, smi: str, td: str) -> None:
+    """The port's evaluation and geometry tools over train_cli's artifacts
+    (``ffhq256_sdf_tpu``, ``ffhq256_sdf_ngp_tpu``, in ``td``): from the
+    command line, a store of procedural heads and its FID stats, beside both
+    probe stages and sdf_mesh; eval in this process, alone on the card (f32
+    with the PNG dump against the store, FID and KID; bf16 and f32 with
+    ``--no_dump`` against the stats, timed; NGP), each through its kernels
+    by launch count and by name; eval_files on the dump from the command
+    line; the Inception, align_volume and marching cubes checked on the
+    card; the surface probe timed."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the tools that need no store, beside the store and its stats
+    first = run_modules_together({
+        "heads": [("data.synthetic", ["--out", "heads", "--n", str(EVAL_HEADS), "--res",
+                                      str(EVAL_HEAD_RES), "--seed", "3"]),
+                  ("calc_fid_stats", ["heads_png", "--out", "heads_stats.npz", "--img_size",
+                                      str(EVAL_HEAD_RES), "--batch", "16"])],
+        "probe_a": [("probe_geometry", ["--config", CLI_CONFIG, "--stage", "a"])],
+        "probe_b": [("probe_geometry", ["--config", CLI_CONFIG, "--stage", "b", "--mesh"])],
+        "sdf_mesh": [("sdf_mesh", ["--config", CLI_CONFIG, "--identities", "2"])],
+    }, td)
+    first_s = time.perf_counter() - t_phase
+    check(f"wrote stats for {EVAL_HEADS} images" in first["heads"]["stdout"], "calc_fid_stats")
+
+    t_evals = time.perf_counter()
+    common = ["--config", CLI_CONFIG, "--sdf", "1", "--batch", str(BATCH)]
+    dump = run_eval(td, common + ["--n_images", str(EVAL_DUMP_IMAGES), "--real_dir", "heads"],
+                    ("siren_field",), EVAL_DUMP_IMAGES // BATCH)
+    check(all(np.isfinite(dump["stats"][k]) for k in ("fid", "kid_mean", "kid_std")),
+          "eval f32: finite FID and KID")
+    dumped = sorted(os.listdir(os.path.join(td, "out", CLI_EXP, "eval")))
+    check(dumped == [f"{i:07d}.png" for i in range(EVAL_DUMP_IMAGES)], "eval dumped its PNGs")
+    rate_args = common + ["--n_images", str(EVAL_RATE_IMAGES), "--no_dump",
+                          "--fid_file", "heads_stats.npz"]
+    rate = {}
+    for dtype in ("bfloat16", "float32"):
+        rate[dtype] = run_eval(td, rate_args + ["--g_dtype", dtype], ("siren_field",),
+                               EVAL_RATE_IMAGES // BATCH)
+        check(np.isfinite(rate[dtype]["stats"]["fid"]), f"eval {dtype} --no_dump: finite FID")
+    from sdface_gan_tpu_torch.ops import siren_kernel as sk
+
+    names = {}
+    for dtype, other in (("float32", "bfloat16"), ("bfloat16", "float32")):
+        names[dtype] = eval_kernel_names(td, common + ["--n_images", str(BATCH), "--no_dump",
+                                                       "--no_fid", "--g_dtype", dtype])
+        mine, theirs = sk.kernel_name(getattr(torch, dtype)), sk.kernel_name(getattr(torch, other))
+        check(any(mine in k for k in names[dtype]) and not any(theirs in k for k in names[dtype]),
+              f"eval --g_dtype {dtype} runs {mine} and not {theirs}")
+    ngp = run_eval(td, ["--config", CLI_NGP_CONFIG, "--sdf", "1", "--batch", str(BATCH),
+                        "--n_images", str(EVAL_NGP_IMAGES), "--no_dump", "--no_fid"],
+                   ("hash_encode", "table_gather"), EVAL_NGP_IMAGES // BATCH)
+    eval_rec = dict(
+        dump=dict(n_images=EVAL_DUMP_IMAGES, fid=dump["stats"]["fid"],
+                  kid=[dump["stats"]["kid_mean"], dump["stats"]["kid_std"]],
+                  launches=dump["launches"]["siren_field"], seconds=dump["stats"]["seconds"]),
+        no_dump={d: dict(n_images=EVAL_RATE_IMAGES, fid=r["stats"]["fid"],
+                         launches=r["launches"]["siren_field"], seconds=r["stats"]["seconds"],
+                         images_per_s=r["images_per_s"],
+                         warm_images_per_s=r["warm_images_per_s"]) for d, r in rate.items()},
+        ngp=dict(n_images=EVAL_NGP_IMAGES, seconds=ngp["stats"]["seconds"],
+                 images_per_s=ngp["images_per_s"], warm_images_per_s=ngp["warm_images_per_s"],
+                 launches={k: ngp["launches"][k] for k in ("hash_encode", "table_gather")}),
+        kernel_by_name={d: [k[:60] for k in v if "siren_field" in k] for d, v in names.items()},
+        lines=dump["lines"] + rate["bfloat16"]["lines"], seconds=time.perf_counter() - t_evals)
+    emit(phase="evaluate_eval", nvidia_smi=smi, **eval_rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # eval_files on the dump, alone on the card
+    t_files = time.perf_counter()
+    files = run_modules_together({"eval_files": [("eval_files", [
+        os.path.join("out", CLI_EXP, "eval"), "--fid_file", "heads_stats.npz",
+        "--batch", "16"])]}, td)["eval_files"]
+    files_s = time.perf_counter() - t_files
+    fid_line = [ln for ln in files["stdout"].splitlines() if ln.startswith("FID:")]
+    check(len(fid_line) == 1 and np.isfinite(float(fid_line[0].split()[1])), "eval_files FID")
+    verdicts = {}
+    for stage in ("a", "b"):
+        lines = first[f"probe_{stage}"]["stdout"].splitlines()
+        verdict = [ln for ln in lines if ln.startswith("verdict:")]
+        check(len(verdict) == 1 and sum(ln.startswith("id") for ln in lines) == 4,
+              f"probe stage {stage}: four identities and a verdict")
+        verdicts[stage] = dict(verdict=verdict[0], ids=[ln for ln in lines if ln.startswith("id")])
+    renders = os.listdir(os.path.join(td, "out", CLI_EXP, "renders"))
+    check(len(renders) == 2 * 16, f"sdf_mesh wrote {len(renders)} view PNGs (32 expected)")
+    mesh_lines = [ln for ln in first["sdf_mesh"]["stdout"].splitlines() if ln.startswith("id")]
+    objs = sorted(n for n in os.listdir(os.path.join(td, "out", CLI_EXP, "meshes"))
+                  if n.endswith(".obj"))
+    for ident in range(2):
+        check(f"id{ident:03d}.obj" in objs or any(
+            ln.startswith(f"id{ident}: marching cubes failed") for ln in mesh_lines),
+              f"sdf_mesh: identity {ident} has a mesh or its failure line")
+    cli_rec = dict(first_block_s=first_s, eval_files_s=files_s,
+                   seconds={k: v["seconds"] for k, v in first.items()},
+                   eval_files_fid=float(fid_line[0].split()[1]), probe=verdicts,
+                   sdf_mesh=mesh_lines, objs=objs)
+    emit(phase="evaluate_cli", **cli_rec)
+
+    checks = dict(inception=inception_checks(), surface=surface_probe(td),
+                  marching_cubes=marching_cubes_check())
+    emit(phase="evaluate_checks", nvidia_smi=smi, **checks)
+    wall = time.perf_counter() - t_phase
+    results["evaluate"] = dict(eval=eval_rec, cli=cli_rec, checks=checks, wall_s=wall)
+    emit(phase="evaluate", nvidia_smi=smi, wall_s=wall,
+         eval_images_per_s={d: r["images_per_s"] for d, r in rate.items()},
+         eval_warm_images_per_s={d: r["warm_images_per_s"] for d, r in rate.items()},
+         ngp_eval_images_per_s=ngp["images_per_s"], fid=dump["stats"]["fid"],
+         kid=dump["stats"]["kid_mean"],
+         inception_ms_per_batch_of_8=checks["inception"]["ms_per_batch_of_8"],
+         inception_device_busy_ms=checks["inception"]["device_busy_ms_per_batch_of_8"],
+         probe_surface_ms=checks["surface"]["probe_surface_ms"],
+         marching_cubes_s=checks["marching_cubes"]["seconds"],
+         probe_verdicts={k: v["verdict"] for k, v in verdicts.items()},
+         sdf_mesh=mesh_lines)
 
 
 def main() -> int:
@@ -1988,6 +2395,8 @@ def main() -> int:
     f32_checks = [check_field(3, p, seed=5 + i, width=w, bf16=False)
                   for i, (w, p) in enumerate((w, p) for w in (64, 192, 256, 320, 512)
                                              for p in (1, 700))]
+    # and at sdf_mesh's surface probe: one call, B = 1, P = 128^3, full width
+    f32_checks.append(check_field(DEPTH, SURFACE_RES ** 3, seed=15, bf16=False, batch=1))
     for rec in checks + f32_checks:
         emit(phase="kernel_check", kernel="siren_field", **rec)
     results["field_checks"], results["field_f32_checks"] = checks, f32_checks
@@ -2031,12 +2440,15 @@ def main() -> int:
 
     bf16, f32 = timing["bfloat16"], timing["float32"]
     gather, encode = ngp_timing["table_gather"], ngp_timing["hash_encode"]
+    probe_shape = results["evaluate"]["checks"]["surface"]["field_at_probe_shape"]
+    ngp_eval = results["evaluate"]["eval"]["ngp"]["launches"]
     kernels = [
         dict(name="siren_field", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/siren_field.cu",
              replaces="sdface_gan_tpu/ops/siren_kernel.py:40",
              kernel=bf16["kernel"], design=bf16["design"],
-             launches=results["launches"]["siren_field"], checked=True,
+             launches=results["launches"]["siren_field"]
+             + results["evaluate"]["eval"]["no_dump"]["bfloat16"]["launches"], checked=True,
              max_abs_err=checks[0]["bf16_max_abs_kernel_vs_plain"],
              f32_max_abs_err=checks[0]["f32_max_abs_err"],
              ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],
@@ -2045,21 +2457,27 @@ def main() -> int:
              source="sdface_gan_tpu_torch/ops/csrc/siren_field.cu",
              replaces="sdface_gan_tpu/ops/siren_kernel.py:40",
              kernel=f32["kernel"], design=f32["design"],
-             launches=results["f32_launches"]["siren_field"], checked=True,
+             launches=results["f32_launches"]["siren_field"]
+             + results["evaluate"]["eval"]["dump"]["launches"]
+             + results["evaluate"]["eval"]["no_dump"]["float32"]["launches"], checked=True,
              max_abs_err=max(r["f32_max_abs_err"] for r in checks + f32_checks),
              ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
-             bound_by=f32["bound_by"], library_ms=None),
+             bound_by=f32["bound_by"], library_ms=None,
+             probe_shape={k: probe_shape[k] for k in ("batch", "points", "ms", "plain_ms",
+                                                      "bound_ms", "bound_by")}),
         dict(name="table_gather", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
              replaces="scripts/bench_packed_gather.py:128",
-             launches=results["ngp_launches"]["table_gather"], checked=True,
+             launches=results["ngp_launches"]["table_gather"] + ngp_eval["table_gather"],
+             checked=True,
              max_abs_err=max(r["max_abs_err"] for r in gather_checks),
              ms=gather["ms"], plain_ms=gather["plain_ms"], bound_ms=gather["bound_ms"],
              bound_by=gather["bound_by"], library_ms=gather["library_ms"]),
         dict(name="hash_encode", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
              replaces="sdface_gan_tpu/ops/hash_encoder.py:205",
-             launches=results["ngp_launches"]["hash_encode"], checked=True,
+             launches=results["ngp_launches"]["hash_encode"] + ngp_eval["hash_encode"],
+             checked=True,
              max_abs_err=max(r["max_abs_err"] for r in encode_checks
                              if r["dtype"] == "float32"),
              ms=encode["ms"], plain_ms=encode["plain_ms"], bound_ms=encode["bound_ms"],

@@ -5,25 +5,32 @@ NVIDIA H100 and is held against it, on the same weights and inputs, by
 ``tests/test_torch_port_*.py``.
 
 Ported so far: the 256^2 full-pipeline generator with the SIREN, NGP and
-FC fields (inference), and the SIREN SDF generator's training from the
-command line:
+FC fields (inference), the SIREN and NGP SDF generators' training from the
+command line, and the evaluation and geometry tools:
 
   ops/         fast_sin, fused_leaky_relu, upfirdn2d, sh_encode, the
-               FiLM-SIREN field, the hash-grid encode and the table gather,
-               the last three with hand-written CUDA kernels (``ops/csrc``)
-  geometry/    camera sampling and ray generation
+               FiLM-SIREN field, the hash-grid encode (forward, backward,
+               double backward) and the table gather, with hand-written
+               CUDA kernels (``ops/csrc``)
+  geometry/    camera sampling, ray generation, mesh extraction
   models/      SIREN, NGP and FC field networks, volume renderer,
-               StyleGAN2 decoder, the whole generator, both discriminators
+               StyleGAN2 decoder, the whole generator, both
+               discriminators, noise projection
   losses/      GAN and geometry losses
-  training/    sphere init, stage A and stage B loops and steps
-  native/      the record store and the PNG unfilter loop (C++, g++ at
-               first use, ctypes)
-  data/        PNG codec, PIL-exact resampling, dataset, loader, prepare
+  training/    sphere init, stage A and stage B loops and steps, gradient
+               accumulation
+  evaluation/  the FID InceptionV3, FID and KID, real-image readers
+  native/      the record store, the PNG unfilter loop, marching cubes and
+               the mesh rasterizer (C++, g++ at first use, ctypes)
+  data/        PNG codec, PIL-exact resampling, dataset, loader, prepare,
+               the procedural heads (``synthetic``)
   config/      yaml subset reader, ``inherit_from``, SDF options, builders
   utils/       device selection, checkpoints, logging, images, converters
   configs.py   the ``configs/256res`` SDF configurations as dataclasses
   serving.py   ``SDFaceSampler``
-  train.py, prepare_data.py   ``python -m`` entry points
+  train.py, prepare_data.py, eval.py, calc_fid_stats.py, eval_files.py,
+  probe_geometry.py, sdf_mesh.py, data/synthetic.py   ``python -m`` entry
+               points
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.

@@ -73,14 +73,22 @@ class MultiResolutionDataset:
     def __len__(self) -> int:
         return self.length
 
-    def __getitem__(
-        self, index: int, rng: Optional[np.random.Generator] = None
-    ) -> Tuple[np.ndarray, np.ndarray]:
+    def _decode(self, index: int) -> np.ndarray:
         key = f"{self.resolution}-{str(index).zfill(5)}"
         data = self.reader.get(key)
         if data is None:
             raise KeyError(key)
-        img = decode_png(data)
+        return decode_png(data)
+
+    def image(self, index: int) -> np.ndarray:
+        """Record ``index`` at the training resolution, unflipped, HWC
+        float32 in [-1, 1] (what FID scores a store by)."""
+        return self._to_array(self._decode(index))
+
+    def __getitem__(
+        self, index: int, rng: Optional[np.random.Generator] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        img = self._decode(index)
 
         rng = rng or np.random.default_rng()
         if rng.random() > 0.5:

@@ -1,13 +1,15 @@
-"""Host-side native code of the port, loaded with ctypes: the record store
-and the PNG unfilter loop.
+"""Host-side native code of the port, loaded with ctypes: the record store,
+the PNG unfilter loop, marching cubes and the mesh rasterizer.
 
 Port of ``sdface_gan_tpu/native/__init__.py`` (``RecordWriter``,
-``RecordReader``) over the port's own copy of ``recordstore.cpp``, whose
-on-disk format is the JAX package's: a store written by either package is
-read by the other.  ``png_unfilter.cpp`` holds the serial part of the
-port's PNG decoder (``data/png.py``).
+``RecordReader``, ``marching_cubes``, ``raster_mesh``) over the port's own
+copies of ``recordstore.cpp``, ``marching_cubes.cpp`` (with
+``mc_tables.h``) and ``rasterizer.cpp``.  The store's on-disk format is the
+JAX package's: a store written by either package is read by the other.
+``png_unfilter.cpp`` holds the serial part of the port's PNG decoder
+(``data/png.py``).
 
-Both sources are compiled on first use with one ``g++`` into one shared
+The sources are compiled on first use with one ``g++`` into one shared
 library in ``.torch_ext_build/`` at the repository root (listed in
 ``.gitignore``), named after a hash of the sources and flags, as
 ``ops/_ext.py`` builds the CUDA kernels.  A failed build raises; nothing
@@ -23,25 +25,40 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
-_SOURCES = ("recordstore.cpp", "png_unfilter.cpp")
+_SOURCES = ("recordstore.cpp", "png_unfilter.cpp", "marching_cubes.cpp", "rasterizer.cpp")
+_HEADERS = ("mc_tables.h",)
 BUILD_DIR = _DIR.parents[1] / ".torch_ext_build"
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+# -march=native as the JAX package builds its copy: the rasterizer's
+# barycentric products then contract to the same FMAs
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
+def _cpu_flags() -> bytes:
+    """The host CPU's feature flags (Linux), which ``-march=native`` builds
+    for: a build directory copied to another machine is then rebuilt."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            return next((ln for ln in f if ln.startswith(b"flags")), b"")
+    except OSError:
+        return b""
+
+
 def library_path() -> Path:
-    """Where the sources are built (the name carries their content hash)."""
+    """Where the sources are built (the name carries a hash of the sources,
+    the flags and the host CPU's features)."""
     digest = hashlib.sha256()
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         digest.update((_DIR / src).read_bytes())
     digest.update(" ".join(GXX_FLAGS).encode())
+    digest.update(_cpu_flags())
     return BUILD_DIR / f"native_{digest.hexdigest()[:16]}.so"
 
 
@@ -93,6 +110,22 @@ def lib() -> ctypes.CDLL:
             L.png_unfilter.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_int64]
+            L.mc_run.restype = ctypes.c_void_p
+            L.mc_run.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                 ctypes.c_int64, ctypes.c_float]
+            L.mc_num_verts.restype = ctypes.c_int64
+            L.mc_num_verts.argtypes = [ctypes.c_void_p]
+            L.mc_num_faces.restype = ctypes.c_int64
+            L.mc_num_faces.argtypes = [ctypes.c_void_p]
+            L.mc_copy.restype = None
+            L.mc_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            L.mc_free.restype = None
+            L.mc_free.argtypes = [ctypes.c_void_p]
+            L.raster_mesh.restype = ctypes.c_int64
+            L.raster_mesh.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p]
             _lib = L
         return _lib
 
@@ -189,3 +222,55 @@ def png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
         raise ValueError(f"PNG row {rc - 1} has filter type "
                          f"{raw[(rc - 1) * (stride + 1)]}, not 0-4")
     return out
+
+
+def marching_cubes(grid: np.ndarray, level: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Extract the ``level`` isosurface of a [nx, ny, nz] float volume.
+
+    Returns (verts [V, 3] float32 in voxel coordinates, faces [F, 3] int32),
+    the convention of ``skimage.measure.marching_cubes`` (used by the
+    reference at ``sdf_utils.py:195``): surface where the field crosses
+    ``level``, vertices linearly interpolated along cell edges.  Raises
+    ``ValueError`` when the volume has fewer than 2 cells along an axis.
+    """
+    g = np.ascontiguousarray(grid, dtype=np.float32)
+    if g.ndim != 3:
+        raise ValueError(f"expected 3D volume, got {g.shape}")
+    h = lib().mc_run(g.ctypes.data, g.shape[0], g.shape[1], g.shape[2], float(level))
+    if not h:
+        raise ValueError("marching cubes failed (volume too small?)")
+    try:
+        nv = lib().mc_num_verts(h)
+        nf = lib().mc_num_faces(h)
+        verts = np.empty((nv, 3), dtype=np.float32)
+        faces = np.empty((nf, 3), dtype=np.int32)
+        if nv:
+            lib().mc_copy(h, verts.ctypes.data, faces.ctypes.data)
+        return verts, faces
+    finally:
+        lib().mc_free(h)
+
+
+def raster_mesh(
+    verts_px: np.ndarray,
+    faces: np.ndarray,
+    vert_attr: np.ndarray,
+    h: int,
+    w: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Z-buffer rasterize a mesh carrying one scalar attribute per vertex.
+
+    verts_px: [V, 3] pre-projected (x_pix, y_pix, depth > 0); faces [F, 3];
+    vert_attr [V].  Returns (attr [h, w], depth [h, w] with 1e30 = empty).
+    """
+    v = np.ascontiguousarray(verts_px, dtype=np.float32)
+    f = np.ascontiguousarray(faces, dtype=np.int32)
+    a = np.ascontiguousarray(vert_attr, dtype=np.float32)
+    if v.ndim != 2 or v.shape[1] != 3 or f.ndim != 2 or f.shape[1] != 3 or a.shape != (len(v),):
+        raise ValueError(f"expected verts [V, 3], faces [F, 3], attr [V]; got "
+                         f"{v.shape}, {f.shape}, {a.shape}")
+    attr = np.zeros((h, w), dtype=np.float32)
+    depth = np.zeros((h, w), dtype=np.float32)
+    lib().raster_mesh(v.ctypes.data, f.ctypes.data, a.ctypes.data, len(v), len(f), h, w,
+                      attr.ctypes.data, depth.ctypes.data)
+    return attr, depth

@@ -22,8 +22,6 @@ from __future__ import annotations
 import argparse
 import os
 
-import torch
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train an SDFace-GAN model with the PyTorch port.")
@@ -82,17 +80,13 @@ def train_sdf(args, cfg) -> None:
     from .data import DataLoader, MultiResolutionDataset, resolve_record_dir
     from .training.loop import train_full_pipeline, train_volume_renderer
     from .utils.checkpoints import checkpoint_exists
-    from .utils.device import resolve_device
+    from .utils.device import disable_tf32, resolve_device
 
     if args.vae or args.psp:
         raise NotImplementedError(
             "--vae / --psp (stage C, the encoder) is not ported yet; see ROADMAP.md")
     device = resolve_device(args.device)
-    # the configs' f32 stays f32 (PyTorch's default lets cuDNN use TF32): the
-    # precision at which training on the card is held against the CPU
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("precision: f32 matmuls and convolutions without TF32", flush=True)
+    disable_tf32()
 
     expname = cfg["training"]["out_dir"].split("/")[1]
     out_base = os.path.join("./out", expname)

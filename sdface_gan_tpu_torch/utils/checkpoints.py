@@ -5,7 +5,8 @@ The names follow ``sdface_gan_tpu/utils/checkpoints.py``: periodic
 ``vol_renderer`` and ``full_pipeline``, each one file ``<name>.pt`` under
 the stage's directory holding a dict of state dicts and scalars.  A save
 writes a temporary file and renames it, so a cut run never leaves half a
-checkpoint.  (The JAX package's orbax checkpoints are not read here.)
+checkpoint.  ``load_generator`` builds a stored generator for the eval and
+geometry entries.  (The JAX package's orbax checkpoints are not read here.)
 """
 
 from __future__ import annotations
@@ -47,3 +48,15 @@ def latest_checkpoint_step(base_dir: str, prefix: str = "models_") -> Optional[i
     pat = re.compile(rf"^{re.escape(prefix)}(\d+)\.pt$")
     steps = [int(m.group(1)) for m in map(pat.match, os.listdir(base_dir)) if m]
     return max(steps) if steps else None
+
+
+def load_generator(base_dir: str, name: str, cfg, which: str = "g_ema",
+                   device: Union[str, torch.device] = "cuda"):
+    """The generator ``which`` (``g`` or ``g_ema``) of checkpoint ``<name>.pt``,
+    built for ``cfg`` (a ``GeneratorConfig``) on ``device``, in eval mode.
+    Tensors of a stored dtype (bf16 training) load into the f32 model."""
+    from ..models.generator import Generator
+
+    model = Generator(cfg, device=device)
+    model.load_state_dict(load_checkpoint(base_dir, name, map_location=device)[which])
+    return model.eval()

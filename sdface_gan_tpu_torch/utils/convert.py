@@ -14,6 +14,8 @@ the reference ``g_ema`` names, which the port's ``Generator`` uses.
   load)
 
 Values are copied bit for bit, for every field type ('sdf', 'ngp', 'fc').
+The discriminators (``jax_disc_params_to_state_dict``) and the FID
+Inception (``jax_inception_params_to_state_dict``) have converters too.
 """
 
 from __future__ import annotations
@@ -135,4 +137,54 @@ def jax_disc_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Ten
     sd["final_linear1.bias"] = np.asarray(params["final_linear1"]["b"])
     sd["final_linear2.weight"] = np.asarray(params["final_linear2"]["w"]).T
     sd["final_linear2.bias"] = np.asarray(params["final_linear2"]["b"])
+    return _tensors(sd)
+
+
+# JAX Inception branch names -> pytorch-fid's, per block kind (the inverse of
+# the table in ``sdface_gan_tpu/evaluation/inception.py``'s torch import)
+_INCEPTION_BRANCHES = {
+    "a": {"b1x1": "branch1x1", "b5x5_1": "branch5x5_1", "b5x5_2": "branch5x5_2",
+          "b3x3dbl_1": "branch3x3dbl_1", "b3x3dbl_2": "branch3x3dbl_2",
+          "b3x3dbl_3": "branch3x3dbl_3", "bpool": "branch_pool"},
+    "b": {"b3x3": "branch3x3", "b3x3dbl_1": "branch3x3dbl_1",
+          "b3x3dbl_2": "branch3x3dbl_2", "b3x3dbl_3": "branch3x3dbl_3"},
+    "c": {"b1x1": "branch1x1", "b7_1": "branch7x7_1", "b7_2": "branch7x7_2",
+          "b7_3": "branch7x7_3", "b7d_1": "branch7x7dbl_1", "b7d_2": "branch7x7dbl_2",
+          "b7d_3": "branch7x7dbl_3", "b7d_4": "branch7x7dbl_4", "b7d_5": "branch7x7dbl_5",
+          "bpool": "branch_pool"},
+    "d": {"b3_1": "branch3x3_1", "b3_2": "branch3x3_2", "b7_1": "branch7x7x3_1",
+          "b7_2": "branch7x7x3_2", "b7_3": "branch7x7x3_3", "b7_4": "branch7x7x3_4"},
+    "e": {"b1x1": "branch1x1", "b3_1": "branch3x3_1", "b3_2a": "branch3x3_2a",
+          "b3_2b": "branch3x3_2b", "b3d_1": "branch3x3dbl_1", "b3d_2": "branch3x3dbl_2",
+          "b3d_3a": "branch3x3dbl_3a", "b3d_3b": "branch3x3dbl_3b", "bpool": "branch_pool"},
+}
+_INCEPTION_BLOCKS = {
+    "Mixed_5b": "a", "Mixed_5c": "a", "Mixed_5d": "a", "Mixed_6a": "b",
+    "Mixed_6b": "c", "Mixed_6c": "c", "Mixed_6d": "c", "Mixed_6e": "c",
+    "Mixed_7a": "d", "Mixed_7b": "e", "Mixed_7c": "e",
+}
+_INCEPTION_STEM = ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1",
+                   "Conv2d_4a_3x3")
+
+
+def jax_inception_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert a JAX FID Inception tree (``init_inception`` or
+    ``import_torch_state_dict``) into the port's ``InceptionV3`` state dict
+    under pytorch-fid's names, bit for bit: conv HWIO -> OIHW, ``bn_scale``
+    / ``bn_bias`` / ``bn_mean`` / ``bn_var`` -> the BatchNorm's ``weight`` /
+    ``bias`` / ``running_mean`` / ``running_var``.  The inverse of the JAX
+    package's ``import_torch_state_dict``."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv_bn(prefix, p):
+        sd[f"{prefix}.conv.weight"] = np.transpose(np.asarray(p["w"]), (3, 2, 0, 1))
+        for ours, theirs in (("weight", "bn_scale"), ("bias", "bn_bias"),
+                             ("running_mean", "bn_mean"), ("running_var", "bn_var")):
+            sd[f"{prefix}.bn.{ours}"] = np.asarray(p[theirs])
+
+    for stem in _INCEPTION_STEM:
+        conv_bn(stem, params[stem])
+    for block, kind in _INCEPTION_BLOCKS.items():
+        for jax_name, torch_name in _INCEPTION_BRANCHES[kind].items():
+            conv_bn(f"{block}.{torch_name}", params[block][jax_name])
     return _tensors(sd)

@@ -621,3 +621,121 @@ def test_ngp_stage_a_step_on_the_card_launches_the_kernels(cuda, monkeypatch, re
             assert a is None
             continue
         assert (a - b).norm() <= 1e-3 * b.norm() + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# Evaluation and geometry: the surface probe's field shape, the Inception,
+# frustum alignment, and the eval entry's launches
+# ---------------------------------------------------------------------------
+
+def test_f32_field_kernel_at_the_surface_probe_shape(cuda):
+    """sdf_mesh's surface probe: one call at B = 1, P = 128^3, full width."""
+    args = _field_args(torch.float32, depth=8, width=256, style_dim=256, p=128 ** 3, seed=5)
+    args = (args[0], args[1][:1].contiguous(), args[2][:1].contiguous(),
+            args[3][:1].contiguous(), args[4][:1].contiguous())
+    with torch.no_grad():
+        got = siren_kernel.siren_field_fused_parts(*args)
+        want = siren_kernel.siren_field_reference(*args)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert (g.float() - w.float()).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("size", [256, 512])
+def test_inception_on_the_card_matches_the_cpu(cuda, size):
+    from sdface_gan_tpu_torch.evaluation import load_inception
+
+    x = torch.from_numpy(np.random.default_rng(size).uniform(
+        -1, 1, (4, size, size, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = load_inception(device="cpu")(x)
+        got = load_inception(device="cuda")(x.cuda()).cpu()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_align_volume_on_the_card_matches_the_cpu(cuda):
+    from sdface_gan_tpu_torch.geometry.mesh import align_volume
+
+    lin = torch.linspace(-1, 1, 48)
+    y, x, z = torch.meshgrid(lin, lin, torch.linspace(-1, 1, 40), indexing="ij")
+    vol = (torch.sqrt((x / 0.7) ** 2 + (y / 0.8) ** 2 + (z / 0.6) ** 2) - 0.8
+           + 0.05 * torch.sin(3 * x + 2 * y))[None, ..., None]
+    want = align_volume(vol)
+    got = align_volume(vol.cuda()).cpu()
+    assert torch.equal(got == 1.0, want == 1.0)
+    assert (got - want).abs().max() <= 1e-6
+
+
+EVAL_YAML = """inherit_from: configs/256res/ffhq_256_sdf.yaml
+training:
+  out_dir: out/{exp}
+data:
+  img_size: 32
+rendering:
+  width: 64
+  depth: 2
+  N_samples: 8
+{extra}train_args:
+  renderer_spatial_output_dim: 16
+  size: 32
+  style_dim: 64
+  channel_multiplier: 1
+"""
+NGP_EXTRA = """  type: ngp
+  num_levels: 4
+  level_dim: 8
+  finest_res: 64
+  log2_hashmap_size: 13
+  pack_mb: 1
+"""
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "ngp"])
+def test_eval_runs_the_kernels_of_its_path(cuda, tmp_path, monkeypatch, kind):
+    """``python -m sdface_gan_tpu_torch.eval`` on a small random checkpoint:
+    the f32 or bf16 field kernel (seen by name), or the hash kernels; the
+    plain field and the plain encode never run on a CUDA tensor."""
+    import os
+
+    from sdface_gan_tpu_torch import eval as eval_cli
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.build import generator_config, stage_options
+    from sdface_gan_tpu_torch.models import siren
+    from sdface_gan_tpu_torch.utils.checkpoints import save_checkpoint
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    os.symlink(os.path.join(repo, "configs"), tmp_path / "configs")
+    (tmp_path / "e.yaml").write_text(EVAL_YAML.format(
+        exp="e", extra=NGP_EXTRA if kind == "ngp" else ""))
+    monkeypatch.chdir(tmp_path)
+    gcfg = generator_config(stage_options(load_config("e.yaml"), False), stage_a=False)
+    g = Generator(gcfg, device="cpu", generator=torch.Generator().manual_seed(6))
+    save_checkpoint("out/e", "full_pipeline", {"g_ema": g.state_dict()})
+
+    plain = []
+    for module, name in ((siren_kernel, "siren_field_reference"),
+                         (hg, "hash_encode_reference"), (siren, "hash_encode_reference")):
+        def counted(x, *a, _original=getattr(module, name), **kw):
+            if x.is_cuda:
+                plain.append(name)
+            return _original(x, *a, **kw)
+
+        monkeypatch.setattr(module, name, counted)
+    monkeypatch.setattr(siren.SirenGenerator, "forward_parts",
+                        lambda self, pts, *a: plain.append("SirenGenerator") or None)
+    args = ["--config", "e.yaml", "--n_images", "4", "--batch", "2", "--no_dump", "--no_fid"]
+    if kind == "bfloat16":
+        args += ["--g_dtype", "bfloat16"]
+    _ext.reset_launch_counts()
+    stats = eval_cli.main(args)
+    launches = dict(_ext.LAUNCHES)
+    assert stats["n_images"] == 4 and not plain, plain
+    if kind == "ngp":
+        assert launches["hash_encode"] == 2 and launches["table_gather"] == 2, launches
+        return
+    assert launches["siren_field"] == 2, launches
+    names = _device_kernels(lambda: eval_cli.main(args))
+    dtype = getattr(torch, kind)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    assert any(siren_kernel.kernel_name(dtype) in k for k in names), names
+    assert not any(siren_kernel.kernel_name(other) in k for k in names), names
