@@ -17,7 +17,8 @@ non-zero with no ``ok`` line:
              * siren_field at full width (W=256, D=8, style 256, B=2,
                P=64*64*24) and at depth 3, P=700 (a partial tile), and at
                W=64 and W=512 (depth 3, P=700, partial tiles of 512 and 64
-               points), in f32 (the register-blocked FMA kernel, max abs
+               points), and at the bench's shape (full width, B=32,
+               P=64*64*24, one call), in f32 (the register-blocked FMA kernel, max abs
                error <= 1e-3) and bf16 (tensor-core kernel: mean error
                against f32 truth <= 1.2x the plain bf16 version's + 1e-4;
                max abs against the plain bf16 version reported); the f32
@@ -43,10 +44,16 @@ non-zero with no ``ok`` line:
                lanes at n = 1, 31, 33, 700),
                then at the NGP stage-A G step's shapes on a request's points
                ((t) tuned, bf16, 786,432 and 32,768 points; (u) upstream,
-               f32, 786,432): ||kernel - plain|| <= 1e-5 of the plain norm
-               for f32 outputs,
+               f32, 786,432, and its first 393,216 as bench_ngp's stage A
+               at batch 4 gives them): ||kernel - plain|| <= 1e-5 of the
+               plain norm for f32 outputs,
                8e-3 for bf16 ones (the atomics' order varies); zeros outside
-               the box.
+               the box;
+             * at bench_ngp's hash-grid shape (its 393,216 uniform points on
+               the upstream grid, bound 1, std-1 f32 table): the forward it
+               times (hash_encode, max abs <= 1e-5) and its table gradient
+               through K1 (<= 1e-5 of the plain VJP's norm), then K1 and K2
+               on those points as above.
 4. serve   - the SIREN 256^2 generator (random weights from a seed) behind
              ``SDFaceSampler`` at batch 8, bf16 weights: warm up, zero the
              launch counts, answer two seed requests and one azim/elev
@@ -166,7 +173,25 @@ non-zero with no ``ok`` line:
              the f32 field kernel alone at that shape beside its plain
              version and bound; marching cubes on a sphere made on the card
              at 128^3 (a closed mesh; host seconds); the phase's wall time.
-10. the ``kernels`` line, then the nvidia-smi line, then the ``ok`` line.
+10. bench   - ``python -m sdface_gan_tpu_torch.bench`` and ``... .bench_ngp`` at
+             their defaults (the flagship at batch 32; the upstream hash grid,
+             stage-A NGP at batch 4, three NGP serving grids at batch 8), one
+             after the other: exit 0, finite positive values, the card named,
+             each kernel launched in its timed loop; then the benches'
+             calls in this process, counted and profiled (a profiler session
+             that dropped a wanted kernel's records is run again, up to 3):
+             the bench's sampler (batch 32) runs siren_field_mma_kernel<256>
+             by name, the hash-grid bench's functions hash_encode and K1,
+             the packed serving arm table_gather and hash_encode; no plain
+             field or plain encode on the card.
+11. train_64 - ``scripts/torch_convergence_run.py`` at 2 sphere-init steps and
+             3 iterations per stage (a 64-image store, a 64-image eval): the
+             64^2 configs' path (store, train, both probes, sdf_mesh, eval)
+             on the card, every loss finite, both verdicts, a mesh, a finite
+             FID.
+12. the ``kernels`` line (launches of every phase's counted runs: the
+             bench processes report theirs), then the nvidia-smi line, then
+             the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32: this process
 turns it off, and the train entry turns it off in its own (train_cli checks
 the line it prints).
@@ -208,6 +233,8 @@ FIELD_DESIGN = {
 BATCH = 8
 RES, SAMPLES, WIDTH, DEPTH, STYLE = 64, 24, 256, 8, 256
 POINTS = RES * RES * SAMPLES
+BENCH_BATCH = 32  # sdface_gan_tpu_torch.bench.BATCH
+BENCH_STAGE_A_BATCH = 4  # bench_ngp.bench_stage_a_ngp's batch
 SOURCES = ("siren_field", "hash_grid")
 NGP_BOUND = 2.0  # NGPSirenConfig.bound
 
@@ -278,28 +305,14 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def device_ms(fn, kernel: str, iters: int = 20) -> float:
     """Mean device time of one launch of the kernel named ``kernel`` over
-    ``iters`` calls of ``fn``, from the profiler's trace.  For kernels far
-    shorter than their wrapper's host work, where events around a call
-    would time the host.  The profiler can drop some device records of a
-    session; the mean is over the launches it kept."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``iters`` calls of ``fn``, from the profiler's trace
+    (``bench.kernel_device_ms``: a session whose device records of the
+    kernel the profiler dropped is run again)."""
+    from sdface_gan_tpu_torch.bench import kernel_device_ms
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
-            us = getattr(ev, "device_time_total", None)
-            total_us += us if us is not None else ev.cuda_time_total
-            count += ev.count
-    check(0 < count <= iters, f"profiler saw {count} launches of {kernel} in {iters} calls")
-    return total_us / count / 1e3
+    ms = kernel_device_ms(fn, kernel, iters)
+    check(ms is not None, f"profiler kept no launch of {kernel} in 3 sessions of {iters} calls")
+    return ms
 
 
 def field_inputs(net, b: int, p: int, seed: int):
@@ -501,18 +514,18 @@ def _rel_err(got, want) -> float:
     return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
-def hold_encode_grads(case: str, spec, x, dtypes, seed: int) -> list:
+def hold_encode_grads(case: str, spec, x, dtypes, seed: int, bound: float = NGP_BOUND) -> list:
     """K1 (``hash_encode_backward``: d x and d table, together and d x
     alone as the eikonal's first pass asks) and K2
     (``hash_encode_double_backward``: d table and d g) against their plain
-    versions on the points ``x``, random table, cotangent g and v, one
-    record per table dtype."""
+    versions on the points ``x`` in the box of half-width ``bound``, random
+    table, cotangent g and v, one record per table dtype."""
     import torch
 
     from sdface_gan_tpu_torch.ops import hash_encoder as hg
 
     recs = []
-    oob = (x.abs() > NGP_BOUND).any(-1)
+    oob = (x.abs() > bound).any(-1)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     table32 = torch.randn((spec.table_size, spec.level_dim), generator=gen, device="cuda")
     g32 = torch.randn((x.shape[0], spec.output_dim), generator=gen, device="cuda")
@@ -520,19 +533,19 @@ def hold_encode_grads(case: str, spec, x, dtypes, seed: int) -> list:
     for dtype in dtypes:
         dname = str(dtype).split(".")[-1]
         table, g = table32.to(dtype), g32.to(dtype)
-        dx, dtable = hg.hash_encode_backward(x, table, g, spec, NGP_BOUND)
-        dx_alone, _ = hg.hash_encode_backward(x, table, g, spec, NGP_BOUND, need_table=False)
-        dd_table, dd_g = hg.hash_encode_double_backward(x, table, g, v, spec, NGP_BOUND)
+        dx, dtable = hg.hash_encode_backward(x, table, g, spec, bound)
+        dx_alone, _ = hg.hash_encode_backward(x, table, g, spec, bound, need_table=False)
+        dd_table, dd_g = hg.hash_encode_double_backward(x, table, g, v, spec, bound)
         torch.cuda.synchronize()
-        want_dx, want_dtable = hg.hash_encode_backward_reference(x, table, g, spec, NGP_BOUND)
+        want_dx, want_dtable = hg.hash_encode_backward_reference(x, table, g, spec, bound)
         want_dd_table, want_dd_g = hg.hash_encode_double_backward_reference(
-            x, table, g, v, spec, NGP_BOUND)
+            x, table, g, v, spec, bound)
         pairs = {"d_x": (dx, want_dx), "d_x_alone": (dx_alone, want_dx),
                  "d_table": (dtable, want_dtable), "dd_table": (dd_table, want_dd_table),
                  "dd_g": (dd_g, want_dd_g)}
         rec = dict(kernel="hash_encode_backward/double_backward", case=case, dtype=dname,
                    points=x.shape[0], oob_share=oob.float().mean().item(),
-                   box_face_points=int(((x.abs() == NGP_BOUND).any(-1) & ~oob).sum()),
+                   box_face_points=int(((x.abs() == bound).any(-1) & ~oob).sum()),
                    rel_err={k: _rel_err(a, b) for k, (a, b) in pairs.items()},
                    max_abs_err={k: (a.float() - b.float()).abs().max().item()
                                 for k, (a, b) in pairs.items()},
@@ -608,7 +621,8 @@ def check_encode_grads() -> list:
     tail lanes at n = 1, 31, 33, 700); then at the NGP stage-A G step's
     shapes (``GRAD_CASES``), batch 8, on a real request's points: (t) the
     tuned grid, bf16, the render's 786,432 points and the subsampled
-    eikonal's 32,768, (u) the upstream grid, f32, 786,432 points."""
+    eikonal's 32,768, (u) the upstream grid, f32, 786,432 points, and the
+    first 393,216 of them (``bench_ngp``'s stage A at batch 4)."""
     import torch
 
     recs = []
@@ -628,8 +642,52 @@ def check_encode_grads() -> list:
                               seed=41)
     recs += hold_encode_grads("u_render_and_eikonal", grids["upstream"], points["render"],
                               (torch.float32,), seed=41)
+    # bench_ngp's stage A: the same grid and request, batch 4 (the first four images)
+    recs += hold_encode_grads("u_bench_stage_a_batch4", grids["upstream"],
+                              points["render"][:BENCH_STAGE_A_BATCH * POINTS], (torch.float32,),
+                              seed=42)
     check(points["render"].shape[0] == BATCH * POINTS, "K1/K2 held at the G step's render points")
     return recs
+
+
+def check_bench_hash() -> tuple:
+    """``hash_encode`` and K1 at ``bench_ngp``'s hash-grid shape (its 393,216
+    uniform points on the upstream grid, the bench's own draw, its bound 1;
+    a std-1 table in place of the bench's 1e-4 one, so that the bars mean
+    something): the forward and the table gradient of sum(encode^2) that the
+    bench times, against the plain encode and the plain VJP; then K1 and K2
+    on the same points by ``hold_encode_grads``.  Returns the encode's
+    record and K1 / K2's."""
+    import torch
+
+    from sdface_gan_tpu_torch import bench_ngp
+    from sdface_gan_tpu_torch.ops import hash_encoder as hg
+
+    spec = hg.HashGridSpec.create(desired_resolution=4096)
+    x, table = bench_ngp.hash_inputs(spec, bench_ngp.HASH_POINTS, "cuda", std=1.0)
+    fns = bench_ngp.hash_functions(x, table, spec)
+    got, grad = fns["forward"](), fns["table_grad"]()
+    want = hg.hash_encode_reference(x, table, spec)
+    _, want_grad = hg.hash_encode_backward_reference(x, table, 2.0 * want, spec, need_x=False)
+    torch.cuda.synchronize()
+    rec = dict(kernel="hash_encode + hash_encode_backward", case="bench_ngp_hash",
+               grid="upstream", dtype="float32", points=x.shape[0],
+               max_abs_err=(got - want).abs().max().item(),
+               table_grad_rel_err=_rel_err(grad, want_grad),
+               tolerance=dict(forward_max_abs=1e-5, table_grad_rel=GRAD_RTOL["float32"]))
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(grad).all()),
+          "bench_ngp hash grid: finite encode and table gradient")
+    check(rec["max_abs_err"] <= 1e-5,
+          f"bench_ngp hash grid: hash_encode vs plain, max abs {rec['max_abs_err']} <= 1e-5")
+    check(rec["table_grad_rel_err"] <= GRAD_RTOL["float32"],
+          f"bench_ngp hash grid: table gradient through K1 vs the plain VJP, "
+          f"{rec['table_grad_rel_err']} of the norm")
+    del fns, got, grad, want, want_grad
+    grad_recs = hold_encode_grads("bench_ngp_hash", spec, x, (torch.float32,), seed=61,
+                                  bound=1.0)
+    del x, table
+    torch.cuda.empty_cache()
+    return rec, grad_recs
 
 
 def drive(sampler, kernels) -> tuple:
@@ -2348,6 +2406,214 @@ def evaluate(results: dict, smi: str, td: str) -> None:
          sdf_mesh=mesh_lines)
 
 
+# The bench phase: the port's benches as a user runs them, then in this
+# process under the profiler.
+BENCH_NGP_LINES = 1 + 3 + 1 + 3  # the card, the hash grid, stage A, three serving grids
+
+
+def bench_lines(stdout: str) -> list:
+    return [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+
+
+def profiled(fn, want: tuple = (), tries: int = 3) -> tuple:
+    """Run ``fn()`` (its printed lines kept from stdout) under the profiler:
+    the launch counts of the call, its CUDA kernels by name with their
+    (device microseconds, launches), and the plain fields and plain encodes
+    it ran on CUDA tensors.  The profiler can drop a session's device
+    records: each session idles ``bench.PROFILE_MARGIN_S`` at both ends,
+    and one that shows no kernel named by one of ``want`` is run again, up
+    to ``tries`` sessions (counts and names of the last one; the plain runs
+    of all)."""
+    import io
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdface_gan_tpu_torch.bench import PROFILE_MARGIN_S
+    from sdface_gan_tpu_torch.ops import _ext
+
+    plain = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        _ext.reset_launch_counts()
+        with plain_fields_on_card() as fields, plain_encodes_on_card() as encodes, \
+                contextlib.redirect_stdout(io.StringIO()), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        plain += fields + [f"encode of {n} points" for n in encodes]
+        names = {}
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                us = getattr(ev, "device_time_total", None)
+                names[ev.key] = (us if us is not None else ev.cuda_time_total, ev.count)
+        if all(any(w in k for k in names) for w in want):
+            break
+    return dict(_ext.LAUNCHES), names, plain
+
+
+def bench(results: dict, smi: str) -> None:
+    """``python -m sdface_gan_tpu_torch.bench`` and ``... .bench_ngp`` at their
+    defaults, one after the other: exit 0, every line's value finite and
+    positive, the card named, each kernel launched in its timed loop; then
+    the benches' calls in this process, counted and profiled: the bf16
+    field kernel ``siren_field_mma_kernel<256>`` in the bench's sampler (at
+    its batch, 32), ``hash_encode`` and K1 in the hash-grid bench's
+    functions, ``table_gather``
+    and ``hash_encode`` in the packed serving arm, no plain field or plain
+    encode on the card."""
+    import gc
+    import math
+
+    import torch
+
+    from sdface_gan_tpu_torch import bench as bench_mod
+    from sdface_gan_tpu_torch import bench_ngp
+    from sdface_gan_tpu_torch.ops import siren_kernel as sk
+    from sdface_gan_tpu_torch.ops.hash_encoder import HashGridSpec
+    from sdface_gan_tpu_torch.serving import SDFaceSampler
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # leave the card to the bench processes
+    runs = {module: run_module(module, [], HERE) for module in ("bench", "bench_ngp")}
+    serve_rec = bench_lines(runs["bench"]["stdout"])
+    ngp_recs = bench_lines(runs["bench_ngp"]["stdout"])
+    check(len(serve_rec) == 1 and len(ngp_recs) == BENCH_NGP_LINES,
+          f"bench printed {len(serve_rec)} line, bench_ngp {len(ngp_recs)} lines")
+    serve_rec = serve_rec[0]
+    check(ngp_recs[0]["devices"] == [smi], f"bench_ngp names the card: {ngp_recs[0]}")
+    for rec in [serve_rec] + ngp_recs[1:]:
+        check(math.isfinite(rec["value"]) and rec["value"] > 0 and rec["device"] == smi
+              and rec.get("finite", True), f"bench line: {rec}")
+    check(serve_rec["batch"] == bench_mod.BATCH
+          and serve_rec["launches"]["siren_field"] == bench_mod.ITERS,
+          f"bench: batch {bench_mod.BATCH}, the field kernel once per timed iteration")
+    by_metric = {r["metric"]: r for r in ngp_recs[1:]}
+    hash_fwd = by_metric[bench_ngp.HASH_METRICS["forward"].format(levels=16)]
+    hash_bwd = by_metric[bench_ngp.HASH_METRICS["table_grad"]]
+    packed = by_metric[bench_ngp.SERVING_METRIC.format(name="tuned 4xdim8 + packed 64MB")]
+    stage_a = next(r for r in ngp_recs if r.get("unit") == "it/sec")
+    check(hash_fwd["launches"]["hash_encode"] >= 1 and hash_bwd["launches"][
+        "hash_encode_backward"] >= 1 and packed["launches"]["table_gather"] >= 1
+          and stage_a["launches"]["hash_encode_backward"] >= 1,
+          "bench_ngp: hash_encode, K1 and table_gather launched in their timed loops")
+    cli_s = {m: r["seconds"] for m, r in runs.items()}
+    emit(phase="bench_cli", nvidia_smi=smi, seconds=cli_s,
+         bench={k: serve_rec[k] for k in ("value", "unit", "mrays_per_sec", "iter_ms_median",
+                                          "iter_ms_max", "iter_ms", "launches")},
+         bench_ngp=[{k: r.get(k) for k in ("metric", "value", "unit", "ms", "calls",
+                                           "kernel_device_ms", "iter_ms_median",
+                                           "iter_ms_max", "launches")} for r in ngp_recs[1:]])
+
+    # in this process: the same calls, counted and profiled
+    device = torch.device("cuda")
+    sampler = SDFaceSampler(bench_mod.serving_model(bench_mod.flagship_config(), device),
+                            batch=bench_mod.BATCH, truncation=bench_mod.TRUNCATION)
+    sampler.sample(seed=1)
+    field = sk.kernel_name(torch.bfloat16) + "<256>"
+    launches, names, plain = profiled(lambda: sampler.sample(seed=1), want=(field,))
+    check(launches["siren_field"] == 1 and any(field in k for k in names)
+          and not any(sk.kernel_name(torch.float32) in k for k in names) and not plain,
+          f"bench sampler: one {field} launch, by name, no plain field ({plain})")
+    in_process = {"bench": launches}
+    del sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = HashGridSpec.create(desired_resolution=4096)
+    fns = bench_ngp.hash_functions(*bench_ngp.hash_inputs(spec, bench_ngp.HASH_POINTS, device),
+                                   spec)
+    rows = tuple(HASH_KERNEL_ROWS[k] for k in ("hash_encode", "hash_encode_backward"))
+    launches, names, plain = profiled(lambda: [fn() for _ in range(3) for fn in fns.values()],
+                                      want=rows)
+    for kernel in ("hash_encode", "hash_encode_backward"):
+        check(launches[kernel] >= 1 and any(HASH_KERNEL_ROWS[kernel] in k for k in names),
+              f"bench_ngp hash grid: {kernel} launched ({launches[kernel]}), by name "
+              f"(the profiler kept {[k[:48] for k in names][:16]})")
+    check(not plain, f"bench_ngp hash grid: no plain encode on the card ({plain})")
+    in_process["bench_ngp_hash"] = launches
+    del fns
+    tuned = "tuned 4xdim8 + packed 64MB"
+    launches, names, plain = profiled(lambda: bench_ngp.bench_ngp_serving(configs={
+        tuned: bench_ngp.ngp_serving_config(bench_ngp.SERVING_GRIDS[tuned])}, iters=1),
+        want=("table_gather_kernel", "hash_encode_kernel"))
+    for kernel in ("table_gather", "hash_encode"):
+        check(launches[kernel] >= 1 and any(f"{kernel}_kernel" in k for k in names),
+              f"bench_ngp packed serving: {kernel} launched, by name")
+    check(not plain, f"bench_ngp packed serving: no plain field or encode ({plain})")
+    in_process["bench_ngp_packed"] = launches
+    wall = time.perf_counter() - t_phase
+    launches = {k: sum(r["launches"][k] for r in [serve_rec] + ngp_recs[1:])
+                + sum(r[k] for r in in_process.values()) for k in serve_rec["launches"]}
+    # the kernels' own device time inside the calls the hash-grid bench times
+    hash_kernel_ms = dict(forward=hash_fwd["kernel_device_ms"],
+                          table_grad_k1=hash_bwd["kernel_device_ms"])
+    results["bench"] = dict(cli=dict(bench=serve_rec, bench_ngp=ngp_recs[1:]),
+                            in_process=in_process, launches=launches,
+                            hash_kernel_device_ms=hash_kernel_ms, seconds=cli_s, wall_s=wall)
+    emit(phase="bench", nvidia_smi=smi, images_per_s=serve_rec["value"],
+         iter_ms_median=serve_rec["iter_ms_median"], iter_ms_max=serve_rec["iter_ms_max"],
+         hash_forward_mlookups_per_s=hash_fwd["value"],
+         hash_table_grad_mlookups_per_s=hash_bwd["value"],
+         stage_a_ngp_it_per_s=stage_a["value"],
+         ngp_serving_images_per_s={r["metric"]: r["value"] for r in ngp_recs[5:]},
+         hash_call_ms={"forward": hash_fwd["ms"], "table_grad": hash_bwd["ms"]},
+         hash_kernel_device_ms=hash_kernel_ms, in_process_launches=in_process, wall_s=wall)
+
+
+# The train_64 phase: the staged 64^2 convergence run, cut to a few steps.
+TRAIN_64_FLAGS = ("--sphere_init_iters", "2", "--iters", "3", "--log_every", "1",
+                  "--store_images", "64", "--eval_images", "64")
+TRAIN_64_TIMEOUT_S = 600
+
+
+def train_64(results: dict, smi: str) -> None:
+    """``scripts/torch_convergence_run.py`` on the card at 2 sphere-init steps
+    and 3 iterations per stage (a 64-image store, a 64-image eval): the 64^2
+    configs' path (``synthetic_64_sdf_solid_eik.yaml``: gray background,
+    view-independent colour, sparsity, the subsampled eikonal, a bf16 G, a
+    64^2 decoder) through store, train, both probes, sdf_mesh and eval:
+    exit 0, every logged loss finite, both verdicts, a mesh line, a finite
+    FID."""
+    import gc
+    import math
+    import tempfile
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_train_") as td:
+        os.symlink(os.path.join(HERE, "configs"), os.path.join(td, "configs"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "scripts", "torch_convergence_run.py"),
+             *TRAIN_64_FLAGS, "--out_dir", "report"], cwd=td, env=env, capture_output=True,
+            text=True, timeout=TRAIN_64_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"torch_convergence_run.py exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    for stage in ("stage_a", "stage_b"):
+        check(summary[stage]["all_finite"] and summary[stage]["last_step"] == 2,
+              f"train_64 {stage}: 3 iterations, every loss finite")
+    check(all(summary[p]["verdict"] for p in ("probe_a", "probe_b")), "train_64: two verdicts")
+    check(len(summary["mesh"]) == 1, f"train_64: a mesh line ({summary['mesh']})")
+    fid = summary["fid"].split()
+    check(fid[0] == "FID:" and math.isfinite(float(fid[1])), f"train_64: {summary['fid']}")
+    check(summary["nvidia_smi"] == smi, "train_64: the card named")
+    rec = dict(seconds=seconds, command_seconds=summary["seconds"],
+               stage_a=summary["stage_a"]["at"], stage_b=summary["stage_b"]["at"],
+               probe={p: summary[p]["verdict"] for p in ("probe_a", "probe_b")},
+               mesh=summary["mesh"], fid=summary["fid"])
+    results["train_64"] = rec
+    emit(phase="train_64", nvidia_smi=smi, **rec)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
@@ -2390,7 +2656,9 @@ def main() -> int:
              built=built[src], ptxas=ptxas)
 
     checks = [check_field(DEPTH, POINTS, seed=1), check_field(3, 700, seed=2),
-              check_field(3, 700, seed=3, width=64), check_field(3, 700, seed=4, width=512)]
+              check_field(3, 700, seed=3, width=64), check_field(3, 700, seed=4, width=512),
+              # the bench's shape: one call at batch 32
+              check_field(DEPTH, POINTS, seed=16, batch=BENCH_BATCH)]
     # the f32 kernel at every tile geometry class, ragged tiles (P = 1, 700)
     f32_checks = [check_field(3, p, seed=5 + i, width=w, bf16=False)
                   for i, (w, p) in enumerate((w, p) for w in (64, 192, 256, 320, 512)
@@ -2401,8 +2669,9 @@ def main() -> int:
         emit(phase="kernel_check", kernel="siren_field", **rec)
     results["field_checks"], results["field_f32_checks"] = checks, f32_checks
     gather_checks = check_table_gather()
-    encode_checks = check_hash_encode()
-    grad_checks = check_encode_grads()
+    bench_encode_check, bench_grad_checks = check_bench_hash()
+    encode_checks = check_hash_encode() + [bench_encode_check]
+    grad_checks = check_encode_grads() + bench_grad_checks
     for rec in gather_checks + encode_checks + grad_checks:
         emit(phase="kernel_check", **rec)
     results["gather_checks"], results["encode_checks"] = gather_checks, encode_checks
@@ -2437,18 +2706,22 @@ def main() -> int:
                                                       "device_ms_total", "host_ms")}
                      for s, p in results["train_ngp"]["profile"].items()})
     train_cli(results, smi)
+    bench(results, smi)
+    train_64(results, smi)
 
     bf16, f32 = timing["bfloat16"], timing["float32"]
     gather, encode = ngp_timing["table_gather"], ngp_timing["hash_encode"]
     probe_shape = results["evaluate"]["checks"]["surface"]["field_at_probe_shape"]
     ngp_eval = results["evaluate"]["eval"]["ngp"]["launches"]
+    benched = results["bench"]["launches"]
     kernels = [
         dict(name="siren_field", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/siren_field.cu",
              replaces="sdface_gan_tpu/ops/siren_kernel.py:40",
              kernel=bf16["kernel"], design=bf16["design"],
              launches=results["launches"]["siren_field"]
-             + results["evaluate"]["eval"]["no_dump"]["bfloat16"]["launches"], checked=True,
+             + results["evaluate"]["eval"]["no_dump"]["bfloat16"]["launches"]
+             + benched["siren_field"], checked=True,
              max_abs_err=checks[0]["bf16_max_abs_kernel_vs_plain"],
              f32_max_abs_err=checks[0]["f32_max_abs_err"],
              ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],
@@ -2468,7 +2741,8 @@ def main() -> int:
         dict(name="table_gather", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
              replaces="scripts/bench_packed_gather.py:128",
-             launches=results["ngp_launches"]["table_gather"] + ngp_eval["table_gather"],
+             launches=results["ngp_launches"]["table_gather"] + ngp_eval["table_gather"]
+             + benched["table_gather"],
              checked=True,
              max_abs_err=max(r["max_abs_err"] for r in gather_checks),
              ms=gather["ms"], plain_ms=gather["plain_ms"], bound_ms=gather["bound_ms"],
@@ -2476,7 +2750,8 @@ def main() -> int:
         dict(name="hash_encode", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
              replaces="sdface_gan_tpu/ops/hash_encoder.py:205",
-             launches=results["ngp_launches"]["hash_encode"] + ngp_eval["hash_encode"],
+             launches=results["ngp_launches"]["hash_encode"] + ngp_eval["hash_encode"]
+             + benched["hash_encode"],
              checked=True,
              max_abs_err=max(r["max_abs_err"] for r in encode_checks
                              if r["dtype"] == "float32"),
@@ -2493,7 +2768,7 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route="cuda", source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
             replaces=replaces, kernel=rec["kernel"], shape=case,
-            launches=sum(r["launches"][kname] for r in ngp_runs), checked=True,
+            launches=sum(r["launches"][kname] for r in ngp_runs) + benched[kname], checked=True,
             max_abs_err=max(r["max_abs_err"][k] for r in grad_checks if r["dtype"] == "float32"
                             for k in outputs),
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],

@@ -6,7 +6,7 @@ NVIDIA H100 and is held against it, on the same weights and inputs, by
 
 Ported so far: the 256^2 full-pipeline generator with the SIREN, NGP and
 FC fields (inference), the SIREN and NGP SDF generators' training from the
-command line, and the evaluation and geometry tools:
+command line, the evaluation and geometry tools, and the benches:
 
   ops/         fast_sin, fused_leaky_relu, upfirdn2d, sh_encode, the
                FiLM-SIREN field, the hash-grid encode (forward, backward,
@@ -29,8 +29,8 @@ command line, and the evaluation and geometry tools:
   configs.py   the ``configs/256res`` SDF configurations as dataclasses
   serving.py   ``SDFaceSampler``
   train.py, prepare_data.py, eval.py, calc_fid_stats.py, eval_files.py,
-  probe_geometry.py, sdf_mesh.py, data/synthetic.py   ``python -m`` entry
-               points
+  probe_geometry.py, sdf_mesh.py, data/synthetic.py, bench.py,
+  bench_ngp.py   ``python -m`` entry points
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.

@@ -5,8 +5,8 @@ repository's ``calc_fid_stats.py``, with the same flags plus ``--device``.
 
 Writes the ``fid_file`` that ``eval`` reads (``mu``, ``sigma`` and the
 ``img_size`` the images were resized to, LANCZOS as PIL does).  The port
-reads PNG (and ``.npy``) images; a directory holding another format raises
-before any work.
+reads PNG images; a directory holding another file (JPEG, WebP, BMP, or a
+``.npy`` array, which the JAX CLI cannot open either) raises before any work.
 """
 
 from __future__ import annotations

@@ -6,9 +6,11 @@ Each image's shorter side is resized to every requested size with LANCZOS
 (PIL-exact, ``resample.py``), the result center-cropped, encoded as PNG
 (``png.py``) and stored under ``f"{size}-{idx:05d}"``, with a final
 ``length`` record.  Resizing fans out over a process pool; the single
-writer appends in order.  The port reads PNG and ``.npy`` ([H, W] or
-[H, W, 3 or 4] uint8) input: it has no JPEG, WebP or BMP decoder, and a
-folder holding such files raises before anything is written.
+writer appends in order.  A folder is listed as the JAX package lists it
+(PNG, JPEG, WebP, BMP); the port reads PNG only among those, so a folder
+holding the others raises before anything is written.  ``.npy`` arrays
+([H, W] or [H, W, 3 or 4] uint8) are listed and read only on request
+(``npy=True``): the JAX package skips them.
 """
 
 from __future__ import annotations
@@ -24,19 +26,32 @@ from ..native import RecordWriter
 from .png import decode_png, encode_png
 from .resample import resize
 
-IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp", ".npy")
-READABLE_EXTS = (".png", ".npy")
+IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")  # the JAX package's listing
+
+
+def check_readable(path: str, npy: bool = False) -> None:
+    """Raise ``ValueError`` unless the port reads ``path``: a PNG, or a
+    ``.npy`` array when ``npy`` asks for it (``prepare_data`` only)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png" or (npy and ext == ".npy"):
+        return
+    if ext == ".npy":
+        raise ValueError(f"{path}: .npy input is read only by prepare_data on request "
+                         "(npy=True, or --npy on its command line); the JAX package reads "
+                         "image files only")
+    raise ValueError(f"{path}: the port has no {ext} decoder (it reads PNG; JPEG, WebP and "
+                     "BMP input is a gap listed in ROADMAP.md)")
 
 
 def load_image(path: str) -> np.ndarray:
-    """A PNG or ``.npy`` file -> [H, W, 3] uint8 RGB."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
-        with open(path, "rb") as f:
-            return decode_png(f.read())
-    if ext != ".npy":
-        raise ValueError(f"{path}: the port has no {ext} decoder (it reads PNG and .npy; "
-                         "JPEG, WebP and BMP input is a gap listed in ROADMAP.md)")
+    """A PNG file -> [H, W, 3] uint8 RGB."""
+    check_readable(path)
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def load_array(path: str) -> np.ndarray:
+    """A ``.npy`` array ([H, W] or [H, W, 3 or 4] uint8) -> [H, W, 3] uint8 RGB."""
     arr = np.load(path, allow_pickle=False)
     if arr.dtype != np.uint8 or not (arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] in (3, 4))):
         raise ValueError(f"{path}: expected [H, W] or [H, W, 3|4] uint8, "
@@ -48,7 +63,7 @@ def load_image(path: str) -> np.ndarray:
 
 def _resize_one(args: Tuple[int, str, Sequence[int]]) -> Tuple[int, List[bytes]]:
     idx, path, sizes = args
-    img = load_image(path)
+    img = load_array(path) if path.lower().endswith(".npy") else load_image(path)
     outs = []
     for size in sizes:
         # shorter side to `size`, then center crop (torchvision Resize +
@@ -65,11 +80,13 @@ def _resize_one(args: Tuple[int, str, Sequence[int]]) -> Tuple[int, List[bytes]]
     return idx, outs
 
 
-def list_images(in_dir: str) -> List[str]:
+def list_images(in_dir: str, npy: bool = False) -> List[str]:
+    """The image files under ``in_dir``, sorted; ``.npy`` files too when ``npy``."""
+    exts = IMAGE_EXTS + ((".npy",) if npy else ())
     files = []
     for root, _, names in os.walk(in_dir):
         for n in sorted(names):
-            if n.lower().endswith(IMAGE_EXTS):
+            if n.lower().endswith(exts):
                 files.append(os.path.join(root, n))
     files.sort()
     return files
@@ -80,12 +97,13 @@ def prepare_data(
     out_path: str,
     sizes: Sequence[int] = (64, 128, 256, 512, 1024),
     n_workers: int = 8,
+    npy: bool = False,
 ) -> int:
-    """Build the record store.  Returns the number of images written."""
-    files = list_images(in_dir)
-    unreadable = [f for f in files if not f.lower().endswith(READABLE_EXTS)]
-    if unreadable:
-        load_image(unreadable[0])  # raises, naming the missing decoder
+    """Build the record store.  Returns the number of images written.
+    ``npy`` also takes the folder's ``.npy`` arrays, in the sorted order."""
+    files = list_images(in_dir, npy)
+    for f in files:
+        check_readable(f, npy)  # raises before anything is written
     jobs = [(i, f, tuple(sizes)) for i, f in enumerate(files)]
     results: dict = {}
     with RecordWriter(out_path) as writer:

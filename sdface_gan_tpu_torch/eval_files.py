@@ -4,7 +4,7 @@ repository's ``eval_files.py``, with the same flags plus ``--device``.
     python -m sdface_gan_tpu_torch.eval_files <images.npy or PNG dir> --fid_file stats.npz
 
 A ``.npy`` array may be NCHW or NHWC, uint8 (0-255) or float ([-1, 1]); a
-directory holds PNG (or ``.npy``) images, scored at their own size.
+directory holds PNG images, scored at their own size.
 """
 
 from __future__ import annotations

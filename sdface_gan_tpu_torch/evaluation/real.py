@@ -1,11 +1,13 @@
-"""Real images for FID: a directory of PNG (or ``.npy``) files, or a record
-store, as batches of [n, H, W, 3] float32 in [-1, 1].
+"""Real images for FID: a directory of PNG files, or a record store, as
+batches of [n, H, W, 3] float32 in [-1, 1].
 
 The JAX package's scoring entries read directories with PIL
 (``convert("RGB")``, then ``resize(LANCZOS)``); the port decodes with its
 own PNG decoder and resizes with its PIL-exact LANCZOS (``data/``).  A
 directory is checked whole before any work starts: a file the port cannot
-decode (JPEG, WebP, BMP) raises there, naming the gap.
+decode (JPEG, WebP, BMP) raises there, naming the gap, and so does a
+``.npy`` file (PIL, which the JAX package opens every file with, reads
+none).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
-from ..data.prepare import READABLE_EXTS, load_image
+from ..data.prepare import check_readable, load_image
 from ..data.resample import resize
 
 
@@ -33,8 +35,7 @@ def list_image_files(directory: str, n_images: Optional[int] = None) -> List[str
     every one of them readable by the port (else ``ValueError``)."""
     names = sorted(os.listdir(directory))[:n_images]
     for name in names:
-        if not name.lower().endswith(READABLE_EXTS):
-            load_image(os.path.join(directory, name))  # raises, naming the decoder
+        check_readable(os.path.join(directory, name))
     return names
 
 

@@ -1,6 +1,7 @@
 """Dataset preparation CLI of the port, with the flags of the repository's
-``prepare_data.py``: an image folder (PNG or ``.npy``) -> a multi-resolution
-record store keyed ``{size}-{idx:05d}``.
+``prepare_data.py``, plus ``--npy``: an image folder (PNG; ``.npy`` arrays
+too with ``--npy``) -> a multi-resolution record store keyed
+``{size}-{idx:05d}``.
 
     python -m sdface_gan_tpu_torch.prepare_data <image dir> --out <store> --size 256
 """
@@ -17,12 +18,15 @@ def main(argv=None) -> None:
     p.add_argument("--size", type=str, default="64,128,256,512,1024",
                    help="comma-separated resolutions")
     p.add_argument("--n_worker", type=int, default=8)
+    p.add_argument("--npy", action="store_true",
+                   help="also store the folder's .npy uint8 arrays (the JAX CLI skips them)")
     args = p.parse_args(argv)
 
     from .data import prepare_data
 
     sizes = tuple(int(s) for s in args.size.split(","))
-    n = prepare_data(args.path, args.out, sizes=sizes, n_workers=args.n_worker)
+    n = prepare_data(args.path, args.out, sizes=sizes, n_workers=args.n_worker,
+                     npy=args.npy)
     print(f"wrote {n} images x {len(sizes)} resolutions to {args.out}")
 
 

@@ -739,3 +739,40 @@ def test_eval_runs_the_kernels_of_its_path(cuda, tmp_path, monkeypatch, kind):
     other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
     assert any(siren_kernel.kernel_name(dtype) in k for k in names), names
     assert not any(siren_kernel.kernel_name(other) in k for k in names), names
+
+
+def test_bench_forward_runs_the_bf16_field_kernel(cuda):
+    """``bench``'s timed call (``SDFaceSampler.sample``) at full width, batch
+    2: one ``siren_field_mma_kernel`` launch per call, by count and by name,
+    and a finite 256^2 image."""
+    from sdface_gan_tpu_torch import bench
+
+    record = bench.run_bench(bench.flagship_config(), 2, warmup=1, iters=2)
+    assert record["launches"]["siren_field"] == 2 and record["finite"]
+    assert record["shape"] == [2, 256, 256, 3] and len(record["iter_ms"]) == 2
+    sampler = SDFaceSampler(bench.serving_model(bench.flagship_config(), "cuda"), batch=2,
+                            truncation=bench.TRUNCATION)
+    names = _device_kernels(lambda: sampler.sample(seed=1))
+    assert any(siren_kernel.kernel_name(torch.bfloat16) + "<256>" in k for k in names), names
+
+
+@pytest.mark.parametrize("grid", ["upstream", "tuned"])
+def test_bench_ngp_hash_functions_match_their_plain_versions(cuda, grid):
+    """The forward and table gradient ``bench_hash_fwd_bwd`` times, through
+    ``hash_encode`` and K1 on the card, against the same functions on the
+    CPU (plain versions), std-1 table."""
+    from sdface_gan_tpu_torch import bench_ngp
+
+    kw = (dict(desired_resolution=4096) if grid == "upstream" else
+          dict(num_levels=4, level_dim=8, desired_resolution=256, log2_hashmap_size=15))
+    spec = hg.HashGridSpec.create(**kw)
+    x, table = bench_ngp.hash_inputs(spec, 1 << 15, "cuda", seed=3, std=1.0)
+    card = bench_ngp.hash_functions(x, table, spec)
+    cpu = bench_ngp.hash_functions(x.cpu(), table.cpu(), spec)
+    before = dict(_ext.LAUNCHES)
+    fwd, grad = card["forward"](), card["table_grad"]()
+    assert _ext.LAUNCHES["hash_encode"] - before["hash_encode"] == 2
+    assert _ext.LAUNCHES["hash_encode_backward"] - before["hash_encode_backward"] == 1
+    torch.testing.assert_close(fwd.cpu(), cpu["forward"](), rtol=0, atol=1e-5)
+    want = cpu["table_grad"]()
+    assert (grad.cpu() - want).norm() <= 1e-5 * want.norm()

@@ -353,17 +353,83 @@ def test_prepare_matches_the_jax_prepare(tmp_path):
 
 
 def test_prepare_reads_npy_and_refuses_other_formats_before_writing(tmp_path):
+    """``.npy`` input is stored only on request (``npy=True``) and then gives
+    the PNG's records; a JPEG raises before anything is written."""
     d = _image_dir(tmp_path, [(30, 44)])
     arr = np.asarray(Image.open(d / "000.png"))
     npy = tmp_path / "npy"
     npy.mkdir()
     np.save(npy / "000.npy", arr)
-    for src, out in ((d, "png"), (npy, "npy")):
-        assert prepare_data(str(src), str(tmp_path / out), sizes=(16,), n_workers=1) == 1
-    with RecordReader(str(tmp_path / "png")) as a, RecordReader(str(tmp_path / "npy")) as b:
+    assert prepare_data(str(d), str(tmp_path / "png"), sizes=(16,), n_workers=1) == 1
+    assert prepare_data(str(npy), str(tmp_path / "npy_out"), sizes=(16,), n_workers=1,
+                        npy=True) == 1
+    with RecordReader(str(tmp_path / "png")) as a, RecordReader(str(tmp_path / "npy_out")) as b:
         np.testing.assert_array_equal(png.decode_png(a.get("16-00000")),
                                       png.decode_png(b.get("16-00000")))
     Image.fromarray(arr).save(d / "001.jpg")
     with pytest.raises(ValueError, match="no .jpg decoder"):
         prepare_data(str(d), str(tmp_path / "jpg"), sizes=(16,), n_workers=1)
     assert not os.path.exists(tmp_path / "jpg")
+
+
+def _mixed_dir(tmp_path):
+    """``a.png``, ``b.npy``, ``c.png`` (40², random): the folder on which the
+    two packages once wrote different stores."""
+    d = tmp_path / "mixed"
+    d.mkdir()
+    rng = np.random.default_rng(11)
+    arrs = [rng.integers(0, 256, (40, 40, 3), dtype=np.uint8) for _ in range(3)]
+    Image.fromarray(arrs[0]).save(d / "a.png")
+    np.save(d / "b.npy", arrs[1])
+    Image.fromarray(arrs[2]).save(d / "c.png")
+    return d, arrs
+
+
+def test_prepare_lists_a_mixed_folder_as_the_jax_prepare(tmp_path):
+    """By default the port skips ``.npy`` files as the JAX package does:
+    the same record count and the same bytes under every key."""
+    d, _ = _mixed_dir(tmp_path)
+    assert j_prepare(str(d), str(tmp_path / "jax"), sizes=(16,), n_workers=1) == 2
+    assert prepare_data(str(d), str(tmp_path / "port"), sizes=(16,), n_workers=1) == 2
+    assert list_images(str(d)) == [str(d / "a.png"), str(d / "c.png")]
+    with JReader(str(tmp_path / "jax")) as ref, RecordReader(str(tmp_path / "port")) as r:
+        keys = list(ref.keys())
+        assert keys == ["16-00000", "16-00001", "length"] and list(r.keys()) == keys
+        assert r.get("length") == ref.get("length") == b"2"
+        for k in keys[:-1]:
+            np.testing.assert_array_equal(png.decode_png(r.get(k)), _pil_rgb(ref.get(k)),
+                                          err_msg=k)
+
+
+def test_prepare_stores_npy_on_request(tmp_path):
+    """``npy=True`` (``--npy`` on the command line) takes the folder's
+    ``.npy`` array in its sorted place."""
+    from sdface_gan_tpu_torch import prepare_data as prepare_cli
+
+    d, arrs = _mixed_dir(tmp_path)
+    assert list_images(str(d), npy=True) == [str(d / n) for n in ("a.png", "b.npy", "c.png")]
+    prepare_cli.main([str(d), "--out", str(tmp_path / "cli"), "--size", "40", "--n_worker",
+                      "1", "--npy"])
+    with RecordReader(str(tmp_path / "cli")) as r:
+        assert r.get("length") == b"3"
+        for i, arr in enumerate(arrs):  # 40² at 40: LANCZOS leaves the pixels as they are
+            np.testing.assert_array_equal(png.decode_png(r.get(f"40-{i:05d}")), arr)
+
+
+def test_real_dir_refuses_npy(tmp_path):
+    """``evaluation/real.py`` reads a ``--real_dir`` as the JAX eval opens it
+    with PIL: a ``.npy`` file raises before any work (only ``prepare_data``
+    takes ``.npy`` input, on request); the folder's PNGs read as PIL reads
+    them."""
+    from sdface_gan_tpu_torch.evaluation.real import dir_batches, list_image_files
+
+    d, arrs = _mixed_dir(tmp_path)
+    with pytest.raises(ValueError, match=r"\.npy input is read only by prepare_data"):
+        list_image_files(str(d))
+    with pytest.raises(ValueError, match=r"\.npy input is read only by prepare_data"):
+        next(dir_batches(str(d), ["b.npy"], 1))
+    os.remove(d / "b.npy")
+    names = list_image_files(str(d))
+    assert names == ["a.png", "c.png"]
+    got = np.concatenate(list(dir_batches(str(d), names, 2)))
+    np.testing.assert_array_equal(got, np.stack(arrs[::2]).astype(np.float32) / 127.5 - 1.0)

@@ -341,7 +341,13 @@ def _jax_stage_a_g_loss(jcfg, dcfg, hp, d_params, z, jc, key=None):
         g_view = hp.view_lambda * j_gan.viewpoints_loss(fake_view, jc.viewpoint)
         eik, msurf = j_geo.eikonal_loss(out.eikonal_term, out.sdf, beta=hp.min_surf_beta)
         loss = g_gan + g_view + hp.eikonal_lambda * eik + hp.min_surf_lambda * msurf
-        return loss, (g_gan, hp.eikonal_lambda * eik, hp.min_surf_lambda * msurf)
+        sparsity = jnp.zeros(())
+        if hp.sparsity_lambda > 0:
+            sparsity = hp.sparsity_lambda * j_geo.occupancy_sparsity_loss(
+                out.sdf, gp["renderer"]["sigmoid_beta"])
+            loss = loss + sparsity
+        return loss, (g_gan, hp.eikonal_lambda * eik, hp.min_surf_lambda * msurf, sparsity,
+                      1.0 - jnp.mean(out.mask))
     return loss_fn
 
 
@@ -365,7 +371,7 @@ def test_stage_a_g_loss_and_every_grad_match_jax(stage_a, variant):
         kuv, kt = jax.random.split(ekey)
         draws = (_t(jax.random.uniform(kuv, (BATCH, 32, 2))),
                  _t(jax.random.uniform(kt, (BATCH, 32))))
-    (jl, (jg_gan, jeik, jms)), jgrads = jax.value_and_grad(
+    (jl, (jg_gan, jeik, jms, _, _)), jgrads = jax.value_and_grad(
         _jax_stage_a_g_loss(jcfg, stage_a["dcfg_j"], hp, d_params, jnp.asarray(z), jc, key),
         has_aux=True)(params)
     g = _port_g(params, pcfg)
@@ -377,6 +383,41 @@ def test_stage_a_g_loss_and_every_grad_match_jax(stage_a, variant):
     np.testing.assert_allclose(m["g_eikonal"].item(), float(jeik), rtol=1e-4)
     np.testing.assert_allclose(m["g_minimal_surface"].item(), float(jms), rtol=1e-4, atol=1e-7)
     assert float(jeik) > 0
+    _assert_grads(g, _grads(loss, g), jax_params_to_state_dict(jgrads, pcfg), rtol=1e-3)
+
+
+def test_stage_a_g_loss_of_the_64_recipe_matches_jax(stage_a):
+    """The options of ``configs/64res/synthetic_64_sdf_solid_eik.yaml`` that
+    the other cases leave out: ``bg_mode: gray``, ``view_independent`` and
+    the occupancy sparsity term (``sparsity_lambda`` 0.1), under the
+    subsampled eikonal; the loss, each term, fg_mass and every G gradient
+    against ``jax.grad``."""
+    rkw = dict(remat=False, eikonal_subsample=32, perturb=0.0, bg_mode="gray",
+               view_independent=True)
+    jcfg, pcfg = _configs_a(**rkw)
+    params, d_params = stage_a["params"], stage_a["d_params"]
+    hp = j_steps.TrainHParams(batch=BATCH, style_dim=STYLE, sparsity_lambda=0.1)
+    jc, pc = _cams()
+    z = _z(seed=16)
+    key = jax.random.PRNGKey(17)
+    ekey = jax.random.split(jax.random.split(key)[0], 3)[2]
+    kuv, kt = jax.random.split(ekey)
+    draws = (_t(jax.random.uniform(kuv, (BATCH, 32, 2))),
+             _t(jax.random.uniform(kt, (BATCH, 32))))
+    (jl, (jg_gan, jeik, jms, jsp, jfg)), jgrads = jax.value_and_grad(
+        _jax_stage_a_g_loss(jcfg, stage_a["dcfg_j"], hp, d_params, jnp.asarray(z), jc, key),
+        has_aux=True)(params)
+    g = _port_g(params, pcfg)
+    d = _port_d(d_params, stage_a["dcfg_p"])
+    loss, m = steps.stage_a_g_loss(g, d, pcfg, stage_a["dcfg_p"], steps.TrainHParams(
+        batch=BATCH, style_dim=STYLE, sparsity_lambda=0.1),
+        steps.StepInputs(_t(z), pc, eikonal_draws=draws))
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-4)
+    for name, want in (("g", jg_gan), ("g_eikonal", jeik), ("g_sparsity", jsp),
+                       ("fg_mass", jfg)):
+        np.testing.assert_allclose(m[name].item(), float(want), rtol=1e-4, err_msg=name)
+    np.testing.assert_allclose(m["g_minimal_surface"].item(), float(jms), rtol=1e-4, atol=1e-7)
+    assert float(jsp) > 0 and float(jeik) > 0
     _assert_grads(g, _grads(loss, g), jax_params_to_state_dict(jgrads, pcfg), rtol=1e-3)
 
 
