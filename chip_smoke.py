@@ -173,7 +173,27 @@ non-zero with no ``ok`` line:
              the f32 field kernel alone at that shape beside its plain
              version and bound; marching cubes on a sphere made on the card
              at 128^3 (a closed mesh; host seconds); the phase's wall time.
-10. bench   - ``python -m sdface_gan_tpu_torch.bench`` and ``... .bench_ngp`` at
+10. train_stage_c - stage C over train_cli's artifacts, in its directory:
+             train_stage_c_parity, one E step per encoder on the card against
+             the CPU (the VAE at 64^2 with injected eps; pSp at 256^2 with
+             the ID and LPIPS terms on random weights and injected mean
+             styles; small generators, batch 2, f32; loss rel <= 1e-4, every
+             encoder gradient <= 1e-3 of its norm, under ``masked_parity``'s
+             rule with the encoders' ReLU / PReLU / leaky-ReLU kinks too);
+             the E-step ms (CUDA events, median after the first of 5),
+             images/s and peak memory (<= 80 GB) of each encoder at batch 8,
+             256^2, against train_cli's flagship generator (pSp with ID and
+             LPIPS), one pSp step profiled (top device operations); one VAE E
+             step against train_cli's NGP generator, counted and profiled:
+             hash_encode_kernel and neither K1 nor K2 (the frozen renderer);
+             then ``python -m sdface_gan_tpu_torch.train ... --vae 1`` and
+             ``--psp 1`` (weight archives of random ID / LPIPS nets) and
+             ``--vae 1`` under the NGP yaml, at once, 3 iterations each:
+             stages A and B skipped (artifacts untouched), ``encoder`` /
+             ``encoder_psp`` written, every loss finite; and a ``--vae 1``
+             run cut by ``--exit-after 1`` (exit 3) that the next run
+             resumes at step + 1.
+11. bench   - ``python -m sdface_gan_tpu_torch.bench`` and ``... .bench_ngp`` at
              their defaults (the flagship at batch 32; the upstream hash grid,
              stage-A NGP at batch 4, three NGP serving grids at batch 8), one
              after the other: exit 0, finite positive values, the card named,
@@ -184,12 +204,12 @@ non-zero with no ``ok`` line:
              by name, the hash-grid bench's functions hash_encode and K1,
              the packed serving arm table_gather and hash_encode; no plain
              field or plain encode on the card.
-11. train_64 - ``scripts/torch_convergence_run.py`` at 2 sphere-init steps and
+12. train_64 - ``scripts/torch_convergence_run.py`` at 2 sphere-init steps and
              3 iterations per stage (a 64-image store, a 64-image eval): the
              64^2 configs' path (store, train, both probes, sdf_mesh, eval)
              on the card, every loss finite, both verdicts, a mesh, a finite
              FID.
-12. the ``kernels`` line (launches of every phase's counted runs: the
+13. the ``kernels`` line (launches of every phase's counted runs: the
              bench processes report theirs), then the nvidia-smi line, then
              the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32: this process
@@ -1628,38 +1648,60 @@ def train(results: dict) -> None:
 
 @contextlib.contextmanager
 def leaky_relu_masks(record=None, replay=None, flips=None):
-    """The leaky-ReLU masks of the mapping network and the discriminators
-    (``fused_leaky_relu``): appended to ``record`` in call order, or taken
-    from the front of ``replay`` in the same order, counting in ``flips``
-    the units whose own mask differs ({"flipped": n, "units": n})."""
+    """The masks of the port's kinked activations: the mapping network's
+    and the discriminators' ``fused_leaky_relu`` and ``torch.nn.functional``'s
+    ``relu``, ``prelu`` and ``leaky_relu`` (the encoders'): appended to
+    ``record`` in call order, or taken from the front of ``replay`` in the
+    same order, counting in ``flips`` the units whose own mask differs
+    ({"flipped": n, "units": n}).  Each keeps its function's own side at an
+    exact 0 (``x >= 0`` for ``fused_leaky_relu``, ``x > 0`` for torch's), so
+    only the masks' source differs from an unpatched run."""
     import torch
+    import torch.nn.functional as F
 
     from sdface_gan_tpu_torch.models import discriminator, stylegan2
     from sdface_gan_tpu_torch.ops.fused_act import SQRT2
 
     original = discriminator.fused_leaky_relu
+    originals = {name: getattr(F, name) for name in ("relu", "prelu", "leaky_relu")}
     if flips is not None:
         flips.update(flipped=0, units=0)
 
-    def fn(x, bias=None, negative_slope=0.2, scale=SQRT2):
-        if bias is not None:
-            x = x + bias.reshape((1, -1) + (1,) * (x.ndim - 2))
-        mask = x >= 0
+    def masked(x, strict=False):
+        mask = x > 0 if strict else x >= 0
         if replay is not None:
             own, mask = mask, replay.pop(0).to(x.device)
             flips["flipped"] += int((own != mask).sum())
             flips["units"] += own.numel()
         if record is not None:
             record.append(mask)
-        return scale * torch.where(mask, x, negative_slope * x)
+        return mask
+
+    def fn(x, bias=None, negative_slope=0.2, scale=SQRT2):
+        if bias is not None:
+            x = x + bias.reshape((1, -1) + (1,) * (x.ndim - 2))
+        return scale * torch.where(masked(x), x, negative_slope * x)
+
+    def relu(x, inplace=False):
+        return torch.where(masked(x, True), x, torch.zeros_like(x))
+
+    def prelu(x, weight):
+        w = weight.reshape((1, -1) + (1,) * (x.ndim - 2)) if x.ndim > 1 else weight
+        return torch.where(masked(x, True), x, w * x)
+
+    def leaky_relu(x, negative_slope=0.01, inplace=False):
+        return torch.where(masked(x, True), x, negative_slope * x)
 
     for module in (discriminator, stylegan2):
         module.fused_leaky_relu = fn
+    F.relu, F.prelu, F.leaky_relu = relu, prelu, leaky_relu
     try:
         yield
     finally:
         for module in (discriminator, stylegan2):
             module.fused_leaky_relu = original
+        for name, f in originals.items():
+            setattr(F, name, f)
 
 
 def masked_parity(phase: str, steps: dict, tolerances: dict) -> dict:
@@ -2025,6 +2067,320 @@ def train_cli(results: dict, smi: str) -> None:
              exit_after_rc=cut["rc"], resume_rc=resume["rc"])
         # the evaluation and geometry tools over the artifacts just trained
         evaluate(results, smi, td)
+        # and stage C over them
+        train_stage_c(results, smi, td)
+
+
+# The train_stage_c phase: stage C over train_cli's artifacts.
+STAGE_C_TOLERANCES = {"vae": (1e-4, 1e-3), "psp": (1e-4, 1e-3)}
+STAGE_C_STEPS = 5  # timed E steps per encoder (median after the first)
+STAGE_C_CUT_ITERS = 40  # --exit-after 1 cuts well before this
+
+
+def stage_c_parity() -> dict:
+    """One E step per encoder, loss and every encoder gradient on the card
+    against the CPU from the same weights and inputs, f32, TF32 off, the
+    generator's forward deterministic, held by ``masked_parity``'s rule
+    (the encoders' ReLU / PReLU / leaky-ReLU kinks included), both at the
+    256^2 input the CLI trains on, against one small generator (batch 2,
+    16^2 thumbs, 24 samples, depth 3, width 64, style 256, 256^2 decoder):
+    the VAE (z 256, injected eps; its fc the full 262,144 -> 1,024 product)
+    and pSp with the ID and LPIPS terms on (random weights) and injected
+    mean styles."""
+    import copy
+
+    import torch
+
+    from sdface_gan_tpu_torch.encoder import (
+        LPIPS,
+        IRSEBackbone,
+        LossUtils,
+        PSPConfig,
+        PSPEncoder,
+        VAEEncoder,
+        VAEEncoderConfig,
+    )
+    from sdface_gan_tpu_torch.geometry import CameraParams, generate_camera_params
+    from sdface_gan_tpu_torch.models import Generator, GeneratorConfig, RendererConfig
+    from sdface_gan_tpu_torch.training.encoder_loop import EncoderInputs, encoder_loss
+
+    batch, res = 2, 16
+    seed = torch.Generator().manual_seed
+    rkw = dict(type="sdf", out_im_res=res, n_samples=SAMPLES, width=64, depth=3,
+               force_background=False)
+    gcfg = GeneratorConfig(size=256, style_dim=256, full_pipeline=True, freeze_renderer=True,
+                           channel_base=128, renderer=RendererConfig(style_dim=256, **rkw))
+    ecfgs = {"vae": VAEEncoderConfig(img_size=256, z_size=256),
+             "psp": PSPConfig(img_size=256, style_count=gcfg.decoder.n_latent,
+                              renderer_style_dim=256)}
+    cpu = {"g": Generator(gcfg, "cpu", seed(2)).requires_grad_(False),
+           "e_vae": VAEEncoder(ecfgs["vae"], seed(3)), "e_psp": PSPEncoder(ecfgs["psp"], seed(4)),
+           "irse": IRSEBackbone(generator=seed(5)), "lpips": LPIPS(generator=seed(6))}
+    models = {"cpu": cpu, "cuda": {k: copy.deepcopy(m).cuda() for k, m in cpu.items()}}
+    losses = {dev: {"vae": LossUtils(), "psp": LossUtils(irse=m["irse"], lpips=m["lpips"])}
+              for dev, m in models.items()}
+    gen = seed(7)
+    cams = generate_camera_params(res, gen, batch=batch, device="cpu")
+    data = {"vae": (torch.rand((batch, 256, 256, 3), generator=gen) * 2 - 1,
+                    torch.rand((batch, res, res, 3), generator=gen) * 2 - 1,
+                    torch.randn((batch, 256), generator=gen)),
+            "psp": (torch.rand((batch, 256, 256, 3), generator=gen) * 2 - 1,
+                    torch.rand((batch, res, res, 3), generator=gen) * 2 - 1, None)}
+    avg = (0.1 * torch.randn((1, 256), generator=gen), 0.1 * torch.randn((1, 512), generator=gen))
+    metrics = {}
+
+    def step(kind, dev):
+        m = models[dev]
+        to = lambda t: None if t is None else t.to(dev)  # noqa: E731
+        imgs, thumbs, eps = data[kind]
+        inputs = EncoderInputs(to(imgs), to(thumbs), CameraParams(*map(to, cams)), eps=to(eps))
+        loss, logged = encoder_loss(m[f"e_{kind}"], m["g"], gcfg, ecfgs[kind],
+                                    losses[dev][kind], inputs,
+                                    latent_avg=tuple(map(to, avg)) if kind == "psp" else None)
+        if dev == "cuda":
+            metrics[kind] = {k: v.item() for k, v in logged.items()}
+        return loss, m[f"e_{kind}"], None
+
+    with torch.enable_grad():
+        out = masked_parity("train_stage_c_parity",
+                            {k: functools.partial(step, k) for k in ("vae", "psp")},
+                            STAGE_C_TOLERANCES)
+    for kind, rec in out.items():
+        rec["metrics"] = metrics[kind]
+    check({"e_id", "e_lpips"} <= set(metrics["psp"]), "the pSp parity step ran ID and LPIPS")
+    emit(phase="train_stage_c_parity", tolerances=STAGE_C_TOLERANCES, **out)
+    return out
+
+
+def stage_c_generator(td: str, config: str, exp: str):
+    """The frozen ``full_pipeline`` generator that train_cli trained under
+    ``config``, resolved as the train entry's stage C resolves it."""
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.build import generator_config, stage_options
+    from sdface_gan_tpu_torch.config.yaml_config import default_config_path
+    from sdface_gan_tpu_torch.utils.checkpoints import load_generator
+
+    cfg = load_config(os.path.join(HERE, config), default_config_path())
+    gcfg = generator_config(stage_options(cfg, False, batch=CLI_BATCH), stage_a=False)
+    g = load_generator(os.path.join(td, "out", exp), "full_pipeline", gcfg, device="cuda")
+    return gcfg, g.requires_grad_(False)
+
+
+def stage_c_steps(gcfg, g, kind: str, loss_utils):
+    """An encoder of ``kind`` for ``g`` at the CLI's batch and image size (with
+    its optimizer), and a function running E step i (inputs from (0, "C", i))."""
+    import torch
+
+    from sdface_gan_tpu_torch.encoder import PSPConfig, PSPEncoder, VAEEncoder, VAEEncoderConfig
+    from sdface_gan_tpu_torch.models import mean_latent
+    from sdface_gan_tpu_torch.training.encoder_loop import encoder_step, sample_encoder_inputs
+    from sdface_gan_tpu_torch.training.loop import _generator
+    from sdface_gan_tpu_torch.training.optim import encoder_optimizer
+
+    dev = torch.device("cuda")
+    if kind == "psp":
+        ecfg = PSPConfig(img_size=CLI_SIZE, style_count=gcfg.decoder.n_latent,
+                         renderer_style_dim=gcfg.style_dim)
+        e = PSPEncoder(ecfg).cuda()
+        with torch.no_grad():
+            latent_avg = mean_latent(g, torch.Generator(device=dev).manual_seed(2))
+    else:
+        ecfg = VAEEncoderConfig(img_size=CLI_SIZE, z_size=gcfg.style_dim)
+        e, latent_avg = VAEEncoder(ecfg).cuda(), None
+    opt = encoder_optimizer(e.parameters(), vae=kind == "vae")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    imgs = torch.rand((CLI_BATCH, CLI_SIZE, CLI_SIZE, 3), device=dev, generator=gen) * 2 - 1
+    res = gcfg.renderer.out_im_res
+    thumbs = torch.rand((CLI_BATCH, res, res, 3), device=dev, generator=gen) * 2 - 1
+
+    def run(i):
+        inputs = sample_encoder_inputs(imgs, thumbs, res, _generator(dev, 0, "C", i))
+        with torch.enable_grad():
+            return encoder_step(e, g, opt, gcfg, ecfg, loss_utils, inputs,
+                                latent_avg=latent_avg)
+    return e, run
+
+
+def stage_c_timing(td: str) -> dict:
+    """E-step ms (CUDA events, median after the first of ``STAGE_C_STEPS``),
+    images/s and peak memory of each encoder at batch 8, 256^2, against the
+    flagship generator train_cli trained: the VAE with L2 alone (no weights
+    given), pSp with the ID and LPIPS terms (random weights); then one pSp E
+    step profiled, its top device operations."""
+    import gc
+    import math
+
+    import torch
+
+    from sdface_gan_tpu_torch.encoder import LPIPS, IRSEBackbone, LossUtils
+    from sdface_gan_tpu_torch.training.loop import _timed
+
+    gcfg, g = stage_c_generator(td, CLI_CONFIG, CLI_EXP)
+    seed = torch.Generator().manual_seed
+    out = {}
+    for kind in ("vae", "psp"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        lu = (LossUtils(irse=IRSEBackbone(generator=seed(21)).cuda(),
+                        lpips=LPIPS(generator=seed(22)).cuda()) if kind == "psp" else LossUtils())
+        torch.cuda.reset_peak_memory_stats()
+        e, run = stage_c_steps(gcfg, g, kind, lu)
+        ms = []
+        for i in range(STAGE_C_STEPS):
+            m, elapsed = _timed(torch.device("cuda"), functools.partial(run, i))
+            ms.append(elapsed())
+            for k, v in m.items():
+                check(math.isfinite(v.item()), f"stage C {kind} E step {i}: {k} finite")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(peak <= 80.0, f"stage C {kind} at batch {CLI_BATCH}: peak {peak:.1f} GB <= 80")
+        median = statistics.median(ms[1:])
+        out[kind] = dict(batch=CLI_BATCH, image_size=CLI_SIZE, e_ms=ms, e_ms_median=median,
+                         images_per_s=CLI_BATCH / (median / 1e3), peak_memory_gb=peak,
+                         losses=sorted(m), encoder_params=sum(p.numel() for p in e.parameters()),
+                         encoder_tensors=len(list(e.parameters())),
+                         styles=getattr(e.cfg, "style_count", None))
+        if kind == "psp":
+            launches, names, _ = profiled(functools.partial(run, STAGE_C_STEPS))
+            total = sum(us for us, _ in names.values())
+            check(total > 0, "the pSp E step profile holds device events")
+            top = sorted(names.items(), key=lambda kv: -kv[1][0])[:10]
+            out["psp_profile"] = dict(device_ms_total=total / 1e3, kernels=len(names),
+                                      top=[(k[:100], us / 1e3, n) for k, (us, n) in top])
+        del e, run, lu
+    return out
+
+
+def stage_c_ngp_step(td: str) -> dict:
+    """One VAE E step against train_cli's NGP generator (the tuned grid),
+    counted and profiled: its frozen renderer runs the ``hash_encode``
+    kernel and neither gradient kernel (K1 / K2), and no plain encode runs
+    on the card."""
+    from sdface_gan_tpu_torch.encoder import LossUtils
+
+    gcfg, g = stage_c_generator(td, CLI_NGP_CONFIG, CLI_NGP_EXP)
+    check(gcfg.renderer.type == "ngp", "the NGP yaml resolves to an NGP generator")
+    _, run = stage_c_steps(gcfg, g, "vae", LossUtils())
+    run(0)  # warm
+    launches, names, plain = profiled(functools.partial(run, 1),
+                                      want=(HASH_KERNEL_ROWS["hash_encode"],))
+    check(launches["hash_encode"] > 0 and any(HASH_KERNEL_ROWS["hash_encode"] in k
+                                              for k in names),
+          f"the NGP E step launched hash_encode ({launches}) and the profile shows it")
+    for kname in ("hash_encode_backward", "hash_encode_double_backward"):
+        check(launches[kname] == 0 and not any(HASH_KERNEL_ROWS[kname] in k for k in names),
+              f"the NGP E step launched no {kname} (frozen renderer)")
+    check(not plain, f"no plain field or encode on the card in the NGP E step: {plain}")
+    return dict(config=CLI_NGP_CONFIG, launches={k: v for k, v in launches.items() if v},
+                hash_kernel_device_ms={k: sum(us for key, (us, _) in names.items()
+                                              if row in key) / 1e3
+                                       for k, row in HASH_KERNEL_ROWS.items()})
+
+
+def _stage_c_rows(enc_dir: str, what: str, steps: list) -> list:
+    from sdface_gan_tpu_torch.utils.checkpoints import checkpoint_exists
+
+    check(checkpoint_exists(enc_dir, "encoder"), f"{what}: the encoder artifact written")
+    rows = _train_rows(os.path.join(enc_dir, "encoder_metrics.jsonl"))
+    _finite_losses(rows, what)
+    check([r["step"] for r in rows] == steps and all("e_ms" in r for r in rows),
+          f"{what}: steps {steps} logged with e_ms")
+    return rows
+
+
+def train_stage_c(results: dict, smi: str, td: str) -> None:
+    """Stage C on the card over train_cli's artifacts, in its directory:
+    the parity of both E steps, their time and memory at full width (and a
+    profiled pSp step), an NGP E step by kernel, then the train entry:
+    ``--vae 1`` and ``--psp 1`` (with two weight archives of random ID and
+    LPIPS nets) and ``--vae 1`` under the NGP yaml, each skipping stages A
+    and B, 3 iterations; and a ``--vae 1`` run cut by ``--exit-after 1``
+    (exit 3) that the next run resumes at step + 1."""
+    import gc
+
+    import torch
+
+    from sdface_gan_tpu_torch.encoder import LPIPS, IRSEBackbone
+    from sdface_gan_tpu_torch.encoder.lpips import ALEX_CONV_IDS
+    from sdface_gan_tpu_torch.ops import _ext
+    from sdface_gan_tpu_torch.utils.checkpoints import latest_checkpoint_step
+
+    t0 = time.perf_counter()
+    parity = stage_c_parity()
+    timing = stage_c_timing(td)
+    emit(phase="train_stage_c_timing", nvidia_smi=smi, **timing)
+    _ext.reset_launch_counts()
+    ngp = stage_c_ngp_step(td)
+    emit(phase="train_stage_c_ngp", nvidia_smi=smi, **ngp)
+    gc.collect()
+    torch.cuda.empty_cache()  # leave the card to the train processes
+
+    # random ID / LPIPS nets in the archive formats --irse_weights and
+    # --lpips_weights read (model_ir_se50.pth; {"alex": features.*, "lin": lin*})
+    seed = torch.Generator().manual_seed
+    irse_path, lpips_path = os.path.join(td, "irse_random.pth"), os.path.join(td, "lpips.pth")
+    torch.save(IRSEBackbone(generator=seed(31)).state_dict(), irse_path)
+    lp = LPIPS(generator=seed(32))
+    torch.save({"alex": {f"features.{cid}.{w}": lp.alex.features[str(cid)].state_dict()[w]
+                         for cid in ALEX_CONV_IDS for w in ("weight", "bias")},
+                "lin": {f"lin{i}.model.1.weight": lp.lins[f"lin{i}"].model[1].weight.detach()
+                        for i in range(5)}}, lpips_path)
+
+    base = ["--sdf", "1", "--dataset_path", "store", *CLI_TRAIN_FLAGS]
+    out, ngp_out = os.path.join(td, "out", CLI_EXP), os.path.join(td, "out", CLI_NGP_EXP)
+    before = {k: os.stat(os.path.join(d, f"{n}.pt")).st_mtime_ns
+              for k, (d, n) in {"vr": (os.path.join(out, "volume_renderer"), "vol_renderer"),
+                                "fp": (out, "full_pipeline"), "ngp": (ngp_out, "full_pipeline")
+                                }.items()}
+    runs = run_modules_together({
+        "vae": [("train", ["--config", CLI_CONFIG, "--iters", "3", "--vae", "1", *base])],
+        "psp": [("train", ["--config", CLI_CONFIG, "--iters", "3", "--psp", "1",
+                           "--irse_weights", irse_path, "--lpips_weights", lpips_path, *base])],
+        "ngp": [("train", ["--config", CLI_NGP_CONFIG, "--iters", "3", "--vae", "1", *base])],
+    }, td)
+    after = {k: os.stat(os.path.join(d, f"{n}.pt")).st_mtime_ns
+             for k, (d, n) in {"vr": (os.path.join(out, "volume_renderer"), "vol_renderer"),
+                               "fp": (out, "full_pipeline"), "ngp": (ngp_out, "full_pipeline")
+                               }.items()}
+    check(before == after, "stages A and B skipped: their artifacts untouched")
+    for kind, r in runs.items():
+        check("sphere init" not in r["stdout"] and "initialized renderer" not in r["stdout"],
+              f"train --{kind}: no stage A or B ran")
+    check("loaded ArcFace ID-loss weights" in runs["psp"]["stdout"]
+          and "loaded LPIPS weights" in runs["psp"]["stdout"]
+          and "warm-started" in runs["psp"]["stdout"], "train --psp read both archives")
+    rows = {"vae": _stage_c_rows(os.path.join(out, "encoder"), "train --vae 1", [0, 1, 2]),
+            "psp": _stage_c_rows(os.path.join(out, "encoder_psp"), "train --psp 1", [0, 1, 2]),
+            "ngp": _stage_c_rows(os.path.join(ngp_out, "encoder"), "train --vae 1 (NGP)",
+                                 [0, 1, 2])}
+    check(all("e_id" in r and "e_lpips" in r for r in rows["psp"]),
+          "train --psp logged the ID and LPIPS terms")
+    for kind, rs in rows.items():
+        for r in rs:
+            emit(phase="train", run=f"train_stage_c_{kind}", **r)
+
+    cut_cmd = ["--config", "cut.yaml", "--iters", str(STAGE_C_CUT_ITERS), "--vae", "1", *base]
+    cut = run_module("train", cut_cmd + ["--exit-after", "1"], td, expect_rc=3)
+    cut_dir = os.path.join(td, "out", "smoke_cut", "encoder")
+    cut_step = latest_checkpoint_step(cut_dir)
+    check(cut_step is not None, "stage C's --exit-after left a models_* checkpoint")
+    resume = run_module("train", cut_cmd, td)
+    check(f"resumed encoder at step {cut_step + 1}" in resume["stdout"],
+          "the next stage-C run resumed at step + 1")
+    _stage_c_rows(cut_dir, "train --vae 1 resumed", list(range(STAGE_C_CUT_ITERS)))
+    rec = dict(parity={k: {m: v[m] for m in ("loss_rel_err", "worst_param",
+                                              "worst_grad_rel_err", "held_with")}
+                       for k, v in parity.items()},
+               e_step={k: {m: timing[k][m] for m in ("e_ms_median", "images_per_s",
+                                                      "peak_memory_gb")}
+                       for k in ("vae", "psp")},
+               psp_profile_top=timing["psp_profile"]["top"][:5], ngp=ngp,
+               cli_s={k: r["seconds"] for k, r in runs.items()},
+               cli_e_ms={k: statistics.median(r["e_ms"] for r in rs[1:])
+                         for k, rs in rows.items()},
+               exit_after_step=cut_step, exit_after_s=cut["seconds"],
+               resume_s=resume["seconds"], seconds=time.perf_counter() - t0)
+    results["train_stage_c"] = rec
+    emit(phase="train_stage_c", nvidia_smi=smi, **rec)
 
 
 # The evaluate phase: evaluation and geometry over train_cli's artifacts.
@@ -2751,7 +3107,8 @@ def main() -> int:
              source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
              replaces="sdface_gan_tpu/ops/hash_encoder.py:205",
              launches=results["ngp_launches"]["hash_encode"] + ngp_eval["hash_encode"]
-             + benched["hash_encode"],
+             + benched["hash_encode"]
+             + results["train_stage_c"]["ngp"]["launches"]["hash_encode"],
              checked=True,
              max_abs_err=max(r["max_abs_err"] for r in encode_checks
                              if r["dtype"] == "float32"),

@@ -8,13 +8,16 @@ pipeline), with the same flags plus ``--device``.
 Stage A writes ``out/<exp>/volume_renderer/`` and is skipped when its
 ``vol_renderer`` exists; stage B writes ``out/<exp>/`` and is skipped when
 ``full_pipeline`` exists; ``--wod 1`` goes straight to stage B from stage
-A's ``sdf_init_models``.  A stage whose periodic ``models_*`` checkpoint
-exists resumes from it; ``--exit-after`` seconds saves and exits with code
-3.  Runs on ``--device cuda`` (the default; raises without a card) or
-``--device cpu``, with TF32 off so that f32 stays f32.  The NGP field
-trains by ``--ngp 1`` or by the yaml's ``rendering: type: ngp``.  Paths not
-yet ported raise ``NotImplementedError`` (``--sdf 0``, ``--vae``/``--psp``;
-see ROADMAP.md).
+A's ``sdf_init_models``.  ``--vae 1`` / ``--psp 1`` then run stage C, an
+inversion encoder against the frozen ``full_pipeline`` generator, into
+``out/<exp>/encoder/`` / ``encoder_psp/`` (the ID and LPIPS terms with
+``--irse_weights`` / ``--lpips_weights``).  A stage whose periodic
+``models_*`` checkpoint exists resumes from it; ``--exit-after`` seconds
+saves and exits with code 3.  Runs on ``--device cuda`` (the default;
+raises without a card) or ``--device cpu``, with TF32 off so that f32
+stays f32.  The NGP field trains by ``--ngp 1`` or by the yaml's
+``rendering: type: ngp``.  ``--sdf 0`` (the GIRAFFE and gan2d families) is
+not ported yet and raises ``NotImplementedError`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -82,9 +85,6 @@ def train_sdf(args, cfg) -> None:
     from .utils.checkpoints import checkpoint_exists
     from .utils.device import disable_tf32, resolve_device
 
-    if args.vae or args.psp:
-        raise NotImplementedError(
-            "--vae / --psp (stage C, the encoder) is not ported yet; see ROADMAP.md")
     device = resolve_device(args.device)
     disable_tf32()
 
@@ -136,6 +136,13 @@ def train_sdf(args, cfg) -> None:
                                     iters=args.iters or 300000, **schedule)
         finally:
             ds.close()
+
+    if args.vae or args.psp:
+        from .training.encoder_loop import train_encoder_stage
+
+        train_encoder_stage(args, cfg, out_base, iters=args.iters or 100000, device=device,
+                            exit_after=exit_after, save_every=args.save_every,
+                            sample_every=args.sample_every, log_every=args.log_every)
 
 
 if __name__ == "__main__":

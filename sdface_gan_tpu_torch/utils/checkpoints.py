@@ -2,8 +2,10 @@
 
 The names follow ``sdface_gan_tpu/utils/checkpoints.py``: periodic
 ``models_{step:07d}`` and the stage artifacts ``sdf_init_models``,
-``vol_renderer`` and ``full_pipeline``, each one file ``<name>.pt`` under
-the stage's directory holding a dict of state dicts and scalars.  A save
+``vol_renderer``, ``full_pipeline`` and stage C's ``encoder``, each one file
+``<name>.pt`` under the stage's directory holding a dict of state dicts and
+scalars (stage C's ``models_*``: ``{e, e_opt, step}``, the optimizer's
+state dict carrying Ranger's slow weights and step count).  A save
 writes a temporary file and renames it, so a cut run never leaves half a
 checkpoint.  ``load_generator`` builds a stored generator for the eval and
 geometry entries.  (The JAX package's orbax checkpoints are not read here.)

@@ -14,8 +14,10 @@ the reference ``g_ema`` names, which the port's ``Generator`` uses.
   load)
 
 Values are copied bit for bit, for every field type ('sdf', 'ngp', 'fc').
-The discriminators (``jax_disc_params_to_state_dict``) and the FID
-Inception (``jax_inception_params_to_state_dict``) have converters too.
+The discriminators (``jax_disc_params_to_state_dict``), the FID
+Inception (``jax_inception_params_to_state_dict``) and stage C's encoders
+and perceptual nets (``jax_{vae,psp,irse,lpips}_params_to_state_dict``)
+have converters too.
 """
 
 from __future__ import annotations
@@ -187,4 +189,110 @@ def jax_inception_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torc
     for block, kind in _INCEPTION_BLOCKS.items():
         for jax_name, torch_name in _INCEPTION_BRANCHES[kind].items():
             conv_bn(f"{block}.{torch_name}", params[block][jax_name])
+    return _tensors(sd)
+
+
+# --- the encoder family (stage C) -------------------------------------------
+
+def _conv_w(p) -> np.ndarray:
+    """HWIO [k, k, I, O] -> OIHW."""
+    return np.transpose(np.asarray(p["w"]), (3, 2, 0, 1))
+
+
+def _put_conv(sd: Dict[str, Any], prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _conv_w(p)
+    if "b" in p:
+        sd[f"{prefix}.bias"] = np.asarray(p["b"])
+
+
+def _put_linear(sd: Dict[str, Any], prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["w"]).T
+    if "b" in p:
+        sd[f"{prefix}.bias"] = np.asarray(p["b"])
+
+
+def _put_stat_bn(sd: Dict[str, Any], prefix: str, p) -> None:
+    """ir_se-50 BN {scale, bias, mean, var} -> ``StatNorm`` (nn.BatchNorm names)."""
+    for ours, theirs in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                         ("running_var", "var")):
+        sd[f"{prefix}.{ours}"] = np.asarray(p[theirs])
+    sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def jax_vae_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_vae_encoder`` tree -> the port's ``VAEEncoder`` state
+    dict, bit for bit.  The trunk's ``fc`` [h*w*c, 1024] (the JAX encoder
+    flattens (h, w, c)) becomes ``weight`` [1024, c*h*w] (the port flattens
+    (c, h, w))."""
+    sd: Dict[str, Any] = {}
+    for i, block in enumerate(params["blocks"]):
+        _put_conv(sd, f"blocks.{i}.conv", block["conv"])
+        sd[f"blocks.{i}.bn.weight"] = np.asarray(block["bn"]["scale"])
+        sd[f"blocks.{i}.bn.bias"] = np.asarray(block["bn"]["bias"])
+    w = np.asarray(params["fc"]["w"])
+    f = int(round((w.shape[0] // 256) ** 0.5))  # the last feature map is [f, f, 256]
+    sd["fc.weight"] = w.reshape(f, f, 256, -1).transpose(3, 2, 0, 1).reshape(w.shape[1], -1)
+    sd["fc_bn.weight"] = np.asarray(params["fc_bn"]["scale"])
+    sd["fc_bn.bias"] = np.asarray(params["fc_bn"]["bias"])
+    _put_linear(sd, "l_mu", params["l_mu"])
+    _put_linear(sd, "l_var", params["l_var"])
+    return _tensors(sd)
+
+
+def _irse_entries(sd: Dict[str, Any], prefix: str, params: Dict[str, Any]) -> None:
+    _put_conv(sd, f"{prefix}input_layer.0", params["input_conv"])
+    _put_stat_bn(sd, f"{prefix}input_layer.1", params["input_bn"])
+    sd[f"{prefix}input_layer.2.weight"] = np.asarray(params["input_prelu"]["alpha"])
+    for i, blk in enumerate(params["body"]):
+        pre = f"{prefix}body.{i}"
+        _put_stat_bn(sd, f"{pre}.res_layer.0", blk["res_bn1"])
+        _put_conv(sd, f"{pre}.res_layer.1", blk["conv1"])
+        sd[f"{pre}.res_layer.2.weight"] = np.asarray(blk["prelu"]["alpha"])
+        _put_conv(sd, f"{pre}.res_layer.3", blk["conv2"])
+        _put_stat_bn(sd, f"{pre}.res_layer.4", blk["res_bn2"])
+        _put_conv(sd, f"{pre}.res_layer.5.fc1", blk["se_fc1"])
+        _put_conv(sd, f"{pre}.res_layer.5.fc2", blk["se_fc2"])
+        if "shortcut_conv" in blk:
+            _put_conv(sd, f"{pre}.shortcut_layer.0", blk["shortcut_conv"])
+            _put_stat_bn(sd, f"{pre}.shortcut_layer.1", blk["shortcut_bn"])
+    _put_stat_bn(sd, f"{prefix}output_layer.0", params["out_bn"])
+    _put_linear(sd, f"{prefix}output_layer.3", params["out_fc"])  # NCHW flatten on both sides
+    _put_stat_bn(sd, f"{prefix}output_layer.4", params["out_bn1d"])
+
+
+def jax_irse_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_irse_backbone`` tree -> the port's ``IRSEBackbone`` state
+    dict under upstream's ``model_ir_se50`` names, bit for bit (the inverse
+    of the JAX ``import_irse_state``)."""
+    sd: Dict[str, Any] = {}
+    _irse_entries(sd, "", params)
+    return _tensors(sd)
+
+
+def jax_psp_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_psp_encoder`` tree {gse, proj} -> the port's
+    ``PSPEncoder`` state dict, bit for bit."""
+    sd: Dict[str, Any] = {}
+    gse = params["gse"]
+    _irse_entries(sd, "gse.backbone.", gse["backbone"])
+    for j, style in enumerate(gse["styles"]):
+        for k, conv in enumerate(style["convs"]):
+            _put_conv(sd, f"gse.styles.{j}.convs.{k}", conv)
+        _put_linear(sd, f"gse.styles.{j}.linear", style["linear"])
+    _put_conv(sd, "gse.latlayer1", gse["latlayer1"])
+    _put_conv(sd, "gse.latlayer2", gse["latlayer2"])
+    _put_linear(sd, "proj", params["proj"])
+    return _tensors(sd)
+
+
+def jax_lpips_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_lpips`` tree -> the port's ``LPIPS`` state dict
+    (``alex.features.{0,3,6,8,10}``, ``lins.lin{i}.model.1``), bit for bit."""
+    from ..encoder.lpips import ALEX_CONV_IDS
+
+    sd: Dict[str, Any] = {}
+    for cid, conv in zip(ALEX_CONV_IDS, params["convs"]):
+        _put_conv(sd, f"alex.features.{cid}", conv)
+    for i, lin in enumerate(params["lins"]):
+        _put_conv(sd, f"lins.lin{i}.model.1", lin)
     return _tensors(sd)

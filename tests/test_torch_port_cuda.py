@@ -623,6 +623,49 @@ def test_ngp_stage_a_step_on_the_card_launches_the_kernels(cuda, monkeypatch, re
         assert (a - b).norm() <= 1e-3 * b.norm() + 1e-6
 
 
+def test_ngp_stage_c_e_step_on_the_card(cuda):
+    """One VAE E step against a frozen NGP generator on the card: the
+    encode's forward launches and neither of its gradient kernels (the
+    frozen renderer runs without autograd), the generator takes no gradient,
+    and the loss and every encoder gradient agree with the CPU (loss rel
+    1e-4, each gradient within 1e-3 of its norm + 1e-6)."""
+    from sdface_gan_tpu_torch.encoder import LossUtils, VAEEncoder, VAEEncoderConfig
+    from sdface_gan_tpu_torch.geometry import CameraParams, generate_camera_params
+    from sdface_gan_tpu_torch.training.encoder_loop import EncoderInputs, encoder_loss
+
+    rkw = dict(type="ngp", out_im_res=8, n_samples=6, style_dim=16, width=16, ngp_num_levels=4,
+               ngp_level_dim=8, ngp_finest_res=64, ngp_log2_hashmap_size=12)
+    cfg = GeneratorConfig(size=16, style_dim=16, full_pipeline=True, freeze_renderer=True,
+                          channel_multiplier=1, renderer=RendererConfig(**rkw))
+    seed = torch.Generator().manual_seed
+    g = Generator(cfg, "cpu", seed(1)).requires_grad_(False)
+    e = VAEEncoder(VAEEncoderConfig(img_size=16, z_size=16), seed(2))
+    gen = seed(3)
+    data = (torch.rand((2, 16, 16, 3), generator=gen) * 2 - 1,
+            torch.rand((2, 8, 8, 3), generator=gen) * 2 - 1, torch.randn((2, 16), generator=gen))
+    cams = generate_camera_params(8, gen, batch=2, device="cpu")
+
+    def run(device):
+        gd, ed = copy.deepcopy(g).to(device), copy.deepcopy(e).to(device)
+        imgs, thumbs, eps = (t.to(device) for t in data)
+        inputs = EncoderInputs(imgs, thumbs, CameraParams(*[t.to(device) for t in cams]), eps)
+        loss, _ = encoder_loss(ed, gd, cfg, ed.cfg, LossUtils(), inputs)
+        grads = torch.autograd.grad(loss, list(ed.parameters()))
+        assert all(p.grad is None for p in gd.parameters())
+        return loss.item(), [t.cpu() for t in grads]
+
+    with torch.enable_grad():
+        _ext.reset_launch_counts()
+        lc, gc = run("cuda")
+        launches = dict(_ext.LAUNCHES)
+        lh, gh = run("cpu")
+    assert launches["hash_encode"] > 0, launches
+    assert launches["hash_encode_backward"] == launches["hash_encode_double_backward"] == 0
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    for a, b in zip(gc, gh):
+        assert (a - b).norm() <= 1e-3 * b.norm() + 1e-6
+
+
 # ---------------------------------------------------------------------------
 # Evaluation and geometry: the surface probe's field shape, the Inception,
 # frustum alignment, and the eval entry's launches

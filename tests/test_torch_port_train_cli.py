@@ -186,12 +186,13 @@ def test_wod_starts_stage_b_from_the_sphere_init(ws, monkeypatch):
 
 @pytest.mark.parametrize("case", ["sdf0", "vae", "psp"])
 def test_paths_not_ported_raise(ws, case):
-    """``--sdf 0`` and stage C raise before anything is written."""
+    """``--sdf 0`` raises before anything is written, with or without stage
+    C's flags: stage C is ported in the SDF flow only (it trains there, in
+    ``tests/test_torch_port_stage_c.py``)."""
     config = _write_config(ws, f"tiny_{case}")
     more = {"sdf0": [], "vae": ["--vae", "1"], "psp": ["--psp", "1"]}[case]
     args = _args(config, *more)
-    if case == "sdf0":
-        args[args.index("--sdf") + 1] = "0"
+    args[args.index("--sdf") + 1] = "0"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_cli.main(args)
     assert not (ws / "out" / f"tiny_{case}").exists()
