@@ -130,7 +130,8 @@ non-zero with no ``ok`` line:
              and D step of each counted and profiled (each hash kernel's
              device ms per step); stage B under (t), 3 iterations.
 8. train_cli - training from the command line, as a user runs it: 16
-             procedural 320 x 288 PNG images through ``python -m
+             procedural 320 x 288 PNG images and the committed image
+             fixtures (JPEG, BMP, palette / interlaced / 16-bit PNG) through ``python -m
              sdface_gan_tpu_torch.prepare_data --size 256`` (records, store
              bytes, seconds; the native record-store and PNG library built
              by g++ first); the loader's work for 20 batches of 8 (decode,
@@ -209,7 +210,26 @@ non-zero with no ``ok`` line:
              64^2 configs' path (store, train, both probes, sdf_mesh, eval)
              on the card, every loss finite, both verdicts, a mesh, a finite
              FID.
-13. the ``kernels`` line (launches of every phase's counted runs: the
+13. bridge_and_images - inside train_cli's directory, after train_stage_c:
+             every committed image of ``tests/fixtures/images/`` (JPEGs of
+             178 x 218 in 4:2:0, 4:2:2, 4:4:4, grey and with restart
+             markers; palette, interlaced and 16-bit PNG; BMP) decoded by
+             the port byte-equal to the PIL decode committed beside it, ms
+             per decode; 48 JPEGs through ``prepare_data --size 256``
+             (images/s); the committed JAX run (``tests/fixtures/jax_run/``)
+             imported: stage A's archive by ``python -m
+             sdface_gan_tpu_torch.import_jax_checkpoints`` from its yaml,
+             stage B's by ``import_jax_run``; its ``full_pipeline`` served by
+             ``SDFaceSampler.from_checkpoint`` in f32 through the field kernel
+             (width 64) with JAX's z, angles and truncation pair, within 2e-3
+             + IMAGE_TOL (rtol 2e-3, atol 2e-4) of JAX's images; its stage-B
+             ``models_0000002`` resumed for two iterations (resumed at step
+             3, finite losses, ``models_*`` written); ``train`` from JAX's
+             ``sdf_init_models`` (2 + 2 iterations); a VAE stage C (2
+             iterations) against JAX's generator; and train_cli's flagship
+             ``full_pipeline`` through ``from_checkpoint`` in bf16 at batch
+             8, bit-equal to a sampler built from the same state dict.
+14. the ``kernels`` line (launches of every phase's counted runs: the
              bench processes report theirs), then the nvidia-smi line, then
              the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32: this process
@@ -225,6 +245,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1953,15 +1974,20 @@ def train_cli(results: dict, smi: str) -> None:
         for i, img in enumerate(procedural_images(CLI_IMAGES, CLI_HW, seed=11)):
             with open(os.path.join(td, "imgs", f"{i:05d}.png"), "wb") as f:
                 f.write(encode_png(img))
+        # the committed JPEG, BMP and palette / interlaced / 16-bit PNG files
+        # too: stages A, B and C then train on a store holding decoded JPEGs
+        fixtures = image_fixtures()
+        for name in fixtures:
+            shutil.copy(os.path.join(IMAGE_FIXTURES, name), os.path.join(td, "imgs", name))
         store = os.path.join(td, "store")
         prep = run_module("prepare_data", ["imgs", "--out", "store", "--size", str(CLI_SIZE),
                                            "--n_worker", "8"], td)
         store_bytes = sum(os.path.getsize(os.path.join(store, n)) for n in os.listdir(store))
         ds = MultiResolutionDataset(store, CLI_SIZE, CLI_THUMB)
         records = len(ds)
-        check(records == CLI_IMAGES, f"{records} records in the store")
-        rec_store = dict(records=records, store_bytes=store_bytes, seconds=prep["seconds"],
-                         native_build_s=native_s, native_built=fresh)
+        check(records == CLI_IMAGES + len(fixtures), f"{records} records in the store")
+        rec_store = dict(records=records, fixture_files=len(fixtures), store_bytes=store_bytes,
+                         seconds=prep["seconds"], native_build_s=native_s, native_built=fresh)
         emit(phase="train_cli_store", **rec_store)
 
         # the loader's work, synchronously (decode, flip, HAMMING thumb, stack)
@@ -2069,6 +2095,8 @@ def train_cli(results: dict, smi: str) -> None:
         evaluate(results, smi, td)
         # and stage C over them
         train_stage_c(results, smi, td)
+        # then JAX's checkpoints and the image decoders
+        bridge_and_images(results, smi, td)
 
 
 # The train_stage_c phase: stage C over train_cli's artifacts.
@@ -2381,6 +2409,253 @@ def train_stage_c(results: dict, smi: str, td: str) -> None:
                resume_s=resume["seconds"], seconds=time.perf_counter() - t0)
     results["train_stage_c"] = rec
     emit(phase="train_stage_c", nvidia_smi=smi, **rec)
+
+
+# The bridge_and_images phase: JAX's checkpoints and the image decoders.
+IMAGE_FIXTURES = os.path.join(HERE, "tests", "fixtures", "images")
+JAX_FIXTURE = os.path.join(HERE, "tests", "fixtures", "jax_run")
+JAX_IMAGE_TOL = 2e-3  # serve_compare's card-vs-CPU bar, added to IMAGE_TOL's (rtol 2e-3, atol 2e-4)
+DECODE_REPEATS = 20
+JPEG_PREPARE_COPIES = 8  # the JPEG fixtures, this many times over, through prepare_data
+BRIDGE_BATCH, BRIDGE_RESUME_ITERS = 2, 2
+
+
+def image_fixtures() -> list:
+    """The committed image files (each with its PIL decode ``<name>.npy``)."""
+    return sorted(n for n in os.listdir(IMAGE_FIXTURES)
+                  if not n.endswith((".npy", ".py")))
+
+
+def decode_fixtures() -> dict:
+    """Every committed image decoded by the port on this host, byte-equal to
+    PIL's decode committed beside it; ms per decode (median of 20)."""
+    import numpy as np
+
+    from sdface_gan_tpu_torch.data.decode import decode_image
+
+    out = {}
+    for name in image_fixtures():
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+            data = f.read()
+        want = np.load(os.path.join(IMAGE_FIXTURES, name + ".npy"))
+        got = decode_image(data)
+        check(got.shape == want.shape and bool((got == want).all()),
+              f"{name}: the port's decode equals PIL's")
+        times = []
+        for _ in range(DECODE_REPEATS):
+            t0 = time.perf_counter()
+            decode_image(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict(shape=list(got.shape), bytes=len(data), ms=statistics.median(times))
+    return out
+
+
+def jax_fixture_configs():
+    """The JAX fixture's configs as the train entry builds them from its
+    yaml (stage B's channel table shrunk as the fixture script shrank it)."""
+    import numpy as np
+
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.yaml_config import default_config_path
+    from sdface_gan_tpu_torch.train import stage_configs
+    from sdface_gan_tpu_torch.training.encoder_loop import encoder_config
+    from sdface_gan_tpu_torch.utils.checkpoints import RunConfigs
+
+    cfg = load_config(os.path.join(JAX_FIXTURE, "jax_bridge.yaml"), default_config_path())
+    with np.load(os.path.join(JAX_FIXTURE, "samples.npz")) as f:
+        samples = {k: f[k] for k in f.files}
+    cb = int(samples["channel_base"])
+    gcfg, sd, hp = stage_configs(cfg, False)
+    stage_b = (dataclasses.replace(gcfg, channel_base=cb), dataclasses.replace(sd, channel_base=cb),
+               dataclasses.replace(hp, batch=BRIDGE_BATCH))
+    size = cfg["data"]["img_size"]
+    return samples, size, RunConfigs(stage_a=stage_configs(cfg, True), stage_b=stage_b,
+                                     vae=encoder_config(stage_b[0], size, False),
+                                     psp=encoder_config(stage_b[0], size, True))
+
+
+def bridge_and_images(results: dict, smi: str, td: str) -> None:
+    """JAX's checkpoints and the image decoders on the card's machine, in
+    train_cli's directory: the committed images decoded (byte-equal to the
+    PIL decodes committed beside them) and timed, the JPEG fixtures through
+    ``prepare_data``; the committed JAX run imported (stage A's archive by
+    ``python -m sdface_gan_tpu_torch.import_jax_checkpoints`` from its yaml,
+    stage B's by ``import_jax_run``); its ``full_pipeline`` served by
+    ``SDFaceSampler.from_checkpoint`` through the f32 field kernel with
+    JAX's z, angles and truncation pair, against JAX's images; its stage-B
+    ``models_0000002`` resumed by ``train_full_pipeline`` for two iterations
+    (resumed at step 3, finite losses, ``models_*`` written); the train
+    entry from JAX's imported ``sdf_init_models``; a VAE stage C against the
+    imported generator; and train_cli's own flagship ``full_pipeline``
+    through ``from_checkpoint`` (bf16, batch 8), bit-equal to a sampler
+    built from the same state dict in this process."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.yaml_config import default_config_path
+    from sdface_gan_tpu_torch.data import DataLoader, MultiResolutionDataset
+    from sdface_gan_tpu_torch.ops import _ext
+    from sdface_gan_tpu_torch.serving import SDFaceSampler
+    from sdface_gan_tpu_torch.train import stage_configs
+    from sdface_gan_tpu_torch.training.encoder_loop import train_encoder
+    from sdface_gan_tpu_torch.training.loop import train_full_pipeline
+    from sdface_gan_tpu_torch.utils.checkpoints import (
+        checkpoint_exists,
+        import_jax_run,
+        latest_checkpoint_step,
+        load_checkpoint,
+        load_generator,
+    )
+
+    t_phase = time.perf_counter()
+    decoded = decode_fixtures()
+    jpeg_ms = [r["ms"] for n, r in decoded.items() if n.endswith(".jpg")]
+    emit(phase="bridge_decode", nvidia_smi=smi, files=decoded,
+         jpeg_178x218_decode_ms_median=statistics.median(jpeg_ms))
+
+    jpegs = os.path.join(td, "jpegs")
+    os.makedirs(jpegs)
+    for k in range(JPEG_PREPARE_COPIES):
+        for name in image_fixtures():
+            if name.endswith(".jpg"):
+                shutil.copy(os.path.join(IMAGE_FIXTURES, name), os.path.join(jpegs, f"{k}_{name}"))
+    n_jpeg = len(os.listdir(jpegs))
+    prep = run_module("prepare_data", ["jpegs", "--out", "jpeg_store", "--size", str(CLI_SIZE),
+                                       "--n_worker", "8"], td)
+    ds = MultiResolutionDataset(os.path.join(td, "jpeg_store"), CLI_SIZE, CLI_THUMB)
+    check(len(ds) == n_jpeg, "prepare_data stored every JPEG")
+    ds.close()
+    rec_prepare = dict(jpegs=n_jpeg, size=CLI_SIZE, seconds=prep["seconds"],
+                       images_per_s=n_jpeg / prep["seconds"])
+    emit(phase="bridge_prepare_jpeg", nvidia_smi=smi, **rec_prepare)
+
+    # the committed JAX run, imported
+    samples, size, configs = jax_fixture_configs()
+    shutil.copy(os.path.join(JAX_FIXTURE, "jax_bridge.yaml"), os.path.join(td, "jax_bridge.yaml"))
+    cli_import = run_module("import_jax_checkpoints", [
+        "--src", os.path.join(JAX_FIXTURE, "stage_a"), "--config", "jax_bridge.yaml",
+        "--sdf", "1"], td)
+    jax_out = os.path.join(td, "out", "jax_bridge")
+    check(checkpoint_exists(os.path.join(jax_out, "volume_renderer"), "sdf_init_models"),
+          "import_jax_checkpoints wrote sdf_init_models where train looks")
+    stage_b_dir = os.path.join(td, "jax_stage_b")
+    t0 = time.perf_counter()
+    written = import_jax_run(os.path.join(JAX_FIXTURE, "stage_b"), stage_b_dir, configs)
+    import_s = time.perf_counter() - t0
+    check(len(written) == 2, "stage B's two archives imported")
+
+    gcfg, sd_cfg, hp = configs.stage_b
+    serve_cfg = dataclasses.replace(gcfg, renderer=dataclasses.replace(gcfg.renderer, perturb=0.0))
+    trunc = tuple(torch.from_numpy(samples[k]).cuda() for k in ("trunc_renderer", "trunc_decoder"))
+    _ext.reset_launch_counts()
+    sampler = SDFaceSampler.from_checkpoint(stage_b_dir, cfg=serve_cfg, batch=len(samples["z"]),
+                                            truncation=float(samples["truncation"]),
+                                            truncation_latent=trunc)
+    img = sampler.sample(z=samples["z"], azim=float(samples["azim"]),
+                         elev=float(samples["elev"])).float().cpu().numpy()
+    torch.cuda.synchronize()
+    jax_launches = dict(_ext.LAUNCHES)
+    check(jax_launches["siren_field"] >= 1, "the JAX model's request went through the field kernel")
+    want = samples["images"]
+    err = float(np.abs(img - want).max())
+    bar = JAX_IMAGE_TOL + 2e-4 + 2e-3 * np.abs(want)
+    check(img.shape == want.shape and bool(np.isfinite(img).all())
+          and bool((np.abs(img - want) <= bar).all()),
+          f"the card's images of JAX's full_pipeline within the bar of JAX's (max abs {err})")
+    serve = dict(batch=len(samples["z"]), width=gcfg.renderer.width, dtype="float32",
+                 max_abs_err_vs_jax=err, bar="2e-3 + 2e-4 + 2e-3 |jax|",
+                 launches=jax_launches["siren_field"])
+    emit(phase="bridge_serve_jax", nvidia_smi=smi, **serve)
+    del sampler
+
+    # stage B from JAX's models_0000002, two more iterations
+    store32 = os.path.join(td, "store32")
+    run_module("prepare_data", ["imgs", "--out", "store32", "--size", str(size),
+                                "--n_worker", "8"], td)
+    start = latest_checkpoint_step(stage_b_dir)
+    ds = MultiResolutionDataset(store32, resolution=size, nerf_resolution=gcfg.renderer.out_im_res)
+    buf = io.StringIO()
+    try:
+        with DataLoader(ds, batch_size=BRIDGE_BATCH, seed=0) as loader, \
+                contextlib.redirect_stdout(buf), torch.enable_grad():
+            train_full_pipeline(loader, gcfg, sd_cfg, hp, stage_b_dir,
+                                iters=start + 1 + BRIDGE_RESUME_ITERS, save_every=1,
+                                sample_every=0, log_every=1, device="cuda")
+    finally:
+        ds.close()
+    check(f"resumed full pipeline at step {start + 1}" in buf.getvalue(),
+          "stage B resumed JAX's models_* at step + 1")
+    rows = _train_rows(os.path.join(stage_b_dir, "full_pipeline_metrics.jsonl"))
+    _finite_losses(rows, "stage B resumed from JAX")
+    check([r["step"] for r in rows] == list(range(start + 1, start + 1 + BRIDGE_RESUME_ITERS))
+          and latest_checkpoint_step(stage_b_dir) == start + BRIDGE_RESUME_ITERS,
+          "the resumed iterations logged and their models_* written")
+    for r in rows:
+        emit(phase="train", run="bridge_stage_b_resume", **r)
+    resume = dict(resumed_at=start + 1, iterations=BRIDGE_RESUME_ITERS,
+                  step_ms=[r["d_ms"] + r["g_ms"] + r.get("path_ms", 0.0) for r in rows])
+
+    # the train entry from JAX's sphere init
+    entry = run_module("train", ["--config", "jax_bridge.yaml", "--sdf", "1", "--dataset_path",
+                                 "store32", "--batch", str(BRIDGE_BATCH), "--iters", "2",
+                                 "--log_every", "1", "--save_every", "1000",
+                                 "--sample_every", "1000"], td)
+    check("loaded sphere-initialized model" in entry["stdout"],
+          "train started stage A from JAX's imported sdf_init_models")
+    check(checkpoint_exists(jax_out, "full_pipeline"), "train finished stages A and B")
+    _finite_losses(_train_rows(os.path.join(jax_out, "volume_renderer", "vol_render_metrics.jsonl"))
+                   + _train_rows(os.path.join(jax_out, "full_pipeline_metrics.jsonl")),
+                   "train from JAX's sdf_init_models")
+
+    # stage C (the VAE) against JAX's imported generator
+    g_ema = load_generator(stage_b_dir, "full_pipeline", gcfg, device="cuda")
+    ds = MultiResolutionDataset(store32, resolution=size, nerf_resolution=gcfg.renderer.out_im_res)
+    enc_dir = os.path.join(td, "jax_stage_c")
+    try:
+        with DataLoader(ds, batch_size=BRIDGE_BATCH, seed=0) as loader, \
+                contextlib.redirect_stdout(io.StringIO()), torch.enable_grad():
+            train_encoder(loader, gcfg, g_ema, configs.vae, enc_dir, iters=2, log_every=1,
+                          sample_every=0, save_every=1000, val_n_sample=1, device="cuda")
+    finally:
+        ds.close()
+    c_rows = _stage_c_rows(enc_dir, "stage C against JAX's generator", [0, 1])
+    check(checkpoint_exists(enc_dir, "encoder"), "stage C wrote its encoder")
+    del g_ema
+
+    # train_cli's flagship artifact through from_checkpoint, bf16, batch 8
+    flagship = stage_configs(load_config(os.path.join(td, CLI_CONFIG), default_config_path()),
+                             False)[0]
+    out = os.path.join(td, "out", CLI_EXP)
+    _ext.reset_launch_counts()
+    a = SDFaceSampler.from_checkpoint(out, cfg=flagship, dtype=torch.bfloat16, batch=BATCH)
+    img_a = a.sample(seed=5)
+    torch.cuda.synchronize()
+    flagship_launches = dict(_ext.LAUNCHES)
+    del a
+    state = load_checkpoint(out, "full_pipeline", map_location="cuda")["g_ema"]
+    b = SDFaceSampler.from_state_dict(state, flagship, dtype=torch.bfloat16, batch=BATCH)
+    img_b = b.sample(seed=5)
+    check(img_a.dtype == torch.bfloat16 and torch.equal(img_a, img_b),
+          "from_checkpoint's bf16 images equal a sampler's from the same state dict")
+    check(flagship_launches["siren_field"] >= 1, "the flagship request launched the field kernel")
+    del b, state
+
+    rec = dict(decode={n: r["ms"] for n, r in decoded.items()},
+               jpeg_178x218_decode_ms_median=statistics.median(jpeg_ms),
+               prepare_jpeg=rec_prepare, import_cli_s=cli_import["seconds"],
+               import_stage_b_s=import_s, serve_jax=serve, stage_b_resume=resume,
+               train_entry_s=entry["seconds"],
+               stage_c_e_ms=[r["e_ms"] for r in c_rows],
+               flagship_from_checkpoint=dict(batch=BATCH, dtype="bfloat16", bit_equal=True,
+                                             launches=flagship_launches["siren_field"]),
+               launches=dict(siren_field_f32=jax_launches["siren_field"],
+                             siren_field=flagship_launches["siren_field"]),
+               seconds=time.perf_counter() - t_phase)
+    results["bridge_and_images"] = rec
+    emit(phase="bridge_and_images", nvidia_smi=smi, **rec)
 
 
 # The evaluate phase: evaluation and geometry over train_cli's artifacts.
@@ -3070,6 +3345,7 @@ def main() -> int:
     probe_shape = results["evaluate"]["checks"]["surface"]["field_at_probe_shape"]
     ngp_eval = results["evaluate"]["eval"]["ngp"]["launches"]
     benched = results["bench"]["launches"]
+    bridged = results["bridge_and_images"]["launches"]
     kernels = [
         dict(name="siren_field", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/siren_field.cu",
@@ -3077,7 +3353,7 @@ def main() -> int:
              kernel=bf16["kernel"], design=bf16["design"],
              launches=results["launches"]["siren_field"]
              + results["evaluate"]["eval"]["no_dump"]["bfloat16"]["launches"]
-             + benched["siren_field"], checked=True,
+             + benched["siren_field"] + bridged["siren_field"], checked=True,
              max_abs_err=checks[0]["bf16_max_abs_kernel_vs_plain"],
              f32_max_abs_err=checks[0]["f32_max_abs_err"],
              ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],
@@ -3088,7 +3364,8 @@ def main() -> int:
              kernel=f32["kernel"], design=f32["design"],
              launches=results["f32_launches"]["siren_field"]
              + results["evaluate"]["eval"]["dump"]["launches"]
-             + results["evaluate"]["eval"]["no_dump"]["float32"]["launches"], checked=True,
+             + results["evaluate"]["eval"]["no_dump"]["float32"]["launches"]
+             + bridged["siren_field_f32"], checked=True,
              max_abs_err=max(r["f32_max_abs_err"] for r in checks + f32_checks),
              ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
              bound_by=f32["bound_by"], library_ms=None,

@@ -1,12 +1,14 @@
 """Precompute real-image FID statistics (mu, sigma) to an .npz, port of the
 repository's ``calc_fid_stats.py``, with the same flags plus ``--device``.
 
-    python -m sdface_gan_tpu_torch.calc_fid_stats <png dir> --out stats.npz --img_size 256
+    python -m sdface_gan_tpu_torch.calc_fid_stats <image dir> --out stats.npz --img_size 256
 
 Writes the ``fid_file`` that ``eval`` reads (``mu``, ``sigma`` and the
 ``img_size`` the images were resized to, LANCZOS as PIL does).  The port
-reads PNG images; a directory holding another file (JPEG, WebP, BMP, or a
-``.npy`` array, which the JAX CLI cannot open either) raises before any work.
+reads PNG, baseline JPEG and uncompressed BMP as PIL decodes them; a
+directory holding another file (WebP, another JPEG kind, compressed BMP,
+or a ``.npy`` array, which the JAX CLI cannot open either) raises before
+any work.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import argparse
 def main(argv=None) -> int:
     """Returns the number of images scored."""
     p = argparse.ArgumentParser(description="Precompute FID stats with the PyTorch port.")
-    p.add_argument("images", type=str, help="directory of real PNG images")
+    p.add_argument("images", type=str, help="directory of real images (PNG, JPEG, BMP)")
     p.add_argument("--out", type=str, required=True, help="output .npz path")
     p.add_argument("--img_size", type=int, default=256)
     p.add_argument("--n_images", type=int, default=50000)

@@ -7,8 +7,10 @@ Each image's shorter side is resized to every requested size with LANCZOS
 (``png.py``) and stored under ``f"{size}-{idx:05d}"``, with a final
 ``length`` record.  Resizing fans out over a process pool; the single
 writer appends in order.  A folder is listed as the JAX package lists it
-(PNG, JPEG, WebP, BMP); the port reads PNG only among those, so a folder
-holding the others raises before anything is written.  ``.npy`` arrays
+(PNG, JPEG, WebP, BMP, by extension); each file is decoded by its content
+(``decode.py``: PNG, baseline JPEG, uncompressed BMP, as PIL decodes
+them), and a folder holding a file the port does not read (WebP, the
+other JPEG kinds, compressed BMP) raises before anything is written.  ``.npy`` arrays
 ([H, W] or [H, W, 3 or 4] uint8) are listed and read only on request
 (``npy=True``): the JAX package skips them.
 """
@@ -23,31 +25,42 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from ..native import RecordWriter
-from .png import decode_png, encode_png
+from .decode import check_image, decode_image
+from .png import encode_png
 from .resample import resize
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")  # the JAX package's listing
 
 
 def check_readable(path: str, npy: bool = False) -> None:
-    """Raise ``ValueError`` unless the port reads ``path``: a PNG, or a
-    ``.npy`` array when ``npy`` asks for it (``prepare_data`` only)."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext == ".png" or (npy and ext == ".npy"):
-        return
-    if ext == ".npy":
+    """Raise ``ValueError`` unless the port reads ``path``: an image whose
+    header :func:`check_image` accepts (PNG, baseline JPEG, uncompressed
+    BMP, by content), or a ``.npy`` array when ``npy`` asks for it
+    (``prepare_data`` only)."""
+    if os.path.splitext(path)[1].lower() == ".npy":
+        if npy:
+            return
         raise ValueError(f"{path}: .npy input is read only by prepare_data on request "
                          "(npy=True, or --npy on its command line); the JAX package reads "
                          "image files only")
-    raise ValueError(f"{path}: the port has no {ext} decoder (it reads PNG; JPEG, WebP and "
-                     "BMP input is a gap listed in ROADMAP.md)")
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        check_image(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 def load_image(path: str) -> np.ndarray:
-    """A PNG file -> [H, W, 3] uint8 RGB."""
-    check_readable(path)
+    """An image file (PNG, baseline JPEG or uncompressed BMP) -> [H, W, 3] uint8 RGB."""
+    if os.path.splitext(path)[1].lower() == ".npy":
+        check_readable(path)  # raises: arrays are read only by prepare_data, on request
     with open(path, "rb") as f:
-        return decode_png(f.read())
+        data = f.read()
+    try:
+        return decode_image(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 def load_array(path: str) -> np.ndarray:

@@ -3,7 +3,7 @@ KID of the full-pipeline EMA generator), with the same flags plus
 ``--device``.
 
     python -m sdface_gan_tpu_torch.eval --config configs/256res/ffhq_256_sdf.yaml \\
-        --n_images 5000 --real_dir <store or PNG dir>
+        --n_images 5000 --real_dir <store or image dir>
 
 Protocol (reference ``eval.py:87-167`` + ``README.md:44-53``): load
 ``out/<exp>/full_pipeline.pt``'s ``g_ema``, sample N identities (one random
@@ -43,7 +43,7 @@ def parse_args(argv=None):
     p.add_argument("--fid_file", type=str, default=None,
                    help=".npz with precomputed (mu, sigma) real stats")
     p.add_argument("--real_dir", type=str, default=None,
-                   help="record store or directory of real PNG images to score against")
+                   help="record store or directory of real images (PNG, JPEG, BMP) to score against")
     p.add_argument("--inception_weights", type=str, default=None,
                    help="pytorch-fid inception checkpoint for exact parity")
     p.add_argument("--no_fid", action="store_true")

@@ -1,10 +1,10 @@
 """Standalone FID between stored images and precomputed stats, port of the
 repository's ``eval_files.py``, with the same flags plus ``--device``.
 
-    python -m sdface_gan_tpu_torch.eval_files <images.npy or PNG dir> --fid_file stats.npz
+    python -m sdface_gan_tpu_torch.eval_files <images.npy or image dir> --fid_file stats.npz
 
 A ``.npy`` array may be NCHW or NHWC, uint8 (0-255) or float ([-1, 1]); a
-directory holds PNG images, scored at their own size.
+directory holds PNG, JPEG or BMP images, scored at their own size.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import itertools
 def image_batches(path: str, batch: int):
     """(batches of [n, H, W, 3] float32 in [-1, 1], H) for a ``.npy`` array
     (NCHW or NHWC; uint8 when its maximum exceeds 1.5) or a directory of
-    PNG images (scored at their own size)."""
+    images (scored at their own size)."""
     import numpy as np
 
     from .evaluation.real import dir_batches, list_image_files
@@ -37,7 +37,7 @@ def image_batches(path: str, batch: int):
 def main(argv=None) -> float:
     """Returns the FID."""
     p = argparse.ArgumentParser(description="Score FID for stored images with the PyTorch port.")
-    p.add_argument("images", type=str, help=".npy image array or a directory of PNG images")
+    p.add_argument("images", type=str, help=".npy image array or a directory of images")
     p.add_argument("--fid_file", type=str, required=True)
     p.add_argument("--batch", type=int, default=50)
     p.add_argument("--inception_weights", type=str, default=None)

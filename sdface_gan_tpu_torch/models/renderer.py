@@ -398,7 +398,7 @@ def render(
     elif return_eikonal and cfg.eikonal_mode != "vjp":
         raise NotImplementedError(
             f"eikonal_mode {cfg.eikonal_mode!r} is not ported: 'jvp' was a measured "
-            "negative in the JAX package (ROADMAP.md, queue 1 item 5); use 'vjp'")
+            "negative in the JAX package (ROADMAP.md, queue 1 item 8); use 'vjp'")
     elif return_eikonal:
         with torch.enable_grad():
             pts = pts.detach().requires_grad_(True)

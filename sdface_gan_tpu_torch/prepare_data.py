@@ -1,6 +1,7 @@
 """Dataset preparation CLI of the port, with the flags of the repository's
-``prepare_data.py``, plus ``--npy``: an image folder (PNG; ``.npy`` arrays
-too with ``--npy``) -> a multi-resolution record store keyed
+``prepare_data.py``, plus ``--npy``: an image folder (PNG, baseline JPEG,
+uncompressed BMP, read as PIL reads them; ``.npy`` arrays too with
+``--npy``) -> a multi-resolution record store keyed
 ``{size}-{idx:05d}``.
 
     python -m sdface_gan_tpu_torch.prepare_data <image dir> --out <store> --size 256

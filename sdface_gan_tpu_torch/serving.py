@@ -15,8 +15,10 @@ Example:
     imgs = sampler.sample(seed=0)              # [8, 256, 256, 3] in [-1, 1]
     imgs = sampler.sample(azim=0.3, elev=0.1)  # fixed viewpoint
 
-Not ported yet: the JAX sampler's ``mesh`` (data parallelism) and orbax
-``from_checkpoint``.
+``from_checkpoint`` serves a stored generator: the port's own checkpoints,
+or a JAX run's imported by ``python -m
+sdface_gan_tpu_torch.import_jax_checkpoints``.  Not ported yet: the JAX
+sampler's ``mesh`` (data parallelism).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .models.generator import (
 )
 from .models.siren import plain_encode
 from .ops.siren_kernel import pack_siren_field
+from .utils.checkpoints import load_generator
 from .utils.convert import jax_params_to_state_dict
 
 
@@ -103,6 +106,23 @@ class SDFaceSampler:
         """Build from a JAX generator parameter tree (numpy leaves)."""
         return cls.from_state_dict(jax_params_to_state_dict(params, cfg), cfg,
                                    device=device, dtype=dtype, **kwargs)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        out_dir: str,
+        name: str = "full_pipeline",
+        cfg: Optional[GeneratorConfig] = None,
+        device: Union[str, torch.device] = "cuda",
+        dtype: Optional[torch.dtype] = None,
+        **kwargs,
+    ) -> "SDFaceSampler":
+        """Serve ``g_ema`` of the checkpoint ``<out_dir>/<name>.pt``, built for
+        ``cfg`` (the default ``GeneratorConfig`` when None) on ``device``,
+        in f32 or cast to ``dtype``; the other keywords go to the sampler
+        (``batch``, ``truncation``, ``truncation_latent``, ...)."""
+        model = load_generator(out_dir, name, cfg or GeneratorConfig(), device=device)
+        return cls(model if dtype is None else model.to(dtype), **kwargs)
 
     def warmup(self) -> None:
         self.sample(seed=0)

@@ -73,13 +73,24 @@ def main(argv=None) -> None:
     train_sdf(args, cfg)
 
 
-def train_sdf(args, cfg) -> None:
+def stage_configs(cfg, stage_a: bool, ngp: bool = False, fc: bool = False, wod: bool = False,
+                  batch: int = 8):
+    """(GeneratorConfig, discriminator config, TrainHParams) of stage A
+    (``stage_a``) or stage B, as this entry trains them from a loaded yaml
+    and its flags."""
     from .config.build import (
         discriminator_configs,
         generator_config,
         stage_options,
         train_hparams,
     )
+
+    opt = stage_options(cfg, stage_a, ngp=ngp, fc=fc, wod=wod, batch=batch)
+    vrd_cfg, sd_cfg = discriminator_configs(opt)
+    return generator_config(opt, stage_a=stage_a), vrd_cfg if stage_a else sd_cfg, train_hparams(opt)
+
+
+def train_sdf(args, cfg) -> None:
     from .data import DataLoader, MultiResolutionDataset, resolve_record_dir
     from .training.loop import train_full_pipeline, train_volume_renderer
     from .utils.checkpoints import checkpoint_exists
@@ -107,10 +118,7 @@ def train_sdf(args, cfg) -> None:
                     seed=args.seed, device=device)
 
     if need_a:
-        opt = stage_options(cfg, True, **flags)
-        gcfg = generator_config(opt, stage_a=True)
-        vrd_cfg, _ = discriminator_configs(opt)
-        hp = train_hparams(opt)
+        gcfg, vrd_cfg, hp = stage_configs(cfg, True, **flags)
         ds = MultiResolutionDataset(data_path, resolution=img_size,
                                     nerf_resolution=gcfg.renderer.out_im_res)
         try:
@@ -122,10 +130,7 @@ def train_sdf(args, cfg) -> None:
             ds.close()
 
     if need_b:
-        opt = stage_options(cfg, False, **flags)
-        gcfg = generator_config(opt, stage_a=False)
-        _, sd_cfg = discriminator_configs(opt)
-        hp = train_hparams(opt)
+        gcfg, sd_cfg, hp = stage_configs(cfg, False, **flags)
         ds = MultiResolutionDataset(data_path, resolution=img_size,
                                     nerf_resolution=gcfg.renderer.out_im_res)
         try:

@@ -290,6 +290,15 @@ def load_perceptual_params(args: Any, device: Union[str, torch.device] = "cuda")
     return LossUtils(irse=irse, lpips=lpips)
 
 
+def encoder_config(gcfg: GeneratorConfig, img_size: int, psp: bool) -> EncoderConfig:
+    """The encoder that stage C trains against the generator ``gcfg`` at
+    ``img_size``: pSp (``psp``) or the VAE."""
+    if psp:
+        return PSPConfig(img_size=img_size, style_count=gcfg.decoder.n_latent,
+                         renderer_style_dim=gcfg.style_dim)
+    return VAEEncoderConfig(img_size=img_size, z_size=gcfg.style_dim)
+
+
 def train_encoder_stage(args: Any, cfg: Any, out_base: str, iters: int = 100000,
                         device: Union[str, torch.device] = "cuda", **kwargs) -> nn.Module:
     """Stage C as the train entry runs it: the generator config resolved as
@@ -308,18 +317,14 @@ def train_encoder_stage(args: Any, cfg: Any, out_base: str, iters: int = 100000,
     gcfg = generator_config(opt, stage_a=False)
     g_ema = load_generator(out_base, "full_pipeline", gcfg, device=device)
 
+    ecfg = encoder_config(gcfg, img_size, psp)
     e_init = None
-    if psp:
-        ecfg: EncoderConfig = PSPConfig(img_size=img_size, style_count=gcfg.decoder.n_latent,
-                                        renderer_style_dim=gcfg.style_dim)
-        if getattr(args, "irse_weights", None):
-            # warm-start the FPN backbone from ArcFace (reference strict=False
-            # load, training_utils.py:938-940)
-            e_init = _encoder(ecfg, getattr(args, "seed", 0))
-            load_irse_archive(e_init.gse.backbone, args.irse_weights, head=False)
-            print("pSp backbone warm-started from ir_se50 weights")
-    else:
-        ecfg = VAEEncoderConfig(img_size=img_size, z_size=gcfg.style_dim)
+    if psp and getattr(args, "irse_weights", None):
+        # warm-start the FPN backbone from ArcFace (reference strict=False
+        # load, training_utils.py:938-940)
+        e_init = _encoder(ecfg, getattr(args, "seed", 0))
+        load_irse_archive(e_init.gse.backbone, args.irse_weights, head=False)
+        print("pSp backbone warm-started from ir_se50 weights")
 
     data_path = args.dataset_path or resolve_record_dir(cfg["data"]["path"])
     ds = MultiResolutionDataset(data_path, resolution=img_size,

@@ -8,14 +8,18 @@ scalars (stage C's ``models_*``: ``{e, e_opt, step}``, the optimizer's
 state dict carrying Ranger's slow weights and step count).  A save
 writes a temporary file and renames it, so a cut run never leaves half a
 checkpoint.  ``load_generator`` builds a stored generator for the eval and
-geometry entries.  (The JAX package's orbax checkpoints are not read here.)
+geometry entries and the sampler.
+
+``import_jax_run`` turns a JAX run, exported from its orbax checkpoints by
+``scripts/export_jax_checkpoint.py``, into these files under the same
+names, so the port's training resumes a JAX run and its tools read it.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -62,3 +66,141 @@ def load_generator(base_dir: str, name: str, cfg, which: str = "g_ema",
     model = Generator(cfg, device=device)
     model.load_state_dict(load_checkpoint(base_dir, name, map_location=device)[which])
     return model.eval()
+
+
+class RunConfigs(NamedTuple):
+    """The configs a run trains under, as the train entry builds them from
+    a yaml and its flags: (GeneratorConfig, discriminator config,
+    TrainHParams) of stages A and B, and stage C's two encoders."""
+    stage_a: Tuple[Any, Any, Any]
+    stage_b: Tuple[Any, Any, Any]
+    vae: Any
+    psp: Any
+
+
+_STAGE_DIRS = {"volume_renderer": "a", "": "b", "encoder": "vae", "encoder_psp": "psp"}
+# (stage, artifact) -> the keys of its tree; "models" stands for models_*
+_KEYS = {("a", "sdf_init_models"): {"g", "g_ema"},
+         ("a", "vol_renderer"): {"g", "d", "g_ema"},
+         ("a", "models"): {"g", "d", "g_ema", "g_opt", "d_opt", "step"},
+         ("b", "full_pipeline"): {"g", "d", "g_ema"},
+         ("b", "models"): {"g", "d", "g_ema", "g_opt", "d_opt", "step", "mean_path_length"},
+         ("vae", "encoder"): {"e", "g_ema"}, ("psp", "encoder"): {"e", "g_ema"},
+         ("vae", "models"): {"e", "e_opt", "step"}, ("psp", "models"): {"e", "e_opt", "step"}}
+
+
+def _jax_kind(rel: str) -> Tuple[str, str]:
+    """(stage, artifact) of an exported checkpoint by its path in the run:
+    ``volume_renderer/{sdf_init_models,vol_renderer,models_*}``,
+    ``{full_pipeline,models_*}``, ``encoder[_psp]/{encoder,models_*}``."""
+    stage_dir, name = os.path.split(rel)
+    kind = (_STAGE_DIRS.get(stage_dir), "models" if re.fullmatch(r"models_\d+", name) else name)
+    if kind not in _KEYS:
+        raise ValueError(
+            f"{rel}: not a checkpoint of the SDF stages (volume_renderer/, full_pipeline, "
+            "encoder[_psp]/); the GIRAFFE and gan2d CheckpointIO trees are not ported yet "
+            "(ROADMAP.md, queue 1 item 7)")
+    return kind
+
+
+def _gan_stage_tree(tree: Dict[str, Any], stage: str, artifact: str, configs: RunConfigs,
+                    what: str) -> Dict[str, Any]:
+    """A stage-A or stage-B tree in the port's form."""
+    from ..models.discriminator import StyleDiscriminator, VolumeRenderDiscriminator
+    from ..models.generator import Generator
+    from ..training.optim import stage_a_optimizers, stage_b_optimizers
+    from .convert import jax_disc_params_to_state_dict, jax_params_to_state_dict
+    from .jax_export import adam_state, convert, fill_like
+
+    gcfg, dcfg, hp = configs.stage_a if stage == "a" else configs.stage_b
+
+    def g_sd(t):
+        return convert(jax_params_to_state_dict, t, gcfg)
+
+    def d_sd(t):
+        return convert(jax_disc_params_to_state_dict, t)
+
+    out = {k: g_sd(tree[k]) for k in ("g", "g_ema")}
+    if "d" in tree:
+        out["d"] = d_sd(tree["d"])
+    if artifact != "models":
+        return out
+    g = Generator(gcfg, device="cpu")
+    d = (VolumeRenderDiscriminator if stage == "a" else StyleDiscriminator)(dcfg)
+    if stage == "a":
+        g_opt, d_opt = stage_a_optimizers(g, d, hp.a_d_reg_every)
+        g_adam = tree["g_opt"][0]
+    else:
+        g_opt, d_opt = stage_b_optimizers(g, d, lr=2e-3, g_reg_every=hp.g_reg_every,
+                                          d_reg_every=hp.d_reg_every)
+        # decoder_only's multi_transform: the "train" branch's Adam, whose
+        # moments lack the frozen leaves
+        g_adam = tree["g_opt"]["inner_states"]["train"]["inner_state"][0]
+        g_adam = dict(g_adam, mu=fill_like(g_adam["mu"], tree["g"]),
+                      nu=fill_like(g_adam["nu"], tree["g"]))
+        out["mean_path_length"] = torch.as_tensor(tree["mean_path_length"])
+    out["g_opt"] = adam_state(g_opt, g, g_adam, g_sd, f"{what} g_opt")
+    out["d_opt"] = adam_state(d_opt, d, tree["d_opt"][0], d_sd, f"{what} d_opt")
+    out["step"] = int(tree["step"])
+    return out
+
+
+def _encoder_tree(tree: Dict[str, Any], stage: str, artifact: str, configs: RunConfigs,
+                  what: str) -> Dict[str, Any]:
+    """A stage-C tree (the VAE, or pSp) in the port's form."""
+    from ..encoder import PSPEncoder, VAEEncoder
+    from ..training.optim import encoder_optimizer
+    from .convert import (
+        jax_params_to_state_dict,
+        jax_psp_params_to_state_dict,
+        jax_vae_params_to_state_dict,
+    )
+    from .jax_export import adam_state, convert, ranger_state
+
+    psp = stage == "psp"
+
+    def e_sd(t):
+        return convert(jax_psp_params_to_state_dict if psp else jax_vae_params_to_state_dict, t)
+
+    out: Dict[str, Any] = {"e": e_sd(tree["e"])}
+    if artifact != "models":
+        out["g_ema"] = convert(jax_params_to_state_dict, tree["g_ema"], configs.stage_b[0])
+        return out
+    e = PSPEncoder(configs.psp) if psp else VAEEncoder(configs.vae)
+    opt = encoder_optimizer(e.parameters(), vae=not psp)
+    out["e_opt"] = (ranger_state(opt, e, tree["e_opt"], e_sd, f"{what} e_opt") if psp
+                    else adam_state(opt, e, tree["e_opt"][0], e_sd, f"{what} e_opt"))
+    out["step"] = int(tree["step"])
+    return out
+
+
+def import_jax_run(src: str, out_base: str, configs: RunConfigs) -> List[str]:
+    """Write the port's checkpoint ``<out_base>/<rel>.pt`` for every archive
+    ``<src>/<rel>.npz`` of an exported JAX run (``models_*`` with their
+    optimizer states, and the stage artifacts), trained under ``configs``.
+    Refuses, before writing anything, a tree of a family the port has not
+    ported and a port checkpoint that exists.  Returns the paths written."""
+    from .jax_export import read_export
+
+    plan = []
+    for root, _, names in os.walk(src):
+        for n in sorted(names):
+            if n.endswith(".npz"):
+                rel = os.path.relpath(os.path.join(root, n), src)[:-4]
+                plan.append((rel, *_jax_kind(rel)))
+    if not plan:
+        raise FileNotFoundError(f"no exported checkpoint (.npz) under {src}")
+    for rel, _, _ in plan:
+        if os.path.exists(_path(out_base, rel)):
+            raise FileExistsError(f"{_path(out_base, rel)} exists; the import does not "
+                                  "overwrite a port checkpoint")
+    written = []
+    for rel, stage, artifact in sorted(plan):
+        tree = read_export(os.path.join(src, rel + ".npz"))
+        if set(tree) != _KEYS[stage, artifact]:
+            raise ValueError(f"{rel}: keys {sorted(tree)}, expected "
+                             f"{sorted(_KEYS[stage, artifact])}")
+        to_port = _gan_stage_tree if stage in ("a", "b") else _encoder_tree
+        base, name = os.path.split(os.path.join(out_base, rel))
+        written.append(save_checkpoint(base, name, to_port(tree, stage, artifact, configs, rel)))
+    return written

@@ -84,9 +84,11 @@ def jax_params_to_state_dict(params: Dict[str, Any], cfg) -> Dict[str, torch.Ten
             lin(f"decoder.style.{i + 1}", p)  # decoder.style.0 is PixelNorm
         styled("decoder.conv1", dec["conv1"])
         to_rgb("decoder.to_rgb1", dec["to_rgb1"])
-        for i, p in enumerate(dec["convs"]):
+        # a decoder at its input's resolution has no convs: an exported tree
+        # (``utils/jax_export.py``) then lacks the empty lists
+        for i, p in enumerate(dec.get("convs", [])):
             styled(f"decoder.convs.{i}", p)
-        for i, p in enumerate(dec["to_rgbs"]):
+        for i, p in enumerate(dec.get("to_rgbs", [])):
             to_rgb(f"decoder.to_rgbs.{i}", p)
         for i, n in enumerate(dec["noises"]):
             sd[f"decoder.noises.noise_{i}"] = np.transpose(np.asarray(n), (0, 3, 1, 2))
@@ -276,7 +278,7 @@ def jax_psp_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tens
     gse = params["gse"]
     _irse_entries(sd, "gse.backbone.", gse["backbone"])
     for j, style in enumerate(gse["styles"]):
-        for k, conv in enumerate(style["convs"]):
+        for k, conv in enumerate(style.get("convs", [])):  # none at small inputs
             _put_conv(sd, f"gse.styles.{j}.convs.{k}", conv)
         _put_linear(sd, f"gse.styles.{j}.linear", style["linear"])
     _put_conv(sd, "gse.latlayer1", gse["latlayer1"])

@@ -819,3 +819,38 @@ def test_bench_ngp_hash_functions_match_their_plain_versions(cuda, grid):
     torch.testing.assert_close(fwd.cpu(), cpu["forward"](), rtol=0, atol=1e-5)
     want = cpu["table_grad"]()
     assert (grad.cpu() - want).norm() <= 1e-5 * want.norm()
+
+
+def test_jax_fixture_serves_on_the_card_as_jax_rendered_it(cuda, tmp_path):
+    """The committed JAX run (``tests/fixtures/jax_run/``): its stage-B
+    archives imported, its ``full_pipeline`` served through
+    ``from_checkpoint`` and the f32 field kernel with JAX's z, camera angles
+    and truncation pair, within 2e-3 (the card against the CPU) plus
+    ``IMAGE_TOL`` (rtol 2e-3, atol 2e-4: the CPU against JAX) of JAX's
+    images."""
+    import os
+    from dataclasses import replace
+
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.yaml_config import default_config_path
+    from sdface_gan_tpu_torch.train import stage_configs
+    from sdface_gan_tpu_torch.utils.checkpoints import RunConfigs, import_jax_run
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "jax_run")
+    with np.load(os.path.join(fixture, "samples.npz")) as f:
+        s = {k: f[k] for k in f.files}
+    gcfg, sd, hp = stage_configs(load_config(os.path.join(fixture, "jax_bridge.yaml"),
+                                             default_config_path()), False)
+    gcfg, sd = replace(gcfg, channel_base=int(s["channel_base"])), \
+        replace(sd, channel_base=int(s["channel_base"]))
+    import_jax_run(os.path.join(fixture, "stage_b"), str(tmp_path),
+                   RunConfigs(stage_a=None, stage_b=(gcfg, sd, hp), vae=None, psp=None))
+    before = _ext.LAUNCHES["siren_field"]
+    sampler = SDFaceSampler.from_checkpoint(
+        str(tmp_path), cfg=replace(gcfg, renderer=replace(gcfg.renderer, perturb=0.0)),
+        batch=len(s["z"]), truncation=float(s["truncation"]),
+        truncation_latent=tuple(torch.from_numpy(s[k]).cuda()
+                                for k in ("trunc_renderer", "trunc_decoder")))
+    img = sampler.sample(z=s["z"], azim=float(s["azim"]), elev=float(s["elev"])).cpu().numpy()
+    assert _ext.LAUNCHES["siren_field"] > before
+    np.testing.assert_allclose(img, s["images"], rtol=2e-3, atol=2e-4 + 2e-3)

@@ -32,6 +32,8 @@ from sdface_gan_tpu_torch.data.resample import resize
 from sdface_gan_tpu_torch.native import RecordReader, RecordWriter
 from sdface_gan_tpu_torch.utils.images import write_png
 
+from test_torch_port_images import png_bytes  # noqa: E402
+
 def _pil_png(arr: np.ndarray, mode: str) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(arr, mode).save(buf, format="PNG")
@@ -181,23 +183,29 @@ def test_png_port_writer_round_trips(tmp_path):
 
 
 def test_png_refuses_what_the_stores_never_hold():
+    """Palette, 16-bit and interlaced files, which the record stores never
+    hold, decode as PIL decodes them; a file whose IHDR says interlaced but
+    whose data is not, a bad CRC, filter type 5 and a bad signature raise."""
     grey = _pattern("gradient", 20, 30, 1)[..., 0]
     palette = Image.fromarray(_pattern("gradient", 20, 30, 3)).convert("P")
     buf = io.BytesIO()
     palette.save(buf, format="PNG")
-    with pytest.raises(ValueError, match="palette"):
-        png.decode_png(buf.getvalue())
+    np.testing.assert_array_equal(png.decode_png(buf.getvalue()), _pil_rgb(buf.getvalue()))
     buf = io.BytesIO()
     Image.fromarray(grey.astype(np.uint16) * 257).save(buf, format="PNG")
     assert png.parse(buf.getvalue())[0].bit_depth == 16
-    with pytest.raises(ValueError, match="16-bit"):
-        png.decode_png(buf.getvalue())
-    good = _hand_filtered_png(_pattern("noise", 5, 4, 3), (1,), 1)
-    interlaced = bytearray(good)
-    interlaced[28] = 1  # IHDR interlace byte; fix its CRC
-    interlaced[29:33] = struct.pack(">I", zlib.crc32(bytes(interlaced[12:29])) & 0xFFFFFFFF)
-    with pytest.raises(ValueError, match="interlaced"):
-        png.decode_png(bytes(interlaced))
+    np.testing.assert_array_equal(png.decode_png(buf.getvalue()), _pil_rgb(buf.getvalue()))
+    rgb = _pattern("noise", 5, 4, 3)
+    interlaced = png_bytes(rgb, 2, 8, 1)
+    assert png.parse(interlaced)[0].interlace == 1
+    np.testing.assert_array_equal(png.decode_png(interlaced), rgb)
+    np.testing.assert_array_equal(_pil_rgb(interlaced), rgb)
+    good = _hand_filtered_png(rgb, (1,), 1)
+    flipped = bytearray(good)
+    flipped[28] = 1  # IHDR interlace byte over non-interlaced data; fix its CRC
+    flipped[29:33] = struct.pack(">I", zlib.crc32(bytes(flipped[12:29])) & 0xFFFFFFFF)
+    with pytest.raises(ValueError, match="too short|filter type"):
+        png.decode_png(bytes(flipped))
     bad_crc = bytearray(good)
     bad_crc[30] ^= 1
     with pytest.raises(ValueError, match="CRC"):
@@ -354,7 +362,8 @@ def test_prepare_matches_the_jax_prepare(tmp_path):
 
 def test_prepare_reads_npy_and_refuses_other_formats_before_writing(tmp_path):
     """``.npy`` input is stored only on request (``npy=True``) and then gives
-    the PNG's records; a JPEG raises before anything is written."""
+    the PNG's records; a JPEG is read (as PIL decodes it), a progressive
+    JPEG raises before anything is written."""
     d = _image_dir(tmp_path, [(30, 44)])
     arr = np.asarray(Image.open(d / "000.png"))
     npy = tmp_path / "npy"
@@ -367,9 +376,15 @@ def test_prepare_reads_npy_and_refuses_other_formats_before_writing(tmp_path):
         np.testing.assert_array_equal(png.decode_png(a.get("16-00000")),
                                       png.decode_png(b.get("16-00000")))
     Image.fromarray(arr).save(d / "001.jpg")
-    with pytest.raises(ValueError, match="no .jpg decoder"):
-        prepare_data(str(d), str(tmp_path / "jpg"), sizes=(16,), n_workers=1)
-    assert not os.path.exists(tmp_path / "jpg")
+    assert prepare_data(str(d), str(tmp_path / "jpg"), sizes=(16,), n_workers=1) == 2
+    assert j_prepare(str(d), str(tmp_path / "jpg_jax"), sizes=(16,), n_workers=1) == 2
+    with RecordReader(str(tmp_path / "jpg")) as a, JReader(str(tmp_path / "jpg_jax")) as b:
+        np.testing.assert_array_equal(png.decode_png(a.get("16-00001")),
+                                      _pil_rgb(b.get("16-00001")))
+    Image.fromarray(arr).save(d / "002.jpg", progressive=True)
+    with pytest.raises(ValueError, match="002.jpg: progressive JPEG .*ROADMAP"):
+        prepare_data(str(d), str(tmp_path / "progressive"), sizes=(16,), n_workers=1)
+    assert not os.path.exists(tmp_path / "progressive")
 
 
 def _mixed_dir(tmp_path):

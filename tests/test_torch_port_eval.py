@@ -326,11 +326,18 @@ def test_a_store_and_its_png_directory_give_the_same_real_images(in_ws):
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("source", ["store", "png_dir"])
+@pytest.mark.parametrize("source", ["store", "png_dir", "jpeg_dir"])
 def test_eval_dumps_and_scores_against_real_images(in_ws, capsys, source):
-    """FID and KID against the record store or its PNG directory, with the
-    PNG dump; bf16 weights on the CPU too."""
-    real = "store" if source == "store" else "store_png"
+    """FID and KID against the record store, its PNG directory or those
+    images as JPEG files, with the PNG dump; bf16 weights on the CPU too."""
+    real = {"store": "store", "png_dir": "store_png", "jpeg_dir": "store_jpeg"}[source]
+    if source == "jpeg_dir" and not os.path.isdir(real):
+        from PIL import Image
+
+        os.makedirs(real)
+        for name in sorted(os.listdir("store_png")):
+            Image.open(os.path.join("store_png", name)).save(
+                os.path.join(real, name[:-4] + ".jpg"), quality=90)
     stats = eval_cli.main(["--config", "tiny.yaml", "--n_images", "5", "--batch", "2",
                            "--real_dir", real, "--device", "cpu"])
     out = capsys.readouterr().out
@@ -351,10 +358,21 @@ def test_eval_refuses_before_generating(in_ws, tmp_path):
         eval_cli.main(["--config", "tiny.yaml", "--n_images", "2", "--no_dump",
                        "--device", "cpu"])
     (tmp_path / "a.png").write_bytes(encode_png(np.zeros((16, 16, 3), np.uint8)))
-    (tmp_path / "b.jpg").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(ValueError, match="no .jpg decoder"):
+    (tmp_path / "b.jpg").write_bytes(b"\xff\xd8\xff")  # a JPEG cut after its first bytes
+    with pytest.raises(ValueError, match="b.jpg: corrupt or truncated JPEG"):
         eval_cli.main(["--config", "tiny.yaml", "--n_images", "2", "--real_dir",
                        str(tmp_path), "--device", "cpu"])
     assert set(os.listdir(eval_dir)) == before
+    # a whole JPEG is read as PIL reads it
+    from PIL import Image
+
+    from sdface_gan_tpu_torch.evaluation.real import dir_batches, list_image_files
+
+    rng = np.random.default_rng(2)
+    Image.fromarray(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)).save(tmp_path / "b.jpg")
+    names = list_image_files(str(tmp_path))
+    got = next(dir_batches(str(tmp_path), names, 2))[1]
+    want = np.asarray(Image.open(tmp_path / "b.jpg").convert("RGB"))
+    np.testing.assert_array_equal(got, want.astype(np.float32) / 127.5 - 1.0)
 
 
