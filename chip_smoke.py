@@ -229,7 +229,34 @@ non-zero with no ``ok`` line:
              iterations) against JAX's generator; and train_cli's flagship
              ``full_pipeline`` through ``from_checkpoint`` in bf16 at batch
              8, bit-equal to a sampler built from the same state dict.
-14. the ``kernels`` line (launches of every phase's counted runs: the
+14. giraffe - the GIRAFFE family's serving path, after bridge_and_images in
+             train_cli's directory: ``configs/256res/ffhq_256.yaml`` at full
+             width (z 256, decoder 8 x 128 with rgb_out 256, background 4 x
+             64, neural renderer 256 -> 256^2, 64 samples on a 16^2 volume)
+             on seeded port weights, one batch-4 ``giraffe_forward`` in eval
+             mode (fixed codes, ``fixed_camera``, ``fixed_transformations``,
+             f32) with the plain NeRF decoder, with the hash decoder of
+             ``ffhq_256_vae_hash.yaml --i_embed 1`` (the upstream grid, T =
+             2^19) and with ``--small_net 1``: each on the card against the
+             CPU (<= 2e-3 max abs), ms per request, images/s, peak GB;
+             hash_encode launched in the counted requests and the plain
+             encode never on a CUDA tensor; the kernel against the plain
+             encode on the hash request's own box-local points with the
+             table redrawn at std 1 (<= 1e-5), their out-of-box share, the
+             kernel's device ms there beside its bound (the rows those
+             points touch); marching cubes on the plain model's density
+             (64^3, faces on the card, alpha against the CPU's); the
+             committed JAX GIRAFFE run (``tests/fixtures/jax_giraffe_run/``)
+             imported by ``python -m sdface_gan_tpu_torch.import_jax_checkpoints
+             --sdf 0 --i_embed 1 ...``, JAX's codes, camera, transforms and
+             background rotation rendered through the hash kernel within
+             2e-3 + IMAGE_TOL of JAX's images; ``python -m
+             sdface_gan_tpu_torch.render`` over the yaml's programs with
+             ``--export_meshes 1``, ``render --vae 1`` (a port-saved VAE
+             ``encoder.pt``, the committed image files) and ``extract_mesh
+             --n_meshes 2``, run together: PNG sheets and ``.ply`` files,
+             seconds of each command.
+15. the ``kernels`` line (launches of every phase's counted runs: the
              bench processes report theirs), then the nvidia-smi line, then
              the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32: this process
@@ -2097,12 +2124,14 @@ def train_cli(results: dict, smi: str) -> None:
         train_stage_c(results, smi, td)
         # then JAX's checkpoints and the image decoders
         bridge_and_images(results, smi, td)
+        # and the GIRAFFE family
+        giraffe(results, smi, td)
 
 
 # The train_stage_c phase: stage C over train_cli's artifacts.
 STAGE_C_TOLERANCES = {"vae": (1e-4, 1e-3), "psp": (1e-4, 1e-3)}
 STAGE_C_STEPS = 5  # timed E steps per encoder (median after the first)
-STAGE_C_CUT_ITERS = 40  # --exit-after 1 cuts well before this
+STAGE_C_CUT_ITERS = 12  # --exit-after 1 cuts well before this (after step 0 so far)
 
 
 def stage_c_parity() -> dict:
@@ -2321,8 +2350,8 @@ def train_stage_c(results: dict, smi: str, td: str) -> None:
     profiled pSp step), an NGP E step by kernel, then the train entry:
     ``--vae 1`` and ``--psp 1`` (with two weight archives of random ID and
     LPIPS nets) and ``--vae 1`` under the NGP yaml, each skipping stages A
-    and B, 3 iterations; and a ``--vae 1`` run cut by ``--exit-after 1``
-    (exit 3) that the next run resumes at step + 1."""
+    and B, 3 iterations; beside them a ``--vae 1`` run cut by ``--exit-after
+    1`` (exit 3) that the next run resumes at step + 1."""
     import gc
 
     import torch
@@ -2330,7 +2359,6 @@ def train_stage_c(results: dict, smi: str, td: str) -> None:
     from sdface_gan_tpu_torch.encoder import LPIPS, IRSEBackbone
     from sdface_gan_tpu_torch.encoder.lpips import ALEX_CONV_IDS
     from sdface_gan_tpu_torch.ops import _ext
-    from sdface_gan_tpu_torch.utils.checkpoints import latest_checkpoint_step
 
     t0 = time.perf_counter()
     parity = stage_c_parity()
@@ -2354,6 +2382,7 @@ def train_stage_c(results: dict, smi: str, td: str) -> None:
                         for i in range(5)}}, lpips_path)
 
     base = ["--sdf", "1", "--dataset_path", "store", *CLI_TRAIN_FLAGS]
+    cut_cmd = ["--config", "cut.yaml", "--iters", str(STAGE_C_CUT_ITERS), "--vae", "1", *base]
     out, ngp_out = os.path.join(td, "out", CLI_EXP), os.path.join(td, "out", CLI_NGP_EXP)
     before = {k: os.stat(os.path.join(d, f"{n}.pt")).st_mtime_ns
               for k, (d, n) in {"vr": (os.path.join(out, "volume_renderer"), "vol_renderer"),
@@ -2364,7 +2393,9 @@ def train_stage_c(results: dict, smi: str, td: str) -> None:
         "psp": [("train", ["--config", CLI_CONFIG, "--iters", "3", "--psp", "1",
                            "--irse_weights", irse_path, "--lpips_weights", lpips_path, *base])],
         "ngp": [("train", ["--config", CLI_NGP_CONFIG, "--iters", "3", "--vae", "1", *base])],
+        "cut": [("train", cut_cmd + ["--exit-after", "1"], 3), ("train", cut_cmd)],
     }, td)
+    cut = runs.pop("cut")
     after = {k: os.stat(os.path.join(d, f"{n}.pt")).st_mtime_ns
              for k, (d, n) in {"vr": (os.path.join(out, "volume_renderer"), "vol_renderer"),
                                "fp": (out, "full_pipeline"), "ngp": (ngp_out, "full_pipeline")
@@ -2386,14 +2417,12 @@ def train_stage_c(results: dict, smi: str, td: str) -> None:
         for r in rs:
             emit(phase="train", run=f"train_stage_c_{kind}", **r)
 
-    cut_cmd = ["--config", "cut.yaml", "--iters", str(STAGE_C_CUT_ITERS), "--vae", "1", *base]
-    cut = run_module("train", cut_cmd + ["--exit-after", "1"], td, expect_rc=3)
+    # the resumed run's step, and every step logged once: the cut run's,
+    # then the resumed run's from the cut's step + 1
+    resumed = [int(ln.rsplit(" ", 1)[1]) for ln in cut["stdout"].splitlines()
+               if ln.startswith("resumed encoder at step ")]
+    check(len(resumed) == 1 and resumed[0] >= 1, "the next stage-C run resumed from a checkpoint")
     cut_dir = os.path.join(td, "out", "smoke_cut", "encoder")
-    cut_step = latest_checkpoint_step(cut_dir)
-    check(cut_step is not None, "stage C's --exit-after left a models_* checkpoint")
-    resume = run_module("train", cut_cmd, td)
-    check(f"resumed encoder at step {cut_step + 1}" in resume["stdout"],
-          "the next stage-C run resumed at step + 1")
     _stage_c_rows(cut_dir, "train --vae 1 resumed", list(range(STAGE_C_CUT_ITERS)))
     rec = dict(parity={k: {m: v[m] for m in ("loss_rel_err", "worst_param",
                                               "worst_grad_rel_err", "held_with")}
@@ -2405,8 +2434,8 @@ def train_stage_c(results: dict, smi: str, td: str) -> None:
                cli_s={k: r["seconds"] for k, r in runs.items()},
                cli_e_ms={k: statistics.median(r["e_ms"] for r in rs[1:])
                          for k, rs in rows.items()},
-               exit_after_step=cut_step, exit_after_s=cut["seconds"],
-               resume_s=resume["seconds"], seconds=time.perf_counter() - t0)
+               exit_after_step=resumed[0] - 1, exit_after_and_resume_s=cut["seconds"],
+               seconds=time.perf_counter() - t0)
     results["train_stage_c"] = rec
     emit(phase="train_stage_c", nvidia_smi=smi, **rec)
 
@@ -2658,6 +2687,383 @@ def bridge_and_images(results: dict, smi: str, td: str) -> None:
     emit(phase="bridge_and_images", nvidia_smi=smi, **rec)
 
 
+# The giraffe phase: the GIRAFFE generator at full width, the committed JAX
+# GIRAFFE run imported and served, and the render / extract_mesh entries.
+GIRAFFE_CONFIG = "configs/256res/ffhq_256.yaml"
+GIRAFFE_HASH_CONFIG = "configs/256res/ffhq_256_vae_hash.yaml"
+GIRAFFE_BATCH, GIRAFFE_REQUESTS, GIRAFFE_MESH_RES = 4, 5, 64
+GIRAFFE_TOL = 2e-3  # serve_compare's card-vs-CPU bar
+GIRAFFE_FIXTURE = os.path.join(HERE, "tests", "fixtures", "jax_giraffe_run")
+GIRAFFE_FIXTURE_FLAGS = ["--i_embed", "1", "--log2_hashmap_size", "10", "--finest_res", "64"]
+GIRAFFE_IMAGES = "tests/fixtures/images/head*[gp]"  # the committed image files
+# The surface model: ffhq_256's seeded plain generator with its density
+# scaled so that the mesh CLIs' level (0.005) cuts object 0's box (a seeded
+# density peaks near alpha 0.002 at 64^3, the fixture's is flat).
+GIRAFFE_SURFACE_SIGMA = 20.0
+GIRAFFE_SURFACE_YAML = ("inherit_from: configs/256res/ffhq_256.yaml\n"
+                        "training:\n  out_dir: out/giraffe_surface\n"
+                        "rendering:\n  render_program: ['object_rotation']\n")
+
+
+def giraffe_model(config: str, flags: dict):
+    """(GiraffeConfig, generator on the CPU from seed 0) of a yaml and flags."""
+    import types
+
+    import torch
+
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.yaml_config import default_config_path
+    from sdface_gan_tpu_torch.giraffe.config import giraffe_config_from_yaml
+    from sdface_gan_tpu_torch.giraffe.generator import GiraffeGenerator
+
+    cfg = load_config(os.path.join(HERE, config), default_config_path())
+    gcfg = giraffe_config_from_yaml(cfg, types.SimpleNamespace(**flags))
+    return gcfg, GiraffeGenerator(gcfg, torch.Generator().manual_seed(0)).eval()
+
+
+def giraffe_request(gcfg, device) -> dict:
+    """A batch-4 eval request: codes from seed 1 at 0.65, the fixed camera
+    and box transforms."""
+    import torch
+
+    from sdface_gan_tpu_torch.giraffe.bbox import fixed_transformations
+    from sdface_gan_tpu_torch.giraffe.generator import fixed_camera, sample_latent_codes
+
+    return dict(latent_codes=sample_latent_codes(torch.Generator().manual_seed(1), gcfg,
+                                                 GIRAFFE_BATCH, tmp=0.65, device=device),
+                camera_matrices=fixed_camera(gcfg, GIRAFFE_BATCH, device=device),
+                transformations=fixed_transformations(gcfg.bbox, GIRAFFE_BATCH, device=device),
+                mode="eval")
+
+
+@contextlib.contextmanager
+def recorded_hash_inputs():
+    """The points each GIRAFFE decoder's hash encode receives while the
+    block runs (the box-local points / 15), each call passed on."""
+    from sdface_gan_tpu_torch.giraffe import decoder
+
+    seen, original = [], decoder.hash_encode
+
+    def record(x, *args, **kwargs):
+        seen.append(x.detach().clone())
+        return original(x, *args, **kwargs)
+
+    decoder.hash_encode = record
+    try:
+        yield seen
+    finally:
+        decoder.hash_encode = original
+
+
+@contextlib.contextmanager
+def zeroed_hash_encodes():
+    """The GIRAFFE decoders' hash encodes give zeros while the block runs:
+    how far the image moves then says whether an image check at a bar can
+    see the encode."""
+    from sdface_gan_tpu_torch.giraffe import decoder
+
+    original = decoder.hash_encode
+    decoder.hash_encode = lambda x, table, spec, **kwargs: x.new_zeros(
+        x.shape[:-1] + (spec.output_dim,))
+    try:
+        yield
+    finally:
+        decoder.hash_encode = original
+
+
+def serve_giraffe(name: str, config: str, flags: dict, hashed: bool) -> tuple:
+    """One full-width request on the card (counted; the hash decoders'
+    inputs recorded; their table redrawn at std 1, so that the encode moves
+    the image) against the same request on the CPU, then timed."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sdface_gan_tpu_torch.giraffe.generator import giraffe_forward
+    from sdface_gan_tpu_torch.ops import _ext
+
+    gcfg, g_cpu = giraffe_model(config, flags)
+    if hashed:
+        with torch.no_grad():
+            g_cpu.decoder.hash_table.normal_(generator=torch.Generator().manual_seed(0))
+    g = copy.deepcopy(g_cpu).cuda()
+    req, req_cpu = giraffe_request(gcfg, "cuda"), giraffe_request(gcfg, "cpu")
+    giraffe_forward(g, gcfg, **req)  # warm-up
+    torch.cuda.synchronize()
+    _ext.reset_launch_counts()
+    with plain_encodes_on_card() as plain, recorded_hash_inputs() as hash_inputs:
+        img = giraffe_forward(g, gcfg, **req)
+        torch.cuda.synchronize()
+    launches = dict(_ext.LAUNCHES)
+    want = giraffe_forward(g_cpu, gcfg, **req_cpu)
+    got = img.cpu()
+    err = (got - want).abs().max().item()
+    size = gcfg.neural_renderer.img_size
+    check(tuple(got.shape) == (GIRAFFE_BATCH, size, size, 3) and bool(torch.isfinite(got).all()),
+          f"giraffe {name}: finite images of shape [4, {size}, {size}, 3]")
+    check(err <= GIRAFFE_TOL, f"giraffe {name}: card vs CPU max abs {err} <= {GIRAFFE_TOL}")
+    check(not plain, f"giraffe {name}: no plain encode on a CUDA tensor ({plain})")
+    encode_moves_image = None
+    if hashed:
+        check(launches["hash_encode"] >= 1 and launches["hash_encode"] == len(hash_inputs),
+              f"giraffe {name}: the hash decoder's encodes launched the kernel ({launches})")
+        with zeroed_hash_encodes():
+            encode_moves_image = (img - giraffe_forward(g, gcfg, **req)).abs().max().item()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(GIRAFFE_REQUESTS):
+        giraffe_forward(g, gcfg, **req)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / GIRAFFE_REQUESTS * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, names, _ = profiled(lambda: giraffe_forward(g, gcfg, **req),
+                           want=("hash_encode_kernel",) if hashed else ())
+    device_ms_total = sum(us for us, _ in names.values()) / 1e3
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:6]
+    rec = dict(config=config, flags=flags, batch=GIRAFFE_BATCH, image=size,
+               max_abs_err_vs_cpu=err, bar=GIRAFFE_TOL, ms_per_request=ms,
+               images_per_s=GIRAFFE_BATCH / ms * 1e3, peak_gb=peak_gb,
+               device_ms_total=device_ms_total, idle_share=1.0 - device_ms_total / ms,
+               top_device_ms={k[:80]: us / 1e3 for k, (us, _) in top},
+               launches=dict(hash_encode=launches["hash_encode"]),
+               plain_encodes_on_card=len(plain), encode_moves_image=encode_moves_image,
+               image_mean=float(np.mean(got.numpy())))
+    return rec, gcfg, g, g_cpu, hash_inputs
+
+
+def giraffe_encode_check(gcfg, table, hash_inputs: list) -> dict:
+    """``hash_encode`` against the plain encode on a request's own box-local
+    points and its model's table (at std 1); the kernel's device ms there
+    beside its bound: points, output and the rows the in-box points touch
+    (out-of-box points read none)."""
+    import torch
+
+    from sdface_gan_tpu_torch.ops import hash_encoder as hg
+
+    spec = gcfg.decoder.hash_spec
+    x = hash_inputs[0].reshape(-1, 3).contiguous()
+    table = table.detach()
+    got = hg.hash_encode(x, table, spec, 1.0)
+    want = hg.hash_encode_reference(x, table, spec, 1.0)
+    err = (got - want).abs().max().item()
+    check(err <= 1e-5, f"giraffe hash_encode vs plain on the request's points: {err} <= 1e-5")
+    inside = ~(x.abs() > 1.0).any(-1)
+    x01 = ((x[inside] + 1.0) / 2.0).clamp(0.0, 1.0)
+    corners = hg._corner_offsets(3)
+    rows = sum(torch.unique(hg._level_index_weight(x01, spec, lvl, corners)[0]).numel()
+               for lvl in range(spec.num_levels))
+    c = spec.level_dim
+    n, n_in = x.shape[0], int(inside.sum().item())
+    nbytes = x.numel() * 4 + n * spec.num_levels * c * 4 + rows * c * 4
+    flops = n_in * spec.num_levels * 8 * (2 * c + 2)
+    return dict(points=n, oob_share=1.0 - n_in / n, max_abs_err=err, rows_read=rows,
+                table_rows=spec.table_size, table_mb=spec.table_size * c * 4 / 1e6,
+                ms=device_ms(lambda: hg.hash_encode(x, table, spec, 1.0), "hash_encode_kernel"),
+                plain_ms=cuda_ms(lambda: hg.hash_encode_reference(x, table, spec, 1.0),
+                                 iters=5, warmup=1),
+                whole_table_bound_ms=(x.numel() * 4 + n * spec.num_levels * c * 4
+                                      + spec.table_size * c * 4) / PEAK_HBM_BYTES * 1e3,
+                **bound(flops, nbytes, PEAK_F32_FLOPS))
+
+
+def giraffe_mesh_check(gcfg, g, g_cpu) -> dict:
+    """Marching cubes on object 0's density at 64^3 on the card (at the
+    middle of its alpha range, so that there is a surface), the alpha volume
+    and the face count against the CPU's at that level."""
+    import torch
+
+    from sdface_gan_tpu_torch.giraffe import rendering
+    from sdface_gan_tpu_torch.giraffe.generator import sample_latent_codes
+
+    alphas, original = [], rendering.marching_cubes
+
+    def recorded(alpha, level):
+        alphas.append(alpha)
+        return original(alpha, level)
+
+    def extract(model, device, level=0.005):
+        codes = sample_latent_codes(torch.Generator().manual_seed(2), gcfg, 1, tmp=0.65,
+                                    device=device)
+        return rendering.extract_giraffe_mesh(model, gcfg, codes, resolution=GIRAFFE_MESH_RES,
+                                              level=level)
+
+    rendering.marching_cubes = recorded
+    try:
+        extract(g, "cuda")
+        level = float(0.5 * (alphas[0].min() + alphas[0].max()))
+        t0 = time.perf_counter()
+        card = extract(g, "cuda", level)
+        seconds = time.perf_counter() - t0
+        cpu = extract(g_cpu, "cpu", level)
+    finally:
+        rendering.marching_cubes = original
+    err = float(abs(alphas[1] - alphas[2]).max())
+    check(len(card.faces) > 0, "giraffe: marching cubes found a surface in the card's density")
+    check(err <= 1e-5, f"giraffe: the card's alpha volume vs the CPU's {err} <= 1e-5")
+    return dict(resolution=GIRAFFE_MESH_RES, level=level, faces=len(card.faces),
+                faces_cpu=len(cpu.faces), alpha_max_abs_err_vs_cpu=err,
+                alpha_max=float(alphas[1].max()), seconds=seconds)
+
+
+def save_surface_model(g_cpu, td: str) -> None:
+    """The surface model (``g_cpu``, ffhq_256's seeded plain generator, its
+    density scaled by ``GIRAFFE_SURFACE_SIGMA``) as ``g_ema`` of
+    ``out/giraffe_surface/model.pt`` in ``td``, with its yaml."""
+    import copy
+
+    import torch
+
+    from sdface_gan_tpu_torch.utils.checkpoints import CheckpointIO
+
+    g = copy.deepcopy(g_cpu)
+    with torch.no_grad():
+        g.decoder.sigma_out.weight.mul_(GIRAFFE_SURFACE_SIGMA)
+        g.decoder.sigma_out.bias.mul_(GIRAFFE_SURFACE_SIGMA)
+    CheckpointIO(os.path.join(td, "out", "giraffe_surface")).save("model", g_ema=g.state_dict())
+    with open(os.path.join(td, "giraffe_surface.yaml"), "w") as f:
+        f.write(GIRAFFE_SURFACE_YAML)
+
+
+def ply_faces(path: str) -> int:
+    with open(path, "rb") as f:
+        head = f.read(512)
+    check(head.startswith(b"ply\n"), f"{path} is a PLY file")
+    for line in head.split(b"\n"):
+        if line.startswith(b"element face "):
+            return int(line.split()[-1])
+    raise RuntimeError(f"check failed: {path} has no face element")
+
+
+def giraffe(results: dict, smi: str, td: str) -> None:
+    """The GIRAFFE serving path on the card: the full-width generator with
+    the plain, hash and small decoders against the CPU; the hash kernel on a
+    request's box-local points; marching cubes; the committed JAX GIRAFFE
+    run imported, served against JAX's images, and the render and
+    extract_mesh entries from it."""
+    import numpy as np
+    import torch
+
+    from sdface_gan_tpu_torch.data.png import decode_png
+    from sdface_gan_tpu_torch.encoder.vae import VAEEncoder, VAEEncoderConfig
+    from sdface_gan_tpu_torch.giraffe.generator import (
+        GiraffeGenerator,
+        LatentCodes,
+        giraffe_forward,
+    )
+    from sdface_gan_tpu_torch.ops import _ext
+    from sdface_gan_tpu_torch.utils.checkpoints import CheckpointIO
+
+    t_phase = time.perf_counter()
+    plain, gcfg_plain, g_plain, g_plain_cpu, _ = serve_giraffe("plain", GIRAFFE_CONFIG, {}, False)
+    emit(phase="giraffe_plain", nvidia_smi=smi, **plain)
+    mesh = giraffe_mesh_check(gcfg_plain, g_plain, g_plain_cpu)
+    emit(phase="giraffe_mesh", **mesh)
+    save_surface_model(g_plain_cpu, td)
+    del g_plain, g_plain_cpu
+    hashed, gcfg_hash, g_hash, _, hash_inputs = serve_giraffe(
+        "hash", GIRAFFE_HASH_CONFIG, dict(i_embed=1), True)
+    encode = giraffe_encode_check(gcfg_hash, g_hash.decoder.hash_table, hash_inputs)
+    emit(phase="giraffe_hash", nvidia_smi=smi, encode=encode, **hashed)
+    del g_hash, hash_inputs
+    small, _, g_small, _, _ = serve_giraffe("small", GIRAFFE_CONFIG, dict(small_net=1), True)
+    emit(phase="giraffe_small", nvidia_smi=smi, **small)
+    del g_small
+    torch.cuda.empty_cache()
+
+    # the committed JAX run, imported and served
+    if not os.path.exists(os.path.join(td, "tests")):
+        os.symlink(os.path.join(HERE, "tests"), os.path.join(td, "tests"))
+    shutil.copy(os.path.join(GIRAFFE_FIXTURE, "jax_giraffe.yaml"), td)
+    cli_import = run_module("import_jax_checkpoints", [
+        "--src", os.path.join(GIRAFFE_FIXTURE, "run"), "--config", "jax_giraffe.yaml",
+        "--sdf", "0", *GIRAFFE_FIXTURE_FLAGS], td)
+    out = os.path.join(td, "out", "jax_giraffe")
+    ckpt = CheckpointIO(out)
+    check(ckpt.exists("model") and ckpt.exists("model_0000004"),
+          "import_jax_checkpoints --sdf 0 wrote model and model_0000004")
+    flags = dict(i_embed=1, log2_hashmap_size=10, finest_res=64)
+    gcfg, _ = giraffe_model(os.path.join(td, "jax_giraffe.yaml"), flags)
+    g = GiraffeGenerator(gcfg)
+    g.load_state_dict(ckpt.load("model")["g_ema"])
+    g = g.cuda().eval()
+    with np.load(os.path.join(GIRAFFE_FIXTURE, "samples.npz")) as f:
+        s = {k: torch.from_numpy(f[k]).cuda() for k in f.files}
+    scene = dict(latent_codes=LatentCodes(s["z_shape_obj"], s["z_app_obj"], s["z_shape_bg"],
+                                          s["z_app_bg"]),
+                 camera_matrices=(s["camera_mat"], s["world_mat"]),
+                 transformations=(s["s"], s["t"], s["r"]), bg_rotation=s["bg_rotation"],
+                 mode="eval")
+    _ext.reset_launch_counts()
+    img = giraffe_forward(g, gcfg, **scene)
+    torch.cuda.synchronize()
+    jax_launches = _ext.LAUNCHES["hash_encode"]
+    got, want = img.cpu().numpy(), s["images"].cpu().numpy()
+    err = float(np.abs(got - want).max())
+    bar = GIRAFFE_TOL + 2e-4 + 2e-3 * np.abs(want)
+    check(got.shape == want.shape and bool(np.isfinite(got).all())
+          and bool((np.abs(got - want) <= bar).all()),
+          f"giraffe: the card's images of JAX's GIRAFFE model within the bar (max abs {err})")
+    check(jax_launches >= 1, "giraffe: JAX's model rendered through the hash kernel")
+    with zeroed_hash_encodes():
+        img_zero = giraffe_forward(g, gcfg, **scene)
+    jax_rec = dict(max_abs_err_vs_jax=err, bar="2e-3 + 2e-4 + 2e-3 |jax|",
+                   encode_moves_image=(img - img_zero).abs().max().item(),
+                   launches=dict(hash_encode=jax_launches), import_s=cli_import["seconds"])
+    emit(phase="giraffe_jax_model", nvidia_smi=smi, **jax_rec)
+    del g
+
+    # the entries, together: from the fixture render (meshes), render --vae
+    # and extract_mesh; from the surface model render (meshes) and extract_mesh
+    e = VAEEncoder(VAEEncoderConfig(img_size=gcfg.neural_renderer.img_size,
+                                    z_size=2 * gcfg.z_dim), torch.Generator().manual_seed(3))
+    ckpt.save("encoder", e=e.state_dict())
+    with open(os.path.join(td, "jax_giraffe_vae.yaml"), "w") as f:
+        f.write("inherit_from: jax_giraffe.yaml\nrendering:\n  render_dir: rendering_vae\n")
+    cli = run_modules_together({
+        "render": [("render", ["--config", "jax_giraffe.yaml", "--export_meshes", "1",
+                               *GIRAFFE_FIXTURE_FLAGS])],
+        "render_vae": [("render", ["--config", "jax_giraffe_vae.yaml", "--vae", "1",
+                                   "--vae_images", GIRAFFE_IMAGES, *GIRAFFE_FIXTURE_FLAGS])],
+        "extract_mesh": [("extract_mesh", ["--config", "jax_giraffe.yaml", "--n_meshes", "2",
+                                           *GIRAFFE_FIXTURE_FLAGS])],
+        "render_surface": [("render", ["--config", "giraffe_surface.yaml", "--export_meshes", "1"])],
+        "extract_mesh_surface": [("extract_mesh", ["--config", "giraffe_surface.yaml",
+                                                   "--n_meshes", "2"])]}, td)
+    sheets = {}
+    for render_dir in ("rendering", "rendering_vae"):
+        for program in ("object_rotation", "interpolate_app"):
+            path = os.path.join(out, render_dir, f"{program}.png")
+            check(os.path.exists(path), f"render wrote {render_dir}/{program}.png")
+            with open(path, "rb") as f:
+                sheet = decode_png(f.read())
+            check(sheet.shape == (16 * 32, 4 * 32, 3) and sheet.std() > 0,
+                  f"{render_dir}/{program}.png: a 4 x 16 sheet of 32^2 frames")
+            sheets[f"{render_dir}/{program}"] = list(sheet.shape)
+    meshes = [os.path.join("rendering", f"{i:02d}_rotation.ply") for i in range(4)] + [
+        os.path.join("meshes", f"mesh_{i:03d}.ply") for i in range(2)]
+    # the fixture's density is flat (alpha within 2e-7 of 0.0028): no face
+    # at the CLIs' level, as JAX's extraction finds none
+    plys = {n: ply_faces(os.path.join(out, n)) for n in meshes}
+    surface_out = os.path.join(td, "out", "giraffe_surface")
+    surface_plys = {n: ply_faces(os.path.join(surface_out, n)) for n in meshes}
+    check(all(f > 0 for f in surface_plys.values()),
+          f"render --export_meshes and extract_mesh meshed the surface model ({surface_plys})")
+    check(os.path.exists(os.path.join(surface_out, "rendering", "object_rotation.png")),
+          "render wrote the surface model's object_rotation.png")
+    check("conditioning on 4 real images" in cli["render_vae"]["stdout"],
+          "render --vae encoded the committed images")
+    rec = dict(plain=plain, mesh=mesh, hash=hashed, hash_encode=encode, small=small,
+               jax_model=jax_rec, sheets=sheets, ply_faces=plys, surface_ply_faces=surface_plys,
+               cli_s={k: v["seconds"] for k, v in cli.items()},
+               launches=dict(hash_encode=hashed["launches"]["hash_encode"]
+                             + small["launches"]["hash_encode"] + jax_launches),
+               seconds=time.perf_counter() - t_phase)
+    results["giraffe"] = rec
+    emit(phase="giraffe", nvidia_smi=smi, **{k: v for k, v in rec.items()
+                                             if k not in ("plain", "hash", "small")})
+
+
 # The evaluate phase: evaluation and geometry over train_cli's artifacts.
 EVAL_HEADS, EVAL_HEAD_RES = 48, 256
 EVAL_DUMP_IMAGES, EVAL_RATE_IMAGES, EVAL_NGP_IMAGES = 48, 128, 32
@@ -2748,10 +3154,11 @@ def eval_kernel_names(td: str, args: list) -> list:
 
 
 def run_modules_together(jobs: dict, cwd: str) -> dict:
-    """Run the jobs at once, each a list of ``(module, args)`` run in turn as
-    ``python -m sdface_gan_tpu_torch.<module> <args>``; every command must
-    exit 0 (else the other processes are killed and this raises).  Returns
-    each job's last command's output and the job's seconds."""
+    """Run the jobs at once, each a list of ``(module, args)`` or ``(module,
+    args, rc)`` run in turn as ``python -m sdface_gan_tpu_torch.<module>
+    <args>``; every command must exit ``rc`` (0 if not given; else the other
+    processes are killed and this raises).  Returns each job's last
+    command's output and the job's seconds."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2759,15 +3166,16 @@ def run_modules_together(jobs: dict, cwd: str) -> dict:
     live, lock, t0 = [], threading.Lock(), time.perf_counter()
 
     def chain(commands):
-        for module, args in commands:
+        for module, args, *rc in commands:
             with lock:
                 proc = subprocess.Popen([sys.executable, "-m", f"sdface_gan_tpu_torch.{module}",
                                          *args], cwd=cwd, env=env, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True)
                 live.append(proc)
             stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
-            check(proc.returncode == 0, f"{module} {' '.join(args)} exited {proc.returncode}:"
-                  f"\n{stdout[-3000:]}\n{stderr[-3000:]}")
+            want = rc[0] if rc else 0
+            check(proc.returncode == want, f"{module} {' '.join(args)} exited {proc.returncode},"
+                  f" expected {want}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
         return dict(rc=proc.returncode, seconds=time.perf_counter() - t0, stdout=stdout)
 
     try:
@@ -3346,6 +3754,7 @@ def main() -> int:
     ngp_eval = results["evaluate"]["eval"]["ngp"]["launches"]
     benched = results["bench"]["launches"]
     bridged = results["bridge_and_images"]["launches"]
+    giraffe_encode = results["giraffe"]["hash_encode"]
     kernels = [
         dict(name="siren_field", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/siren_field.cu",
@@ -3385,12 +3794,16 @@ def main() -> int:
              replaces="sdface_gan_tpu/ops/hash_encoder.py:205",
              launches=results["ngp_launches"]["hash_encode"] + ngp_eval["hash_encode"]
              + benched["hash_encode"]
-             + results["train_stage_c"]["ngp"]["launches"]["hash_encode"],
+             + results["train_stage_c"]["ngp"]["launches"]["hash_encode"]
+             + results["giraffe"]["launches"]["hash_encode"],
              checked=True,
-             max_abs_err=max(r["max_abs_err"] for r in encode_checks
-                             if r["dtype"] == "float32"),
+             max_abs_err=max([r["max_abs_err"] for r in encode_checks
+                              if r["dtype"] == "float32"] + [giraffe_encode["max_abs_err"]]),
              ms=encode["ms"], plain_ms=encode["plain_ms"], bound_ms=encode["bound_ms"],
-             bound_by=encode["bound_by"], library_ms=None),
+             bound_by=encode["bound_by"], library_ms=None,
+             giraffe_shape={k: giraffe_encode[k] for k in (
+                 "points", "oob_share", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by")}),
     ]
     ngp_runs = results["train_ngp"]["stage_a"].values()
     for kname, case, replaces, outputs in (

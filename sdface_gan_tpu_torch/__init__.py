@@ -6,7 +6,10 @@ NVIDIA H100 and is held against it, on the same weights and inputs, by
 
 Ported so far: the 256^2 full-pipeline generator with the SIREN, NGP and
 FC fields (inference), the SIREN and NGP SDF generators' training from the
-command line, the evaluation and geometry tools, and the benches:
+command line (stages A, B and C), the evaluation and geometry tools, the
+benches, the import of a JAX run's checkpoints, and the GIRAFFE family's
+serving (its generator, render programs and mesh extraction; its training
+is not ported yet):
 
   ops/         fast_sin, fused_leaky_relu, upfirdn2d, sh_encode, the
                FiLM-SIREN field, the hash-grid encode (forward, backward,
@@ -16,21 +19,27 @@ command line, the evaluation and geometry tools, and the benches:
   models/      SIREN, NGP and FC field networks, volume renderer,
                StyleGAN2 decoder, the whole generator, both
                discriminators, noise projection
+  encoder/     stage C's VAE and pSp encoders, the ID and LPIPS losses
+  giraffe/     the GIRAFFE generator (camera, boxes, NeRF / hash / small
+               decoders, compositing, neural renderer), render programs,
+               mesh extraction
   losses/      GAN and geometry losses
   training/    sphere init, stage A and stage B loops and steps, gradient
                accumulation
   evaluation/  the FID InceptionV3, FID and KID, real-image readers
   native/      the record store, the PNG unfilter loop, marching cubes and
                the mesh rasterizer (C++, g++ at first use, ctypes)
-  data/        PNG codec, PIL-exact resampling, dataset, loader, prepare,
-               the procedural heads (``synthetic``)
+  data/        PNG, JPEG and BMP decoders, PIL-exact resampling, datasets
+               (the record store's; GIRAFFE's image folders), loader,
+               prepare, the procedural heads (``synthetic``)
   config/      yaml subset reader, ``inherit_from``, SDF options, builders
   utils/       device selection, checkpoints, logging, images, converters
   configs.py   the ``configs/256res`` SDF configurations as dataclasses
   serving.py   ``SDFaceSampler``
   train.py, prepare_data.py, eval.py, calc_fid_stats.py, eval_files.py,
   probe_geometry.py, sdf_mesh.py, data/synthetic.py, bench.py,
-  bench_ngp.py   ``python -m`` entry points
+  bench_ngp.py, import_jax_checkpoints.py, render.py,
+  extract_mesh.py   ``python -m`` entry points
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a card and without that request they raise.

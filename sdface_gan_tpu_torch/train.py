@@ -16,8 +16,11 @@ inversion encoder against the frozen ``full_pipeline`` generator, into
 saves and exits with code 3.  Runs on ``--device cuda`` (the default;
 raises without a card) or ``--device cpu``, with TF32 off so that f32
 stays f32.  The NGP field trains by ``--ngp 1`` or by the yaml's
-``rendering: type: ngp``.  ``--sdf 0`` (the GIRAFFE and gan2d families) is
-not ported yet and raises ``NotImplementedError`` (see ROADMAP.md).
+``rendering: type: ngp``.  ``--sdf 0`` (training the GIRAFFE and gan2d
+families) is not ported yet and raises ``NotImplementedError`` naming
+ROADMAP.md queue 1 item 7; a GIRAFFE model trained by the JAX package is
+imported (``import_jax_checkpoints --sdf 0``) and served by ``python -m
+sdface_gan_tpu_torch.render`` and ``... .extract_mesh``.
 """
 
 from __future__ import annotations
@@ -69,7 +72,9 @@ def main(argv=None) -> None:
     cfg = load_config(args.config, default_config_path())
     if args.sdf != 1:
         raise NotImplementedError(
-            "--sdf 0 (the GIRAFFE and gan2d families) is not ported yet; see ROADMAP.md")
+            "--sdf 0 (training the GIRAFFE and gan2d families) is not ported yet; see "
+            "ROADMAP.md, queue 1 item 7 (GIRAFFE training). A JAX GIRAFFE run serves through "
+            "import_jax_checkpoints --sdf 0, then render / extract_mesh")
     train_sdf(args, cfg)
 
 

@@ -1,24 +1,30 @@
-"""Checkpoints of the SDF stages in the port's own ``torch.save`` format.
+"""Checkpoints in the port's own ``torch.save`` format.
 
 The names follow ``sdface_gan_tpu/utils/checkpoints.py``: periodic
 ``models_{step:07d}`` and the stage artifacts ``sdf_init_models``,
 ``vol_renderer``, ``full_pipeline`` and stage C's ``encoder``, each one file
 ``<name>.pt`` under the stage's directory holding a dict of state dicts and
 scalars (stage C's ``models_*``: ``{e, e_opt, step}``, the optimizer's
-state dict carrying Ranger's slow weights and step count).  A save
-writes a temporary file and renames it, so a cut run never leaves half a
-checkpoint.  ``load_generator`` builds a stored generator for the eval and
+state dict carrying Ranger's slow weights and step count).  The GIRAFFE
+family's :class:`CheckpointIO` keeps named checkpoints of one directory
+(``model``, ``model_best``, ``model_{it:07d}``, ``encoder``) in the same
+format.  A save writes a temporary file and renames it, so a cut run
+never leaves half a checkpoint.  ``load_generator`` builds a stored generator for the eval and
 geometry entries and the sampler.
 
 ``import_jax_run`` turns a JAX run, exported from its orbax checkpoints by
 ``scripts/export_jax_checkpoint.py``, into these files under the same
-names, so the port's training resumes a JAX run and its tools read it.
+names, so the port's training resumes a JAX run and its tools read it: an
+SDF run (stages A, B and C, optimizer states included) or a GIRAFFE run's
+generators (``g``, ``g_ema``, ``it``, ``fid_best``) and VAE encoder.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import shutil
+import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -68,6 +74,37 @@ def load_generator(base_dir: str, name: str, cfg, which: str = "g_ema",
     return model.eval()
 
 
+class CheckpointIO:
+    """GIRAFFE-style named checkpoints: ``<checkpoint_dir>/<name>.pt``, each a
+    dict of state dicts and scalars (``save("model", g=..., it=...)``)."""
+
+    def __init__(self, checkpoint_dir: str):
+        self.checkpoint_dir = checkpoint_dir
+        os.makedirs(checkpoint_dir, exist_ok=True)
+
+    def save(self, filename: str, **kwargs: Any) -> str:
+        return save_checkpoint(self.checkpoint_dir, filename, dict(kwargs))
+
+    def load(self, filename: str,
+             map_location: Optional[Union[str, torch.device]] = None) -> Dict[str, Any]:
+        if not self.exists(filename):
+            raise FileNotFoundError(_path(self.checkpoint_dir, filename))
+        return load_checkpoint(self.checkpoint_dir, filename, map_location)
+
+    def exists(self, filename: str) -> bool:
+        return checkpoint_exists(self.checkpoint_dir, filename)
+
+    def backup_model_best(self) -> Optional[str]:
+        """A timestamped copy ``backup_<time>_model_best.pt`` of
+        ``model_best.pt``, or None when there is none."""
+        if not self.exists("model_best"):
+            return None
+        ts = time.strftime("%Y_%m_%d_%H_%M_%S")
+        dst = _path(self.checkpoint_dir, f"backup_{ts}_model_best")
+        shutil.copyfile(_path(self.checkpoint_dir, "model_best"), dst)
+        return dst
+
+
 class RunConfigs(NamedTuple):
     """The configs a run trains under, as the train entry builds them from
     a yaml and its flags: (GeneratorConfig, discriminator config,
@@ -98,9 +135,46 @@ def _jax_kind(rel: str) -> Tuple[str, str]:
     if kind not in _KEYS:
         raise ValueError(
             f"{rel}: not a checkpoint of the SDF stages (volume_renderer/, full_pipeline, "
-            "encoder[_psp]/); the GIRAFFE and gan2d CheckpointIO trees are not ported yet "
-            "(ROADMAP.md, queue 1 item 7)")
+            "encoder[_psp]/); a GIRAFFE run's CheckpointIO trees import with --sdf 0")
     return kind
+
+
+# the GIRAFFE run's CheckpointIO trees (``giraffe/train_loop.py``); "model_it"
+# stands for model_{it:07d}
+_GIRAFFE_KEYS = {"model": {"g", "d", "g_ema", "g_opt", "d_opt", "it", "fid_best"},
+                 "model_best": {"g", "d", "g_ema", "it", "fid_best"},
+                 "model_it": {"g", "d", "g_ema", "it"},
+                 "encoder": {"e", "e_opt"}}
+# what GIRAFFE's training needs and the import leaves out until it is ported
+# (ROADMAP.md, queue 1 item 7)
+_GIRAFFE_LEFT = ("d", "g_opt", "d_opt", "e_opt")
+
+
+def _giraffe_kind(rel: str) -> str:
+    """The kind of a GIRAFFE run's top-level checkpoint: ``model``,
+    ``model_best``, ``model_it`` or ``encoder``."""
+    kind = "model_it" if re.fullmatch(r"model_\d{7}", rel) else rel
+    if kind not in _GIRAFFE_KEYS:
+        raise ValueError(
+            f"{rel}: not a checkpoint of a GIRAFFE run (model, model_best, model_<it>, "
+            "encoder at its top level); an SDF run's stages import with --sdf 1")
+    return kind
+
+
+def _giraffe_tree(tree: Dict[str, Any], kind: str, cfg) -> Dict[str, Any]:
+    """A GIRAFFE tree in the port's form: ``g`` / ``g_ema`` with ``it`` and
+    ``fid_best``, or the VAE encoder ``e``."""
+    from .convert import jax_giraffe_params_to_state_dict, jax_vae_params_to_state_dict
+    from .jax_export import convert
+
+    if kind == "encoder":
+        return {"e": convert(jax_vae_params_to_state_dict, tree["e"])}
+    out: Dict[str, Any] = {k: convert(jax_giraffe_params_to_state_dict, tree[k], cfg)
+                           for k in ("g", "g_ema")}
+    out["it"] = int(tree["it"])
+    if "fid_best" in tree:
+        out["fid_best"] = float(tree["fid_best"])
+    return out
 
 
 def _gan_stage_tree(tree: Dict[str, Any], stage: str, artifact: str, configs: RunConfigs,
@@ -174,33 +248,47 @@ def _encoder_tree(tree: Dict[str, Any], stage: str, artifact: str, configs: RunC
     return out
 
 
-def import_jax_run(src: str, out_base: str, configs: RunConfigs) -> List[str]:
+def import_jax_run(src: str, out_base: str, configs) -> List[str]:
     """Write the port's checkpoint ``<out_base>/<rel>.pt`` for every archive
-    ``<src>/<rel>.npz`` of an exported JAX run (``models_*`` with their
-    optimizer states, and the stage artifacts), trained under ``configs``.
-    Refuses, before writing anything, a tree of a family the port has not
-    ported and a port checkpoint that exists.  Returns the paths written."""
-    from .jax_export import read_export
+    ``<src>/<rel>.npz`` of an exported JAX run trained under ``configs``: a
+    :class:`RunConfigs` for an SDF run (``models_*`` with their optimizer
+    states, and the stage artifacts), a ``GiraffeConfig`` for a GIRAFFE run
+    (``g``, ``g_ema``, ``it``, ``fid_best`` of ``model``, ``model_best`` and
+    ``model_*``; the VAE ``e`` of ``encoder``; it prints what it leaves for
+    GIRAFFE's training, not ported yet).  Refuses, before writing anything, a tree
+    of the other family and a port checkpoint that exists.  Returns the
+    paths written."""
+    from ..giraffe.generator import GiraffeConfig
+    from .jax_export import export_keys, read_export
 
+    giraffe = isinstance(configs, GiraffeConfig)
     plan = []
     for root, _, names in os.walk(src):
         for n in sorted(names):
             if n.endswith(".npz"):
                 rel = os.path.relpath(os.path.join(root, n), src)[:-4]
-                plan.append((rel, *_jax_kind(rel)))
+                plan.append((rel, _giraffe_kind(rel), None) if giraffe
+                            else (rel, *_jax_kind(rel)))
     if not plan:
         raise FileNotFoundError(f"no exported checkpoint (.npz) under {src}")
-    for rel, _, _ in plan:
+    for rel, stage, artifact in plan:
         if os.path.exists(_path(out_base, rel)):
             raise FileExistsError(f"{_path(out_base, rel)} exists; the import does not "
                                   "overwrite a port checkpoint")
+        keys = export_keys(os.path.join(src, rel + ".npz"))
+        want = _GIRAFFE_KEYS[stage] if giraffe else _KEYS[stage, artifact]
+        if keys != want:
+            raise ValueError(f"{rel}: keys {sorted(keys)}, expected {sorted(want)}")
     written = []
     for rel, stage, artifact in sorted(plan):
         tree = read_export(os.path.join(src, rel + ".npz"))
-        if set(tree) != _KEYS[stage, artifact]:
-            raise ValueError(f"{rel}: keys {sorted(tree)}, expected "
-                             f"{sorted(_KEYS[stage, artifact])}")
-        to_port = _gan_stage_tree if stage in ("a", "b") else _encoder_tree
         base, name = os.path.split(os.path.join(out_base, rel))
+        if giraffe:
+            written.append(save_checkpoint(base, name, _giraffe_tree(tree, stage, configs)))
+            left = [k for k in _GIRAFFE_LEFT if k in tree]
+            print(f"{rel}: {', '.join(left)} not imported: GIRAFFE's training is not ported "
+                  "yet (ROADMAP.md, queue 1 item 7)")
+            continue
+        to_port = _gan_stage_tree if stage in ("a", "b") else _encoder_tree
         written.append(save_checkpoint(base, name, to_port(tree, stage, artifact, configs, rel)))
     return written

@@ -298,3 +298,46 @@ def jax_lpips_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Te
     for i, lin in enumerate(params["lins"]):
         _put_conv(sd, f"lins.lin{i}.model.1", lin)
     return _tensors(sd)
+
+
+# --- the GIRAFFE family -------------------------------------------------------
+
+def _giraffe_entries(sd: Dict[str, Any], prefix: str, node: Any) -> None:
+    """Linears ``{w [in, out], b}`` -> ``weight`` [out, in] / ``bias``, convs
+    ``{w HWIO, b}`` -> OIHW, lists -> ``.{i}``, other arrays (``hash_table``,
+    ``B_pos``, ``B_view``) as they are."""
+    if isinstance(node, dict) and "w" in node:
+        w = np.asarray(node["w"])
+        if w.ndim == 4:
+            _put_conv(sd, prefix, node)
+        else:
+            _put_linear(sd, prefix, node)
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            _giraffe_entries(sd, f"{prefix}.{k}" if prefix else k, v)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _giraffe_entries(sd, f"{prefix}.{i}", v)
+    else:
+        sd[prefix] = np.asarray(node)
+
+
+def jax_giraffe_params_to_state_dict(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_giraffe`` tree -> the port's ``GiraffeGenerator`` state
+    dict for ``cfg`` (a ``GiraffeConfig``), bit for bit.  Raises when the
+    tree's object decoder is not the kind ``cfg`` builds (the small
+    decoder of ``--small_net 1``, the hash table of ``--i_embed 1``)."""
+    dec = params["decoder"]
+    small = "sigma_layers" in dec
+    hashed = "hash_table" in dec
+    want_hash = cfg.small_decoder or cfg.decoder.positional_encoding == "hash"
+    if small != cfg.small_decoder or hashed != want_hash:
+        raise ValueError(
+            f"the tree's object decoder is {'small' if small else 'the NeRF MLP'}"
+            f"{' with' if hashed else ' without'} a hash table; the config wants "
+            f"{'small' if cfg.small_decoder else 'the NeRF MLP'}"
+            f"{' with' if want_hash else ' without'} one: are --small_net / --i_embed "
+            "those of the run?")
+    sd: Dict[str, Any] = {}
+    _giraffe_entries(sd, "", params)
+    return _tensors(sd)

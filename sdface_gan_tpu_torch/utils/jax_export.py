@@ -60,6 +60,12 @@ def read_export(path: str) -> Dict[str, Any]:
     return _with_lists(tree)
 
 
+def export_keys(path: str) -> set:
+    """The top-level keys of an exported archive's tree (its data unread)."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k.split("/")[0] for k in z.files if k != DTYPES_KEY}
+
+
 def _with_lists(node: Any) -> Any:
     """Dicts keyed by digits only become lists, ``None`` where an index is missing."""
     if not isinstance(node, dict):

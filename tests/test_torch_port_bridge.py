@@ -903,13 +903,14 @@ def test_eval_and_sdf_mesh_run_on_an_imported_jax_run(tmp_path, monkeypatch, cap
 
 # ------------------------------------------------------------------ refusals
 def test_refusals(tmp_path):
-    """A GIRAFFE ``CheckpointIO`` tree names ROADMAP queue 1 item 7 and
-    nothing is written; a decoder noise moment that is not zero raises."""
+    """A GIRAFFE ``CheckpointIO`` tree imported with SDF configs is refused
+    (it imports with ``--sdf 0``) and nothing is written; a decoder noise
+    moment that is not zero raises."""
     jcfg, pcfg = _configs_b()
     g = j_gen.init_generator(jax.random.PRNGKey(0), jcfg)
     j_ckpt.CheckpointIO(str(tmp_path / "giraffe")).save("model.pt", generator=g, it=3)
     export_run(str(tmp_path / "giraffe"), str(tmp_path / "gx"))
-    with pytest.raises(ValueError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="import with --sdf 0"):
         checkpoints.import_jax_run(str(tmp_path / "gx"), str(tmp_path / "out"), None)
     assert not (tmp_path / "out").exists()
 

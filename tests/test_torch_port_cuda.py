@@ -854,3 +854,54 @@ def test_jax_fixture_serves_on_the_card_as_jax_rendered_it(cuda, tmp_path):
     img = sampler.sample(z=s["z"], azim=float(s["azim"]), elev=float(s["elev"])).cpu().numpy()
     assert _ext.LAUNCHES["siren_field"] > before
     np.testing.assert_allclose(img, s["images"], rtol=2e-3, atol=2e-4 + 2e-3)
+
+
+def test_jax_giraffe_fixture_serves_on_the_card_as_jax_rendered_it(cuda, tmp_path):
+    """The committed JAX GIRAFFE run (``tests/fixtures/jax_giraffe_run/``,
+    trained with ``--i_embed 1``): its ``model`` imported, its ``g_ema``
+    renders JAX's codes, camera, transforms and background rotation on the
+    card through the hash kernel, within 2e-3 (the card against the CPU)
+    plus ``IMAGE_TOL`` (rtol 2e-3, atol 2e-4: the CPU against JAX) of JAX's
+    images."""
+    import os
+    import types
+
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.yaml_config import default_config_path
+    from sdface_gan_tpu_torch.giraffe.config import giraffe_config_from_yaml
+    from sdface_gan_tpu_torch.giraffe.generator import (
+        GiraffeGenerator,
+        LatentCodes,
+        giraffe_forward,
+    )
+    from sdface_gan_tpu_torch.utils.checkpoints import CheckpointIO, import_jax_run
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                           "jax_giraffe_run")
+    gcfg = giraffe_config_from_yaml(
+        load_config(os.path.join(fixture, "jax_giraffe.yaml"), default_config_path()),
+        types.SimpleNamespace(i_embed=1, log2_hashmap_size=10, finest_res=64))
+    import_jax_run(os.path.join(fixture, "run"), str(tmp_path), gcfg)
+    g = GiraffeGenerator(gcfg)
+    g.load_state_dict(CheckpointIO(str(tmp_path)).load("model")["g_ema"])
+    g = g.cuda().eval()
+    with np.load(os.path.join(fixture, "samples.npz")) as f:
+        s = {k: torch.from_numpy(f[k]).cuda() for k in f.files}
+    before = _ext.LAUNCHES["hash_encode"]
+    with torch.no_grad():
+        img = giraffe_forward(g, gcfg, latent_codes=LatentCodes(
+            s["z_shape_obj"], s["z_app_obj"], s["z_shape_bg"], s["z_app_bg"]),
+            camera_matrices=(s["camera_mat"], s["world_mat"]),
+            transformations=(s["s"], s["t"], s["r"]), bg_rotation=s["bg_rotation"],
+            mode="eval")
+    assert _ext.LAUNCHES["hash_encode"] > before
+    np.testing.assert_allclose(img.cpu().numpy(), s["images"].cpu().numpy(), rtol=2e-3,
+                               atol=2e-4 + 2e-3)
+    # box-local points / 15 outside [-1, 1]^3 encode to zeros through the kernel
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.uniform(-1, 1, (4096, 3)) * 30.0 / 15.0).astype(np.float32)).cuda()
+    code = hg.hash_encode(x, g.decoder.hash_table.detach(), gcfg.decoder.hash_spec, 1.0)
+    oob = (x.abs() > 1.0).any(-1)
+    assert bool(oob.any()) and bool((code[oob] == 0).all())
+    want = hg.hash_encode_reference(x, g.decoder.hash_table.detach(), gcfg.decoder.hash_spec, 1.0)
+    assert (code - want).abs().max().item() <= 1e-5
