@@ -141,14 +141,15 @@ non-zero with no ``ok`` line:
              configs/256res/ffhq_256_sdf_tpu.yaml --sdf 1`` at batch 8 (2
              sphere-init steps, 3 stage-A and 3 stage-B iterations): exit 0,
              both artifacts, finite losses, d_ms/g_ms logged, stage medians
-             and wall time; the same command again trains nothing; a fresh
-             experiment with ``--exit-after 1`` exits 3 leaving a
-             ``models_*`` checkpoint, and the same command without it
-             resumes at step + 1 and finishes; then ``python -m
-             sdface_gan_tpu_torch.train --config
-             configs/256res/ffhq_256_sdf_ngp_tpu.yaml --sdf 1`` (NGP by the
-             yaml's type) likewise: exit 0, both artifacts, finite losses with
-             g_smooth.  Each command runs in a
+             and wall time, alone on the card; then together: the entry's
+             command again (it trains nothing), a fresh experiment with
+             ``--exit-after 1`` that exits 3 leaving a ``models_*``
+             checkpoint, the same command without it resuming at step + 1
+             and finishing, and ``python -m sdface_gan_tpu_torch.train
+             --config configs/256res/ffhq_256_sdf_ngp_tpu.yaml --sdf 1``
+             (NGP by the yaml's type): exit 0, both artifacts, finite losses
+             with g_smooth (its logged step ms taken beside the other two,
+             ``card_shared_with``).  Each command runs in a
              ``.chip_smoke_train_*`` directory with a ``configs`` symlink.
 9. evaluate - the evaluation and geometry tools over train_cli's two
              artifacts, in its directory: 48 procedural 256^2 heads into a
@@ -181,19 +182,21 @@ non-zero with no ``ok`` line:
              styles; small generators, batch 2, f32; loss rel <= 1e-4, every
              encoder gradient <= 1e-3 of its norm, under ``masked_parity``'s
              rule with the encoders' ReLU / PReLU / leaky-ReLU kinks too);
-             the E-step ms (CUDA events, median after the first of 5),
-             images/s and peak memory (<= 80 GB) of each encoder at batch 8,
-             256^2, against train_cli's flagship generator (pSp with ID and
-             LPIPS), one pSp step profiled (top device operations); one VAE E
-             step against train_cli's NGP generator, counted and profiled:
+             before it, alone on the card: the E-step ms (CUDA events,
+             median after the first of 5), images/s and peak memory (<= 80
+             GB) of each encoder at batch 8, 256^2, against train_cli's
+             flagship generator (pSp with ID and LPIPS), one pSp step
+             profiled (top device operations); one VAE E step against
+             train_cli's NGP generator, counted and profiled:
              hash_encode_kernel and neither K1 nor K2 (the frozen renderer);
-             then ``python -m sdface_gan_tpu_torch.train ... --vae 1`` and
-             ``--psp 1`` (weight archives of random ID / LPIPS nets) and
-             ``--vae 1`` under the NGP yaml, at once, 3 iterations each:
-             stages A and B skipped (artifacts untouched), ``encoder`` /
-             ``encoder_psp`` written, every loss finite; and a ``--vae 1``
-             run cut by ``--exit-after 1`` (exit 3) that the next run
-             resumes at step + 1.
+             after the parity, ``python -m sdface_gan_tpu_torch.train ...
+             --vae 1`` and ``--psp 1`` (weight archives of random ID /
+             LPIPS nets) and ``--vae 1`` under the NGP yaml, at once, 3
+             iterations each: stages A and B skipped (artifacts untouched),
+             ``encoder`` / ``encoder_psp`` written, every loss finite (their
+             logged E-step ms share the card); a ``--vae 1`` run cut by
+             ``--exit-after 1`` (exit 3) that the next run resumes at step +
+             1; and giraffe_train's CLI runs.
 11. bench   - ``python -m sdface_gan_tpu_torch.bench`` and ``... .bench_ngp`` at
              their defaults (the flagship at batch 32; the upstream hash grid,
              stage-A NGP at batch 4, three NGP serving grids at batch 8), one
@@ -209,7 +212,9 @@ non-zero with no ``ok`` line:
              3 iterations per stage (a 64-image store, a 64-image eval): the
              64^2 configs' path (store, train, both probes, sdf_mesh, eval)
              on the card, every loss finite, both verdicts, a mesh, a finite
-             FID.
+             FID.  Its processes run beside train_stage_c's parity and train
+             processes (started after stage C's timed steps, awaited after
+             its train processes); they time nothing.
 13. bridge_and_images - inside train_cli's directory, after train_stage_c:
              every committed image of ``tests/fixtures/images/`` (JPEGs of
              178 x 218 in 4:2:0, 4:2:2, 4:4:4, grey and with restart
@@ -256,7 +261,29 @@ non-zero with no ``ok`` line:
              ``encoder.pt``, the committed image files) and ``extract_mesh
              --n_meshes 2``, run together: PNG sheets and ``.ply`` files,
              seconds of each command.
-15. the ``kernels`` line (launches of every phase's counted runs: the
+15. giraffe_train - GIRAFFE's and gan2d's training, after giraffe in
+             train_cli's directory (its CLI processes, below, run beside
+             train_stage_c's train processes): the D, G and (``--vae 1``) E
+             steps of ``ffhq_256.yaml`` (plain and ``--small_net 1``) and
+             ``ffhq_256_vae_hash.yaml --i_embed 1`` at full width and the
+             yamls' batch 32 on seeded weights (the hash tables at std 1)
+             and procedural 256^2 heads: median event ms of 3 after a
+             warm-up, peak GB, a profiled step's device ms over that median
+             (``busy_over_ms``, unclamped) and 1 minus it, the hash
+             kernels' launches per step kind (K1 in G steps only, never K2,
+             no plain encode on the card; the hash G step's profile names
+             hash_encode_kernel and hash_encode_backward_kernel); K1 against
+             the plain VJP on that G step's own box-local points (<= 1e-5 of
+             the norm), timed beside ``index_add_`` and its bound; one D, G
+             and E step of the hash decoder at the fixture's cut width and
+             one gan2d D and G step, the card against the CPU
+             (``masked_parity``: loss rel 1e-4, gradients 1e-3 of their
+             norm), all alone on the card; and the CLI runs' results:
+             ``import_jax_checkpoints --sdf 0`` of the committed JAX GIRAFFE run with every tree and ``train --sdf 0``
+             resuming it at it 5-6, a ``train --sdf 0 --exit-after 1`` run
+             (exit 3) and its resume at it + 1 (exit 3 again), and a
+             ``method: gan2d`` yaml at 64^2 for 3 iterations.
+16. the ``kernels`` line (launches of every phase's counted runs: the
              bench processes report theirs), then the nvidia-smi line, then
              the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32: this process
@@ -1103,14 +1130,14 @@ def time_ngp_kernels(results: dict, tuned_model) -> dict:
     return out
 
 
-def scatter_pairs(x, spec, g):
+def scatter_pairs(x, spec, g, box: float = NGP_BOUND):
     """The (row [M], value [M, C]) pairs of the table gradient, formed as
     the plain version forms them: what one ``index_add_`` then sums."""
     import torch
 
     from sdface_gan_tpu_torch.ops import hash_encoder as hg
 
-    x01f, oob = hg._normalize(x, spec, NGP_BOUND)
+    x01f, oob = hg._normalize(x, spec, box)
     n, c = x01f.shape[0], spec.level_dim
     cot = torch.where(oob[:, :, None], 0.0, g.float().reshape(n, spec.num_levels, c))
     corners = hg._corner_offsets(3)
@@ -1123,8 +1150,9 @@ def scatter_pairs(x, spec, g):
 
 
 def grad_kernel_case(spec, dtype, x, kernel: str, need_x: bool, need_table: bool,
-                     need_g: bool = False) -> dict:
-    """One K1 or K2 launch at a main-path shape: profiler device ms per
+                     need_g: bool = False, box: float = NGP_BOUND) -> dict:
+    """One K1 or K2 launch at a main-path shape (points in a box of half
+    side ``box``): profiler device ms per
     launch, the call's event ms, the plain version's ms, one ``index_add_``
     of the table gradient's pairs (where it computes one), and the bound:
     x, g (and v) read once, the table read once where d x or d g reads it,
@@ -1144,11 +1172,11 @@ def grad_kernel_case(spec, dtype, x, kernel: str, need_x: bool, need_table: bool
     reads_table = need_x if kernel == "backward" else need_g
     if kernel == "backward":
         def fn():
-            return hg.hash_encode_backward(x, table, g, spec, NGP_BOUND, need_x=need_x,
+            return hg.hash_encode_backward(x, table, g, spec, box, need_x=need_x,
                                            need_table=need_table)
 
         def plain():
-            return hg.hash_encode_backward_reference(x, table, g, spec, NGP_BOUND,
+            return hg.hash_encode_backward_reference(x, table, g, spec, box,
                                                      need_x=need_x, need_table=need_table)
 
         per = 2 + (2 * c if need_table else 0) + (2 * c + 8 if need_x else 0)
@@ -1156,11 +1184,11 @@ def grad_kernel_case(spec, dtype, x, kernel: str, need_x: bool, need_table: bool
         name = "hash_encode_backward_kernel"
     else:
         def fn():
-            return hg.hash_encode_double_backward(x, table, g, v, spec, NGP_BOUND,
+            return hg.hash_encode_double_backward(x, table, g, v, spec, box,
                                                   need_table=need_table, need_g=need_g)
 
         def plain():
-            return hg.hash_encode_double_backward_reference(x, table, g, v, spec, NGP_BOUND,
+            return hg.hash_encode_double_backward_reference(x, table, g, v, spec, box,
                                                             need_table=need_table,
                                                             need_g=need_g)
 
@@ -1171,7 +1199,7 @@ def grad_kernel_case(spec, dtype, x, kernel: str, need_x: bool, need_table: bool
     nbytes += (spec.table_size * c * es if need_table else 0)
     library_ms = None
     if need_table:
-        rows, vals = scatter_pairs(x, spec, g)
+        rows, vals = scatter_pairs(x, spec, g, box)
         out = torch.zeros((spec.table_size, c), device="cuda")
         library_ms = cuda_ms(lambda: out.index_add_(0, rows, vals), iters=10)
         del rows, vals, out
@@ -1667,7 +1695,7 @@ def profile_train_step(vol_dir: str, setting: str = "a") -> dict:
             kernel_ms = {k: sum(us for key, (us, _) in dev_us.items() if row in key) / 1e3
                          for k, row in HASH_KERNEL_ROWS.items()}
             out[name] = dict(host_ms=host_ms, device_ms_total=total / 1e3,
-                             device_idle_share=max(0.0, 1 - total / 1e3 / host_ms),
+                             device_idle_share=1 - total / 1e3 / host_ms,
                              kernels=len(dev_us), launches=launches,
                              hash_kernel_device_ms=kernel_ms,
                              top=[(k[:100], us / 1e3, n) for k, (us, n) in top])
@@ -1976,6 +2004,7 @@ def train_cli(results: dict, smi: str) -> None:
     host, ``python -m sdface_gan_tpu_torch.train`` through sphere init, stage A
     and stage B at full width, then the stage flow (a rerun trains nothing,
     ``--exit-after`` exits 3 and the next run resumes)."""
+    import re
     import tempfile
 
     import numpy as np
@@ -1983,7 +2012,7 @@ def train_cli(results: dict, smi: str) -> None:
     from sdface_gan_tpu_torch import native
     from sdface_gan_tpu_torch.data import DataLoader, MultiResolutionDataset
     from sdface_gan_tpu_torch.data.png import encode_png
-    from sdface_gan_tpu_torch.utils.checkpoints import checkpoint_exists, latest_checkpoint_step
+    from sdface_gan_tpu_torch.utils.checkpoints import checkpoint_exists
 
     import gc
 
@@ -2040,6 +2069,13 @@ def train_cli(results: dict, smi: str) -> None:
 
         cmd = ["--config", CLI_CONFIG, "--sdf", "1", "--dataset_path", "store",
                "--iters", "3", *CLI_TRAIN_FLAGS]
+        with open(os.path.join(td, "cut.yaml"), "w") as f:
+            f.write(f"inherit_from: {CLI_CONFIG}\ntraining:\n  out_dir: out/smoke_cut\n")
+        cut_cmd = ["--config", "cut.yaml", "--sdf", "1", "--dataset_path", "store",
+                   "--iters", "6", *CLI_TRAIN_FLAGS]
+        # the entry alone on the card (its logged step ms are this phase's
+        # timings); then its rerun, a run cut by --exit-after with its
+        # resume, and the NGP generator's run together
         entry = run_module("train", cmd, td)
         check("precision: f32 matmuls and convolutions without TF32" in entry["stdout"],
               "the entry trains with TF32 off, as train_parity checks")
@@ -2070,29 +2106,26 @@ def train_cli(results: dict, smi: str) -> None:
         emit(phase="train_cli_entry", **rec_entry)
 
         before = _tree_mtimes(out)
-        rerun = run_module("train", cmd, td)
+        runs = run_modules_together({
+            "rerun": [("train", cmd)],
+            "cut": [("train", cut_cmd + ["--exit-after", "1"], 3), ("train", cut_cmd)],
+            "ngp": [("train", ["--config", CLI_NGP_CONFIG, "--sdf", "1", "--dataset_path",
+                               "store", "--iters", "3", *CLI_TRAIN_FLAGS])]}, td)
+        rerun, resume, ngp = runs["rerun"], runs["cut"], runs["ngp"]
         check(_tree_mtimes(out) == before, "a rerun trains nothing")
-        with open(os.path.join(td, "cut.yaml"), "w") as f:
-            f.write(f"inherit_from: {CLI_CONFIG}\ntraining:\n  out_dir: out/smoke_cut\n")
-        cut_cmd = ["--config", "cut.yaml", "--sdf", "1", "--dataset_path", "store",
-                   "--iters", "6", *CLI_TRAIN_FLAGS]
-        cut = run_module("train", cut_cmd + ["--exit-after", "1"], td, expect_rc=3)
-        cut_vr = os.path.join(td, "out", "smoke_cut", "volume_renderer")
-        cut_step = latest_checkpoint_step(cut_vr)
-        check(cut_step is not None, "--exit-after left a models_* checkpoint")
-        resume = run_module("train", cut_cmd, td)
-        check(f"resumed volume renderer at step {cut_step + 1}" in resume["stdout"],
-              "the next run resumed at step + 1")
+        # the cut run (exit 3, checked by run_modules_together) left a models_*
+        # checkpoint at some step k - 1; its resume says it started at k
+        resumed = re.search(r"resumed volume renderer at step (\d+)", resume["stdout"])
+        check(resumed is not None and int(resumed.group(1)) >= 1,
+              "the run cut by --exit-after was resumed at its checkpoint's step + 1")
         check(checkpoint_exists(os.path.join(td, "out", "smoke_cut"), "full_pipeline"),
               "the resumed run finished")
-        rec_flow = dict(rerun_rc=rerun["rc"], rerun_s=rerun["seconds"], exit_after_rc=cut["rc"],
-                        exit_after_step=cut_step, exit_after_s=cut["seconds"],
-                        resume_rc=resume["rc"], resume_s=resume["seconds"])
+        rec_flow = dict(rerun_rc=rerun["rc"], rerun_s=rerun["seconds"], exit_after_rc=3,
+                        exit_after_step=int(resumed.group(1)) - 1, resume_rc=resume["rc"],
+                        cut_and_resume_s=resume["seconds"])
         emit(phase="train_cli_flow", **rec_flow)
 
-        # the NGP generator from its tuned yaml (rendering: type: ngp)
-        ngp = run_module("train", ["--config", CLI_NGP_CONFIG, "--sdf", "1", "--dataset_path",
-                                   "store", "--iters", "3", *CLI_TRAIN_FLAGS], td)
+        # the NGP generator from its tuned yaml (rendering: type: ngp), run above
         ngp_out = os.path.join(td, "out", CLI_NGP_EXP)
         ngp_vr = os.path.join(ngp_out, "volume_renderer")
         check(checkpoint_exists(ngp_vr, "vol_renderer")
@@ -2106,9 +2139,10 @@ def train_cli(results: dict, smi: str) -> None:
               and all("g_smooth" in r for r in adv), "NGP: 3 + 3 iterations, g_smooth logged")
         for r in ngp_a + ngp_b:
             emit(phase="train", run="train_cli_ngp", **r)
+        # its step ms were logged with the rerun and the cut pair on the card
         rec_ngp = dict(config=CLI_NGP_CONFIG, command_s=ngp["seconds"],
                        stage_a=_step_medians(ngp_a), stage_b=_step_medians(ngp_b),
-                       g_smooth=[r["g_smooth"] for r in adv])
+                       card_shared_with=["rerun", "cut"], g_smooth=[r["g_smooth"] for r in adv])
         emit(phase="train_cli_ngp", **rec_ngp)
         results["train_cli"] = dict(store=rec_store, loader=rec_loader, entry=rec_entry,
                                     flow=rec_flow, ngp=rec_ngp)
@@ -2117,15 +2151,16 @@ def train_cli(results: dict, smi: str) -> None:
              batch_work_ms_median=rec_loader["batch_work_ms_median"], stage_a_step_ms=step_a_ms,
              loader_keeps_up=rec_loader["keeps_up"], entry_rc=entry["rc"],
              entry_s=entry["seconds"], stage_a=stage_a, stage_b=stage_b, rerun_rc=rerun["rc"],
-             exit_after_rc=cut["rc"], resume_rc=resume["rc"])
+             exit_after_rc=3, resume_rc=resume["rc"])
         # the evaluation and geometry tools over the artifacts just trained
         evaluate(results, smi, td)
-        # and stage C over them
-        train_stage_c(results, smi, td)
+        # and stage C over them (giraffe_train's CLI runs beside its own)
+        giraffe_cli = train_stage_c(results, smi, td)
         # then JAX's checkpoints and the image decoders
         bridge_and_images(results, smi, td)
-        # and the GIRAFFE family
+        # and the GIRAFFE family, served, then trained
         giraffe(results, smi, td)
+        giraffe_train(results, smi, td, giraffe_cli)
 
 
 # The train_stage_c phase: stage C over train_cli's artifacts.
@@ -2344,14 +2379,16 @@ def _stage_c_rows(enc_dir: str, what: str, steps: list) -> list:
     return rows
 
 
-def train_stage_c(results: dict, smi: str, td: str) -> None:
+def train_stage_c(results: dict, smi: str, td: str) -> dict:
     """Stage C on the card over train_cli's artifacts, in its directory:
-    the parity of both E steps, their time and memory at full width (and a
-    profiled pSp step), an NGP E step by kernel, then the train entry:
+    both E steps' time and memory at full width (and a profiled pSp step)
+    and an NGP E step by kernel, alone on the card; then, beside
+    train_64's run, the parity of both E steps and the train entry:
     ``--vae 1`` and ``--psp 1`` (with two weight archives of random ID and
     LPIPS nets) and ``--vae 1`` under the NGP yaml, each skipping stages A
     and B, 3 iterations; beside them a ``--vae 1`` run cut by ``--exit-after
-    1`` (exit 3) that the next run resumes at step + 1."""
+    1`` (exit 3) that the next run resumes at step + 1, and giraffe_train's
+    CLI runs (:func:`giraffe_train_jobs`), whose results it returns."""
     import gc
 
     import torch
@@ -2361,40 +2398,57 @@ def train_stage_c(results: dict, smi: str, td: str) -> None:
     from sdface_gan_tpu_torch.ops import _ext
 
     t0 = time.perf_counter()
-    parity = stage_c_parity()
+    # the timed E steps and the profiled NGP step alone on the card; then
+    # train_64's run (which times nothing) beside the parity and the train
+    # processes (whose logged E-step ms share the card)
     timing = stage_c_timing(td)
     emit(phase="train_stage_c_timing", nvidia_smi=smi, **timing)
     _ext.reset_launch_counts()
     ngp = stage_c_ngp_step(td)
     emit(phase="train_stage_c_ngp", nvidia_smi=smi, **ngp)
-    gc.collect()
-    torch.cuda.empty_cache()  # leave the card to the train processes
+    run_64 = start_train_64()
+    try:
+        parity = stage_c_parity()
+        gc.collect()
+        torch.cuda.empty_cache()  # leave the card to the train processes
 
-    # random ID / LPIPS nets in the archive formats --irse_weights and
-    # --lpips_weights read (model_ir_se50.pth; {"alex": features.*, "lin": lin*})
-    seed = torch.Generator().manual_seed
-    irse_path, lpips_path = os.path.join(td, "irse_random.pth"), os.path.join(td, "lpips.pth")
-    torch.save(IRSEBackbone(generator=seed(31)).state_dict(), irse_path)
-    lp = LPIPS(generator=seed(32))
-    torch.save({"alex": {f"features.{cid}.{w}": lp.alex.features[str(cid)].state_dict()[w]
-                         for cid in ALEX_CONV_IDS for w in ("weight", "bias")},
-                "lin": {f"lin{i}.model.1.weight": lp.lins[f"lin{i}"].model[1].weight.detach()
-                        for i in range(5)}}, lpips_path)
+        # random ID / LPIPS nets in the archive formats --irse_weights and
+        # --lpips_weights read (model_ir_se50.pth; {"alex": features.*, "lin": lin*})
+        seed = torch.Generator().manual_seed
+        irse_path = os.path.join(td, "irse_random.pth")
+        lpips_path = os.path.join(td, "lpips.pth")
+        torch.save(IRSEBackbone(generator=seed(31)).state_dict(), irse_path)
+        lp = LPIPS(generator=seed(32))
+        alex = {f"features.{cid}.{w}": lp.alex.features[str(cid)].state_dict()[w]
+                for cid in ALEX_CONV_IDS for w in ("weight", "bias")}
+        lins = {f"lin{i}.model.1.weight": lp.lins[f"lin{i}"].model[1].weight.detach()
+                for i in range(5)}
+        torch.save({"alex": alex, "lin": lins}, lpips_path)
 
-    base = ["--sdf", "1", "--dataset_path", "store", *CLI_TRAIN_FLAGS]
-    cut_cmd = ["--config", "cut.yaml", "--iters", str(STAGE_C_CUT_ITERS), "--vae", "1", *base]
-    out, ngp_out = os.path.join(td, "out", CLI_EXP), os.path.join(td, "out", CLI_NGP_EXP)
-    before = {k: os.stat(os.path.join(d, f"{n}.pt")).st_mtime_ns
-              for k, (d, n) in {"vr": (os.path.join(out, "volume_renderer"), "vol_renderer"),
-                                "fp": (out, "full_pipeline"), "ngp": (ngp_out, "full_pipeline")
-                                }.items()}
-    runs = run_modules_together({
-        "vae": [("train", ["--config", CLI_CONFIG, "--iters", "3", "--vae", "1", *base])],
-        "psp": [("train", ["--config", CLI_CONFIG, "--iters", "3", "--psp", "1",
-                           "--irse_weights", irse_path, "--lpips_weights", lpips_path, *base])],
-        "ngp": [("train", ["--config", CLI_NGP_CONFIG, "--iters", "3", "--vae", "1", *base])],
-        "cut": [("train", cut_cmd + ["--exit-after", "1"], 3), ("train", cut_cmd)],
-    }, td)
+        base = ["--sdf", "1", "--dataset_path", "store", *CLI_TRAIN_FLAGS]
+        cut_cmd = ["--config", "cut.yaml", "--iters", str(STAGE_C_CUT_ITERS), "--vae", "1",
+                   *base]
+        out, ngp_out = os.path.join(td, "out", CLI_EXP), os.path.join(td, "out", CLI_NGP_EXP)
+        before = {k: os.stat(os.path.join(d, f"{n}.pt")).st_mtime_ns
+                  for k, (d, n) in {"vr": (os.path.join(out, "volume_renderer"), "vol_renderer"),
+                                    "fp": (out, "full_pipeline"), "ngp": (ngp_out, "full_pipeline")
+                                    }.items()}
+        runs = run_modules_together({
+            "vae": [("train", ["--config", CLI_CONFIG, "--iters", "3", "--vae", "1", *base])],
+            "psp": [("train", ["--config", CLI_CONFIG, "--iters", "3", "--psp", "1",
+                               "--irse_weights", irse_path, "--lpips_weights", lpips_path,
+                               *base])],
+            "ngp": [("train", ["--config", CLI_NGP_CONFIG, "--iters", "3", "--vae", "1",
+                               *base])],
+            "cut": [("train", cut_cmd + ["--exit-after", "1"], 3), ("train", cut_cmd)],
+            **giraffe_train_jobs(td)}, td)
+        giraffe_cli = {k: runs.pop(k) for k in ("giraffe_resume", "giraffe_cut", "gan2d")}
+    except BaseException:
+        run_64[0].kill()
+        run_64[0].wait()
+        run_64[1].cleanup()
+        raise
+    train_64(results, smi, run_64)
     cut = runs.pop("cut")
     after = {k: os.stat(os.path.join(d, f"{n}.pt")).st_mtime_ns
              for k, (d, n) in {"vr": (os.path.join(out, "volume_renderer"), "vol_renderer"),
@@ -2432,12 +2486,13 @@ def train_stage_c(results: dict, smi: str, td: str) -> None:
                        for k in ("vae", "psp")},
                psp_profile_top=timing["psp_profile"]["top"][:5], ngp=ngp,
                cli_s={k: r["seconds"] for k, r in runs.items()},
-               cli_e_ms={k: statistics.median(r["e_ms"] for r in rs[1:])
-                         for k, rs in rows.items()},
+               cli_e_ms_card_shared={k: statistics.median(r["e_ms"] for r in rs[1:])
+                                     for k, rs in rows.items()},
                exit_after_step=resumed[0] - 1, exit_after_and_resume_s=cut["seconds"],
                seconds=time.perf_counter() - t0)
     results["train_stage_c"] = rec
     emit(phase="train_stage_c", nvidia_smi=smi, **rec)
+    return giraffe_cli
 
 
 # The bridge_and_images phase: JAX's checkpoints and the image decoders.
@@ -3064,6 +3119,331 @@ def giraffe(results: dict, smi: str, td: str) -> None:
                                              if k not in ("plain", "hash", "small")})
 
 
+# The giraffe_train phase: GIRAFFE's and gan2d's training, after giraffe in
+# train_cli's directory.  The full-width steps at the yamls' batch, each
+# case: (yaml, model flags, hash decoder, VAE encoder step).
+GIRAFFE_TRAIN_BATCH = 32  # training.batch_size of the GIRAFFE yamls (configs/default.yaml)
+GIRAFFE_TRAIN_TIMED = 3  # timed steps per kind, the median, after one warm-up
+GIRAFFE_TRAIN_CASES = {"plain": (GIRAFFE_CONFIG, {}, False, False),
+                       "hash_vae": (GIRAFFE_HASH_CONFIG, dict(i_embed=1), True, True),
+                       "small": (GIRAFFE_CONFIG, dict(small_net=1), True, False)}
+GIRAFFE_TRAIN_TOL = (1e-4, 1e-3)  # loss rel, gradient of its norm (masked_parity's rule)
+GIRAFFE_PARITY_BATCH, GAN2D_PARITY_BATCH = 2, 4
+GIRAFFE_CUT_YAML = ("inherit_from: jax_giraffe.yaml\ntraining:\n  out_dir: out/giraffe_cut\n"
+                    "  max_it: 100000\n  print_every: 1\n  checkpoint_every: 100000\n")
+GIRAFFE_RESUME_YAML = ("inherit_from: jax_giraffe.yaml\ntraining:\n"
+                       "  out_dir: out/jax_giraffe_train\n  max_it: 6\n")
+GAN2D_YAML = (f"method: gan2d\ndata:\n  path: {GIRAFFE_IMAGES}\n  img_size: 64\n"
+              "training:\n  out_dir: out/gan2d_64\n  batch_size: 8\n  max_it: 3\n"
+              "  print_every: 1\n  visualize_every: 3\n  checkpoint_every: 3\n")
+
+
+def giraffe_train_models(config: str, flags: dict, hashed: bool, vae: bool, device):
+    """(run configs, G, D, G's EMA, their optimizers, VAE and its optimizer or
+    None) of a yaml and flags on ``device``, as the train entry builds them
+    from seed 0, G's hash table redrawn at std 1."""
+    import types
+
+    import torch
+
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.yaml_config import default_config_path
+    from sdface_gan_tpu_torch.giraffe.train_loop import giraffe_models, giraffe_run_configs
+
+    cfg = load_config(os.path.join(HERE, config), default_config_path())
+    configs = giraffe_run_configs(cfg, types.SimpleNamespace(**flags))
+    models = giraffe_models(configs, torch.Generator().manual_seed(0), device, vae)
+    if hashed:
+        table = models[0].decoder.hash_table
+        with torch.no_grad():
+            table.copy_(torch.randn(table.shape, generator=torch.Generator().manual_seed(0)))
+    return (configs, *models)
+
+
+def giraffe_heads(n: int, res: int, seed: int):
+    """``n`` procedural heads [n, res, res, 3] in [0, 1] (``data.synthetic``)."""
+    import numpy as np
+    import torch
+
+    from sdface_gan_tpu_torch.data.synthetic import render_head
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack([render_head(rng, res) for _ in range(n)])).float()
+
+
+def giraffe_train_case(name: str, config: str, flags: dict, hashed: bool, vae: bool) -> dict:
+    """D, G (and E) steps at full width and the yaml's batch on the card:
+    median event ms of 3 after a warm-up, peak GB, the device's busy and
+    idle share of each step (one profiled step), the hash kernels' launches
+    per step kind; the hash G step's own encode inputs for the K1 check."""
+    import torch
+
+    from sdface_gan_tpu_torch.giraffe import trainer as tr
+    from sdface_gan_tpu_torch.ops import _ext
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    configs, g, d, g_ema, g_opt, d_opt, e, e_opt = giraffe_train_models(config, flags, hashed,
+                                                                        vae, "cuda")
+    gcfg, hp = configs.generator, configs.hp
+    b = GIRAFFE_TRAIN_BATCH
+    reals = giraffe_heads(b, gcfg.neural_renderer.img_size, seed=5).cuda()
+    gen = torch.Generator().manual_seed(1)
+    steps = {"d": (lambda dr: tr.giraffe_d_step(g, d, d_opt, gcfg, hp, reals, dr),
+                   tr.sample_scene_draws),
+             "g": (lambda dr: tr.giraffe_g_step(g, d, g_opt, g_ema, gcfg, hp, dr),
+                   tr.sample_scene_draws)}
+    if vae:
+        steps["e"] = (lambda dr: tr.giraffe_e_step(e, g, d, e_opt, gcfg, reals, dr),
+                      tr.sample_encoder_draws)
+    rec, hash_inputs = dict(config=config, flags=flags, batch=b,
+                            image=gcfg.neural_renderer.img_size), None
+    with torch.enable_grad():
+        for kind, (step, sample) in steps.items():
+            # the timed steps' draws are made first: the host's draw is timed apart
+            draws = [sample(gen, gcfg, b, "cuda") for _ in range(GIRAFFE_TRAIN_TIMED)]
+            t0 = time.perf_counter()
+            warm = sample(gen, gcfg, b, "cuda")
+            draw_ms = (time.perf_counter() - t0) * 1e3
+            metrics = step(warm)
+            torch.cuda.synchronize()
+            _ext.reset_launch_counts()
+            with plain_encodes_on_card() as plain:
+                times = []
+                for _ in range(GIRAFFE_TRAIN_TIMED):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                        enable_timing=True)
+                    start.record()
+                    step(draws.pop())
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+            launches = {k: _ext.LAUNCHES[k] for k in ("hash_encode", "hash_encode_backward",
+                                                     "hash_encode_double_backward")}
+            check(not plain, f"giraffe_train {name} {kind}: no plain encode on the card")
+            check(all(torch.isfinite(v).all() for v in metrics.values()),
+                  f"giraffe_train {name} {kind}: finite losses {metrics}")
+            want = ("hash_encode_kernel", "hash_encode_backward_kernel") if (
+                hashed and kind == "g") else ()
+            if want:
+                with recorded_hash_inputs() as seen:
+                    step(sample(gen, gcfg, b, "cuda"))
+                    torch.cuda.synchronize()
+                hash_inputs = seen
+            _, names, _ = profiled(lambda: step(sample(gen, gcfg, b, "cuda")), want=want)
+            busy = sum(us for us, _ in names.values()) / 1e3
+            ms = statistics.median(times)
+            top = sorted(names.items(), key=lambda kv: -kv[1][0])[:5]
+            # the profiled step's device time over the timed steps' median:
+            # above 1 when the profiled step ran longer than that median
+            rec[kind] = dict(ms=ms, times_ms=times, draw_ms=draw_ms, device_ms_total=busy,
+                             busy_over_ms=busy / ms, idle_share=1.0 - busy / ms,
+                             launches=launches,
+                             kernels_profiled={k[:60]: names[k][1] for k in names
+                                               if "hash_encode" in k},
+                             top_device_ms={k[:80]: us / 1e3 for k, (us, _) in top},
+                             losses={k: float(v) for k, v in metrics.items()})
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for kind in steps:
+        k1 = rec[kind]["launches"]["hash_encode_backward"]
+        check((k1 > 0) == (hashed and kind == "g"),
+              f"giraffe_train {name}: K1 launched in G steps only ({kind}: {k1} in "
+              f"{GIRAFFE_TRAIN_TIMED} steps)")
+        check(rec[kind]["launches"]["hash_encode_double_backward"] == 0,
+              f"giraffe_train {name} {kind}: no K2 (GIRAFFE has no eikonal)")
+        check(not hashed or rec[kind]["launches"]["hash_encode"] > 0,
+              f"giraffe_train {name} {kind}: the hash decoder's encodes on the kernel")
+    if hashed:
+        check(all(any(w in k for k in rec["g"]["kernels_profiled"])
+                  for w in ("hash_encode_kernel", "hash_encode_backward_kernel")),
+              f"giraffe_train {name}: the G step's profile names both hash kernels "
+              f"({rec['g']['kernels_profiled']})")
+    spec = g.decoder.cfg.hash_spec if hashed else None
+    table = g.decoder.hash_table.detach() if hashed else None
+    del g, d, g_ema, g_opt, d_opt, e, e_opt, reals
+    torch.cuda.empty_cache()
+    return rec, (spec, table, hash_inputs)
+
+
+def giraffe_k1_check(spec, table, hash_inputs: list) -> dict:
+    """K1 (the table gradient alone, as the G step asks it) against the plain
+    VJP on a hash G step's own box-local points (bound 1) and its model's
+    std-1 table, a random cotangent: <= 1e-5 of the plain gradient's norm;
+    then timed at that shape by ``grad_kernel_case`` beside ``index_add_``."""
+    import torch
+
+    from sdface_gan_tpu_torch.ops import hash_encoder as hg
+
+    x = hash_inputs[0].reshape(-1, 3).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    cot = torch.randn((x.shape[0], spec.output_dim), generator=gen, device="cuda")
+    _, got = hg.hash_encode_backward(x, table, cot, spec, 1.0, need_x=False, need_table=True)
+    _, want = hg.hash_encode_backward_reference(x, table, cot, spec, 1.0, need_x=False,
+                                                need_table=True)
+    rel = ((got - want).norm() / want.norm()).item()
+    check(rel <= GRAD_RTOL["float32"],
+          f"giraffe_train: K1 vs the plain VJP on the G step's points, rel {rel}")
+    oob = (x.abs() > 1.0).any(-1).float().mean().item()
+    del got, want, cot
+    timed = grad_kernel_case(spec, torch.float32, x, "backward", need_x=False, need_table=True,
+                             box=1.0)
+    return dict(points=x.shape[0], encodes_per_step=len(hash_inputs), oob_share=oob,
+                max_rel_err=rel, **{k: timed[k] for k in (
+                    "kernel", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "atomics")})
+
+
+def giraffe_train_parity() -> dict:
+    """One D, one G and one E step on the hash decoder at the fixture's cut
+    width (``jax_giraffe.yaml``: 32^2, decoder 4 x 32, T = 2^10, a 16^2 x 16
+    volume, batch 2), and one gan2d D and G step (64^2, the yaml defaults'
+    widths, batch 4): the card against the CPU under ``masked_parity``."""
+    import copy
+
+    import torch
+
+    from sdface_gan_tpu_torch.gan2d import trainer as g2
+    from sdface_gan_tpu_torch.gan2d.generator import Gan2dGenerator, Gan2dGeneratorConfig
+    from sdface_gan_tpu_torch.giraffe import trainer as tr
+    from sdface_gan_tpu_torch.giraffe.discriminator import DCDiscConfig, DCDiscriminator
+
+    flags = dict(i_embed=1, log2_hashmap_size=10, finest_res=64)
+    configs, g, d, _, _, _, e, _ = giraffe_train_models(
+        os.path.join(GIRAFFE_FIXTURE, "jax_giraffe.yaml"), flags, True, True, "cpu")
+    gcfg = dataclasses.replace(configs.generator, n_ray_samples=16)
+    b = GIRAFFE_PARITY_BATCH
+    reals = giraffe_heads(b, gcfg.neural_renderer.img_size, seed=6)
+
+    def draws(dev):
+        """The same draws on either device (made on the host, mapped on ``dev``)."""
+        gen = torch.Generator().manual_seed(2)
+        scene = tr.sample_scene_draws(gen, gcfg, b, dev)
+        return scene, tr.sample_encoder_draws(gen, gcfg, b, dev)
+
+    def on(dev, *modules):
+        return [copy.deepcopy(m).to(dev) for m in modules]
+
+    def d_step(dev):
+        gd, dd = on(dev, g, d)
+        return tr.giraffe_d_loss(gd, dd, gcfg, configs.hp, reals.to(dev), draws(dev)[0])[0], \
+            dd, None
+
+    def g_step(dev):
+        gd, dd = on(dev, g, d)
+        with tr.frozen(dd):
+            return tr.giraffe_g_loss(gd, dd, gcfg, draws(dev)[0])[0], gd, None
+
+    def e_step(dev):
+        ed, gd, dd = on(dev, e, g, d)
+        with tr.frozen(gd, dd):
+            return tr.giraffe_e_loss(ed, gd, dd, gcfg, reals.to(dev), draws(dev)[1])[0], ed, None
+
+    g2cfg = Gan2dGeneratorConfig(size=64)
+    g2d = Gan2dGenerator(g2cfg, torch.Generator().manual_seed(3))
+    d2d = DCDiscriminator(DCDiscConfig(img_size=64), torch.Generator().manual_seed(4))
+    z = g2.sample_z(torch.Generator().manual_seed(5), GAN2D_PARITY_BATCH, g2cfg.z_dim)
+    reals64 = giraffe_heads(GAN2D_PARITY_BATCH, 64, seed=7)
+
+    def gan2d_d(dev):
+        gd, dd = on(dev, g2d, d2d)
+        return g2.gan2d_d_loss(gd, dd, g2.Gan2dTrainHParams(), reals64.to(dev),
+                               z.to(dev))[0], dd, None
+
+    def gan2d_g(dev):
+        gd, dd = on(dev, g2d, d2d)
+        with tr.frozen(dd):
+            return g2.gan2d_g_loss(gd, dd, z.to(dev))[0], gd, None
+
+    steps = dict(giraffe_d=d_step, giraffe_g=g_step, giraffe_e=e_step, gan2d_d=gan2d_d,
+                 gan2d_g=gan2d_g)
+    with torch.enable_grad():
+        return masked_parity("giraffe_train_parity", steps,
+                             {k: GIRAFFE_TRAIN_TOL for k in steps})
+
+
+def giraffe_train_jobs(td: str) -> dict:
+    """giraffe_train's CLI runs in ``td`` (32^2 and 64^2 at batch 2-8), for
+    ``run_modules_together``: ``import_jax_checkpoints --sdf 0`` of the
+    committed JAX GIRAFFE run with every tree and ``train --sdf 0`` resuming
+    it at it 5-6; a ``train --sdf 0 --exit-after 1`` run (exit 3) and its
+    resume at it + 1 (exit 3 again); a ``method: gan2d`` yaml at 64^2 for 3
+    iterations.  They time nothing, so they run beside train_stage_c's
+    train processes; giraffe_train checks what they wrote."""
+    if not os.path.exists(os.path.join(td, "tests")):
+        os.symlink(os.path.join(HERE, "tests"), os.path.join(td, "tests"))
+    shutil.copy(os.path.join(GIRAFFE_FIXTURE, "jax_giraffe.yaml"), td)
+    for name, text in (("giraffe_cut.yaml", GIRAFFE_CUT_YAML),
+                       ("jax_giraffe_train.yaml", GIRAFFE_RESUME_YAML),
+                       ("gan2d_64.yaml", GAN2D_YAML)):
+        with open(os.path.join(td, name), "w") as f:
+            f.write(text)
+    fixture_flags = ["--sdf", "0", *GIRAFFE_FIXTURE_FLAGS]
+    cut = ["--config", "giraffe_cut.yaml", *fixture_flags, "--exit-after", "1"]
+    return {
+        "giraffe_resume": [
+            ("import_jax_checkpoints", ["--src", os.path.join(GIRAFFE_FIXTURE, "run"),
+                                        "--config", "jax_giraffe_train.yaml", *fixture_flags]),
+            ("train", ["--config", "jax_giraffe_train.yaml", *fixture_flags])],
+        "giraffe_cut": [("train", cut, 3), ("train", cut, 3)],
+        "gan2d": [("train", ["--config", "gan2d_64.yaml", "--sdf", "0"])]}
+
+
+def giraffe_train(results: dict, smi: str, td: str, cli: dict) -> None:
+    """GIRAFFE's training on the card: the D, G and E steps at full width
+    (``ffhq_256`` plain and small, ``ffhq_256_vae_hash --i_embed 1 --vae 1``)
+    at batch 32, K1 on the hash G step's own points and the card against
+    the CPU, alone on the card; then what the CLI runs of
+    :func:`giraffe_train_jobs` (``cli``, run beside train_stage_c) wrote:
+    the train entry from the committed JAX run, cut and resumed, and on a
+    gan2d yaml."""
+    import torch
+
+    from sdface_gan_tpu_torch.utils.checkpoints import CheckpointIO
+
+    t_phase = time.perf_counter()
+    cases, k1_inputs = {}, None
+    for name, (config, flags, hashed, vae) in GIRAFFE_TRAIN_CASES.items():
+        cases[name], inputs = giraffe_train_case(name, config, flags, hashed, vae)
+        emit(phase="giraffe_train_steps", case=name, nvidia_smi=smi, **cases[name])
+        if name == "hash_vae":
+            k1_inputs = inputs
+    k1 = giraffe_k1_check(*k1_inputs)
+    emit(phase="giraffe_train_k1", nvidia_smi=smi, **k1)
+    del k1_inputs
+    torch.cuda.empty_cache()
+    parity = giraffe_train_parity()
+    emit(phase="giraffe_train_parity", **parity)
+    out = os.path.join(td, "out")
+    rows = _train_rows(os.path.join(out, "jax_giraffe_train", "giraffe_metrics.jsonl"))
+    check([r["step"] for r in rows if "generator" in r] == [5, 6],
+          "giraffe_train: the imported JAX run resumed at it 5 and trained it 5-6")
+    _finite_losses(rows, "giraffe_train resume")
+    imported = CheckpointIO(os.path.join(out, "jax_giraffe_train")).load("model_0000004")
+    check(set(imported) == {"g", "d", "g_ema", "it"}, "giraffe_train: model_0000004 imported")
+    cut_rows = [r for r in _train_rows(os.path.join(out, "giraffe_cut", "giraffe_metrics.jsonl"))
+                if "generator" in r]
+    steps = [r["step"] for r in cut_rows]
+    check(steps == list(range(1, len(steps) + 1)) and len(steps) >= 2
+          and "resumed GIRAFFE from iteration" in cli["giraffe_cut"]["stdout"],
+          "giraffe_train: --exit-after exits 3 and the next run resumes at it + 1")
+    resumed_at = int(cli["giraffe_cut"]["stdout"].split("resumed GIRAFFE from iteration")[1]
+                     .split()[0])
+    _finite_losses(cut_rows, "giraffe_train cut")
+    g2_rows = _train_rows(os.path.join(out, "gan2d_64", "gan2d_metrics.jsonl"))
+    check([r["step"] for r in g2_rows] == [1, 2, 3], "giraffe_train: gan2d trained 3 iterations")
+    _finite_losses(g2_rows, "giraffe_train gan2d")
+    check(os.path.exists(os.path.join(out, "gan2d_64", "vis_0000003.png")),
+          "giraffe_train: gan2d wrote its grid")
+    launches = {k: sum(c[kind]["launches"][k] for c in cases.values() for kind in ("d", "g", "e")
+                       if kind in c) for k in ("hash_encode", "hash_encode_backward")}
+    rec = dict(steps=cases, k1=k1, parity=parity, launches=launches,
+               cli_s={k: v["seconds"] for k, v in cli.items()}, cut_resumed_at=resumed_at,
+               cut_iterations=len(steps), seconds=time.perf_counter() - t_phase)
+    results["giraffe_train"] = rec
+    emit(phase="giraffe_train", nvidia_smi=smi, **{k: v for k, v in rec.items()
+                                                   if k not in ("steps", "parity")})
+
+
 # The evaluate phase: evaluation and geometry over train_cli's artifacts.
 EVAL_HEADS, EVAL_HEAD_RES = 48, 256
 EVAL_DUMP_IMAGES, EVAL_RATE_IMAGES, EVAL_NGP_IMAGES = 48, 128, 32
@@ -3609,34 +3989,45 @@ TRAIN_64_FLAGS = ("--sphere_init_iters", "2", "--iters", "3", "--log_every", "1"
 TRAIN_64_TIMEOUT_S = 600
 
 
-def train_64(results: dict, smi: str) -> None:
-    """``scripts/torch_convergence_run.py`` on the card at 2 sphere-init steps
-    and 3 iterations per stage (a 64-image store, a 64-image eval): the 64^2
-    configs' path (``synthetic_64_sdf_solid_eik.yaml``: gray background,
-    view-independent colour, sparsity, the subsampled eikonal, a bf16 G, a
-    64^2 decoder) through store, train, both probes, sdf_mesh and eval:
-    exit 0, every logged loss finite, both verdicts, a mesh line, a finite
-    FID."""
-    import gc
-    import math
+def start_train_64() -> tuple:
+    """Start ``scripts/torch_convergence_run.py`` (``train_64``'s run) in the
+    background, in a temporary directory of the checkout: it runs beside
+    stage C's train processes, which time nothing.  Returns (process, the
+    directory, start time) for :func:`train_64`."""
     import tempfile
 
-    import torch
-
-    gc.collect()
-    torch.cuda.empty_cache()
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_train_") as td:
-        os.symlink(os.path.join(HERE, "configs"), os.path.join(td, "configs"))
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, os.path.join(HERE, "scripts", "torch_convergence_run.py"),
-             *TRAIN_64_FLAGS, "--out_dir", "report"], cwd=td, env=env, capture_output=True,
-            text=True, timeout=TRAIN_64_TIMEOUT_S)
-        seconds = time.perf_counter() - t0
-        check(proc.returncode == 0, f"torch_convergence_run.py exited {proc.returncode}:\n"
-              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    td = tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_train_")
+    os.symlink(os.path.join(HERE, "configs"), os.path.join(td.name, "configs"))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "scripts", "torch_convergence_run.py"),
+         *TRAIN_64_FLAGS, "--out_dir", "report"], cwd=td.name, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, td, time.perf_counter()
+
+
+def train_64(results: dict, smi: str, started: tuple) -> None:
+    """``scripts/torch_convergence_run.py`` on the card at 2 sphere-init steps
+    and 3 iterations per stage (a 64-image store, a 64-image eval), started
+    by :func:`start_train_64`: the 64^2 configs' path
+    (``synthetic_64_sdf_solid_eik.yaml``: gray background, view-independent
+    colour, sparsity, the subsampled eikonal, a bf16 G, a 64^2 decoder)
+    through store, train, both probes, sdf_mesh and eval: exit 0, every
+    logged loss finite, both verdicts, a mesh line, a finite FID."""
+    import math
+
+    proc, td, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=TRAIN_64_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        td.cleanup()
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"torch_convergence_run.py exited {proc.returncode}:\n"
+          f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
     for stage in ("stage_a", "stage_b"):
         check(summary[stage]["all_finite"] and summary[stage]["last_step"] == 2,
               f"train_64 {stage}: 3 iterations, every loss finite")
@@ -3746,7 +4137,6 @@ def main() -> int:
                      for s, p in results["train_ngp"]["profile"].items()})
     train_cli(results, smi)
     bench(results, smi)
-    train_64(results, smi)
 
     bf16, f32 = timing["bfloat16"], timing["float32"]
     gather, encode = ngp_timing["table_gather"], ngp_timing["hash_encode"]
@@ -3795,7 +4185,8 @@ def main() -> int:
              launches=results["ngp_launches"]["hash_encode"] + ngp_eval["hash_encode"]
              + benched["hash_encode"]
              + results["train_stage_c"]["ngp"]["launches"]["hash_encode"]
-             + results["giraffe"]["launches"]["hash_encode"],
+             + results["giraffe"]["launches"]["hash_encode"]
+             + results["giraffe_train"]["launches"]["hash_encode"],
              checked=True,
              max_abs_err=max([r["max_abs_err"] for r in encode_checks
                               if r["dtype"] == "float32"] + [giraffe_encode["max_abs_err"]]),
@@ -3815,11 +4206,17 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route="cuda", source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
             replaces=replaces, kernel=rec["kernel"], shape=case,
-            launches=sum(r["launches"][kname] for r in ngp_runs) + benched[kname], checked=True,
+            launches=sum(r["launches"][kname] for r in ngp_runs) + benched[kname]
+            + results["giraffe_train"]["launches"].get(kname, 0), checked=True,
             max_abs_err=max(r["max_abs_err"][k] for r in grad_checks if r["dtype"] == "float32"
                             for k in outputs),
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+    giraffe_k1 = results["giraffe_train"]["k1"]
+    k1_row = next(k for k in kernels if k["name"] == "hash_encode_backward")
+    k1_row["giraffe_g_step"] = {k: giraffe_k1[k] for k in (
+        "points", "oob_share", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")}
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -14,7 +14,8 @@ chains the JAX ones for its subsampled-eikonal arm
    stage B;
 3. judge: ``probe_geometry --stage a``, ``probe_geometry --stage b --mesh``,
    ``sdf_mesh --identities 1``, and ``eval --real_dir <store> --no_dump`` at
-   the 5,000-image protocol.
+   the 5,000-image protocol, run together (each reads the trained artifacts
+   and writes its own outputs).
 
 Each command's output is echoed and kept in ``<out_dir>/<step>.log``; the
 two metrics files are copied into ``out_dir``.  The last line printed is a
@@ -37,6 +38,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YARDSTICK_STEPS = (0, 1000, 2500, 5000)
@@ -157,15 +159,18 @@ def main(argv=None) -> dict:
         "--log_every", str(args.log_every), *device], out_dir)
     probe = ["--config", args.config, "--identities", str(args.probe_identities),
              "--res", str(args.probe_res), *device]
-    commands["probe_a"] = run("probe_a", "probe_geometry", [*probe, "--stage", "a"], out_dir)
-    commands["probe_b"] = run("probe_b", "probe_geometry", [*probe, "--stage", "b", "--mesh"],
-                              out_dir)
-    commands["sdf_mesh"] = run("sdf_mesh", "sdf_mesh", [
-        "--config", args.config, "--identities", "1", "--surface_res", str(args.surface_res),
-        *device], out_dir)
-    commands["eval"] = run("eval", "eval", [
-        "--config", args.config, "--n_images", str(args.eval_images), "--batch", str(args.batch),
-        "--real_dir", store, "--no_dump", *device], out_dir)
+    judges = {
+        "probe_a": ("probe_geometry", [*probe, "--stage", "a"]),
+        "probe_b": ("probe_geometry", [*probe, "--stage", "b", "--mesh"]),
+        "sdf_mesh": ("sdf_mesh", ["--config", args.config, "--identities", "1",
+                                  "--surface_res", str(args.surface_res), *device]),
+        "eval": ("eval", ["--config", args.config, "--n_images", str(args.eval_images),
+                          "--batch", str(args.batch), "--real_dir", store, "--no_dump",
+                          *device])}
+    with ThreadPoolExecutor(len(judges)) as pool:
+        futures = {name: pool.submit(run, name, module, judge_args, out_dir)
+                   for name, (module, judge_args) in judges.items()}
+        commands.update({name: future.result() for name, future in futures.items()})
 
     metrics = {"stage_a": os.path.join(out_base, "volume_renderer", "vol_render_metrics.jsonl"),
                "stage_b": os.path.join(out_base, "full_pipeline_metrics.jsonl")}

@@ -7,9 +7,9 @@ NVIDIA H100 and is held against it, on the same weights and inputs, by
 Ported so far: the 256^2 full-pipeline generator with the SIREN, NGP and
 FC fields (inference), the SIREN and NGP SDF generators' training from the
 command line (stages A, B and C), the evaluation and geometry tools, the
-benches, the import of a JAX run's checkpoints, and the GIRAFFE family's
-serving (its generator, render programs and mesh extraction; its training
-is not ported yet):
+benches, the import of a JAX run's checkpoints, the GIRAFFE family
+(its generator, render programs and mesh extraction, and its training with
+the VAE encoder) and the gan2d baseline's training:
 
   ops/         fast_sin, fused_leaky_relu, upfirdn2d, sh_encode, the
                FiLM-SIREN field, the hash-grid encode (forward, backward,
@@ -22,10 +22,14 @@ is not ported yet):
   encoder/     stage C's VAE and pSp encoders, the ID and LPIPS losses
   giraffe/     the GIRAFFE generator (camera, boxes, NeRF / hash / small
                decoders, compositing, neural renderer), render programs,
-               mesh extraction
+               mesh extraction, the DC and ResNet discriminators, the
+               trainer (R1, RMSprop, EMA, the VAE step) and its loop
+  gan2d/       the 2D ResNet generator of the gan2d baseline, its steps
+               and loop
   losses/      GAN and geometry losses
   training/    sphere init, stage A and stage B loops and steps, gradient
-               accumulation
+               accumulation, the optimizers (stage C's Ranger, optax's
+               RMSprop)
   evaluation/  the FID InceptionV3, FID and KID, real-image readers
   native/      the record store, the PNG unfilter loop, marching cubes and
                the mesh rasterizer (C++, g++ at first use, ctypes)

@@ -1,9 +1,11 @@
-"""The GIRAFFE compositional-NeRF GAN family, port of ``sdface_gan_tpu/giraffe``
-(serving: the generator, its render programs and mesh extraction; the
-discriminators and the trainer are not ported yet, ROADMAP.md queue 1
-item 7).  Camera math, NeRF decoders (positional, Gaussian and hash
-encodings; the hash encode through the hand-written CUDA kernel on the
-card), box transforms, density compositing and the 2D neural renderer."""
+"""The GIRAFFE compositional-NeRF GAN family, port of ``sdface_gan_tpu/giraffe``:
+serving (the generator, its render programs and mesh extraction) and
+training (the DC and ResNet discriminators, the D, G and VAE-encoder
+steps with R1, RMSprop and the EMA, and the loop behind ``train --sdf
+0``).  Camera math, NeRF decoders (positional, Gaussian and hash
+encodings; the hash encode and its table gradient through the
+hand-written CUDA kernels on the card), box transforms, density
+compositing and the 2D neural renderer."""
 
 from .bbox import BBoxConfig, sample_transformations
 from .camera import (
@@ -16,6 +18,7 @@ from .camera import (
     origin_to_world,
 )
 from .decoder import DecoderConfig, GiraffeDecoder, SmallDecoder, SmallDecoderConfig
+from .discriminator import DCDiscConfig, DCDiscriminator, ResnetDiscConfig, ResnetDiscriminator
 from .generator import GiraffeConfig, GiraffeGenerator, LatentCodes, giraffe_forward
 from .neural_renderer import NeuralRenderer, NeuralRendererConfig
 
@@ -39,4 +42,8 @@ __all__ = [
     "GiraffeGenerator",
     "LatentCodes",
     "giraffe_forward",
+    "DCDiscConfig",
+    "DCDiscriminator",
+    "ResnetDiscConfig",
+    "ResnetDiscriminator",
 ]

@@ -1,7 +1,8 @@
 """GIRAFFE model configs from the yaml tree, port of
 ``sdface_gan_tpu/giraffe/config.py``: the ``model.*_kwargs`` blocks as the
-typed configs, with the hash-encoding variants chosen by ``--i_embed`` /
-``--small_net`` (and their ``--finest_res`` / ``--log2_hashmap_size``).
+typed configs (the generator's and the DC discriminator's), with the
+hash-encoding variants chosen by ``--i_embed`` / ``--small_net`` (and
+their ``--finest_res`` / ``--log2_hashmap_size``).
 The yaml's key spellings are the reference's (``check_collison``,
 ``backround_rotation_range``).
 """
@@ -12,6 +13,7 @@ from typing import Any, Optional
 
 from .bbox import BBoxConfig
 from .decoder import DecoderConfig, SmallDecoderConfig, giraffe_hash_spec
+from .discriminator import DCDiscConfig
 from .generator import GiraffeConfig
 from .neural_renderer import NeuralRendererConfig
 
@@ -105,3 +107,11 @@ def giraffe_config_from_yaml(cfg: Any, args: Optional[Any] = None) -> GiraffeCon
         bbox=bbox,
         neural_renderer=neural_renderer,
     )
+
+
+def dc_disc_config_from_yaml(cfg: Any) -> DCDiscConfig:
+    """The DC discriminator of a loaded yaml (``model.discriminator_kwargs``
+    at ``data.img_size``)."""
+    d_kw = dict(cfg.get("model", {}).get("discriminator_kwargs", {}))
+    return DCDiscConfig(in_dim=d_kw.get("in_dim", 3), n_feat=d_kw.get("n_feat", 512),
+                        img_size=cfg.get("data", {}).get("img_size", 64))

@@ -10,7 +10,7 @@ the CPU and maps the draws deterministically (``*_from_*``), so a seed
 gives the same scene on every device.  :func:`giraffe_forward` draws what
 the caller did not give, in the order object existence, codes, camera,
 transforms, background rotation, then (``mode="training"``) the depth
-jitter and the density noise.
+jitter and the density noise (:func:`sample_render_noise`).
 """
 
 from __future__ import annotations
@@ -187,6 +187,26 @@ def density_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator).to(device)
 
 
+class RenderNoise(NamedTuple):
+    """The draws of a training render: the depth jitter's U(0, 1) [B, N, S]
+    and one N(0, 1) density noise [B, N * S] per rendered field, the
+    objects in order, then the background."""
+    interval: torch.Tensor
+    density: Tuple[torch.Tensor, ...]
+
+
+def sample_render_noise(generator: torch.Generator, cfg: GiraffeConfig, batch_size: int,
+                        device=None, not_render_background: bool = False,
+                        only_render_background: bool = False) -> RenderNoise:
+    n = cfg.resolution_vol ** 2 * cfg.n_ray_samples
+    interval = interval_noise(generator, (batch_size, cfg.resolution_vol ** 2,
+                                          cfg.n_ray_samples), device)
+    n_fields = ((0 if only_render_background else cfg.n_boxes)
+                + (0 if not_render_background else 1))
+    return RenderNoise(interval, tuple(density_noise(generator, (batch_size, n), device)
+                                       for _ in range(n_fields)))
+
+
 def composite(cfg: GiraffeConfig, sigma: torch.Tensor, feat: torch.Tensor):
     """Density composition across objects: sigma [K, B, N, S], feat [K, B, N,
     S, F].  Sum: densities add and features mix by density (a zero total
@@ -231,17 +251,23 @@ def volume_render_image(
     only_render_background: bool = False,
     return_alpha_map: bool = False,
     object_mask: Optional[torch.Tensor] = None,
+    noise: Optional[RenderNoise] = None,
 ):
     """The feature map [B, res, res, F] (channel-last), and the per-object
     alpha maps [B, res, res, K - 1] with ``return_alpha_map``.  In
-    ``mode="training"`` with a ``generator``, the depths are jittered and
-    N(0, 1) noise is added to each density.  ``object_mask`` [B, n_boxes]
-    zeroes the density of masked objects."""
+    ``mode="training"`` with ``noise`` (drawn from ``generator`` when not
+    given), the depths are jittered and N(0, 1) noise is added to each
+    density.  ``object_mask`` [B, n_boxes] zeroes the density of masked
+    objects."""
     res, n_steps = cfg.resolution_vol, cfg.n_ray_samples
     n_points = res * res
     batch_size = latent_codes.z_shape_obj.shape[0]
     device = latent_codes.z_shape_obj.device
-    training = mode == "training" and generator is not None
+    training = mode == "training" and (generator is not None or noise is not None)
+    if training and noise is None:
+        noise = sample_render_noise(generator, cfg, batch_size, device, not_render_background,
+                                    only_render_background)
+    density = iter(noise.density) if training else None
 
     pixels = arange_pixels(res, batch_size, device=device)
     pixels_world = image_points_to_world(pixels, *camera_matrices)
@@ -252,7 +278,7 @@ def volume_render_image(
     di = d0 + torch.linspace(0.0, 1.0, n_steps, device=device).reshape(1, 1, -1) * (d1 - d0)
     di = di.repeat(batch_size, n_points, 1)
     if training:
-        di = add_noise_to_interval(di, interval_noise(generator, di.shape, device))
+        di = add_noise_to_interval(di, noise.interval)
 
     n_boxes = 0 if only_render_background else cfg.n_boxes
     feats, sigmas = [], []
@@ -270,7 +296,7 @@ def volume_render_image(
         feat_i, sigma_i = g.decoder(p_flat, r_flat, latent_codes.z_shape_obj[:, i],
                                     latent_codes.z_app_obj[:, i])
         if training:
-            sigma_i = sigma_i + density_noise(generator, sigma_i.shape, device)
+            sigma_i = sigma_i + next(density)
         lim = 1.0 + BOX_PADDING
         inside = torch.all((p_flat <= lim) & (p_flat >= -lim), dim=-1)
         sigma_i = torch.where(inside, sigma_i, 0.0)
@@ -286,7 +312,7 @@ def volume_render_image(
         feat_bg, sigma_bg = g.background(p_bg, r_bg, latent_codes.z_shape_bg,
                                          latent_codes.z_app_bg)
         if training:
-            sigma_bg = sigma_bg + density_noise(generator, sigma_bg.shape, device)
+            sigma_bg = sigma_bg + next(density)
         sigmas.append(sigma_bg.reshape(batch_size, n_points, n_steps))
         feats.append(feat_bg.reshape(batch_size, n_points, n_steps, -1))
 
@@ -321,11 +347,13 @@ def giraffe_forward(
     only_render_background: bool = False,
     return_alpha_map: bool = False,
     object_mask: Optional[torch.Tensor] = None,
+    noise: Optional[RenderNoise] = None,
 ) -> torch.Tensor:
     """The generator's images [B, img_size, img_size, 3] in [0, 1] (the
     feature map without a neural renderer; the alpha maps with
     ``return_alpha_map``).  What is not given is drawn from ``generator``;
-    without one the background is not rotated."""
+    without one the background is not rotated and a ``mode="training"``
+    render is noised only by a given ``noise``."""
     device = _device(g)
     if generator is None and None in (latent_codes, camera_matrices, transformations):
         raise ValueError("giraffe_forward draws the codes, camera and transforms not given "
@@ -349,12 +377,12 @@ def giraffe_forward(
         _, alpha = volume_render_image(
             g, cfg, latent_codes, camera_matrices, transformations, bg_rotation,
             generator=generator, mode=mode, return_alpha_map=True,
-            not_render_background=not_render_background, object_mask=object_mask)
+            not_render_background=not_render_background, object_mask=object_mask, noise=noise)
         return alpha
     feat_map = volume_render_image(
         g, cfg, latent_codes, camera_matrices, transformations, bg_rotation,
         generator=generator, mode=mode, not_render_background=not_render_background,
-        only_render_background=only_render_background, object_mask=object_mask)
+        only_render_background=only_render_background, object_mask=object_mask, noise=noise)
     if cfg.neural_renderer is not None and hasattr(g, "neural_renderer"):
         return g.neural_renderer(feat_map)
     return feat_map

@@ -24,12 +24,13 @@ match), so a resumed run takes steps of the same kind on other draws.
 
 ``--sdf 0`` (``--i_embed``, ``--small_net``, ``--finest_res``,
 ``--log2_hashmap_size``): a GIRAFFE run's ``CheckpointIO`` trees
-(``model``, ``model_best``, ``model_<it>``: ``g``, ``g_ema``, ``it``,
-``fid_best``; ``encoder``: the VAE's ``e``) into the yaml's
-``training.out_dir``, where ``python -m sdface_gan_tpu_torch.render`` and
-``... .extract_mesh`` look.  The discriminator and the optimizer states
-wait until GIRAFFE's training is ported (ROADMAP.md, queue 1 item 7); a
-gan2d run (``method: gan2d``) is refused.
+(``model``: ``g``, ``d``, ``g_ema``, the RMSprop or Adam states ``g_opt``
+and ``d_opt``, ``it``, ``fid_best``; ``model_best`` and ``model_<it>``;
+``encoder``: the VAE's ``e`` and its Adam state ``e_opt``), or a gan2d
+run's ``model`` (the yaml's ``method: gan2d``), into the yaml's
+``training.out_dir``.  There ``python -m sdface_gan_tpu_torch.train --sdf
+0`` with the same flags resumes it at ``it`` + 1, and ``... .render`` and
+``... .extract_mesh`` read a GIRAFFE run.
 """
 
 from __future__ import annotations
@@ -63,12 +64,13 @@ def main(argv=None) -> None:
     if args.sdf == 1:
         configs, out_base = sdf_run_configs(cfg, args)
     elif cfg.get("method", "giraffe") == "gan2d":
-        raise NotImplementedError(
-            "a gan2d run (method: gan2d) is not ported yet; see ROADMAP.md, queue 1 item 7")
-    else:
-        from .giraffe.config import giraffe_config_from_yaml
+        from .gan2d.train_loop import gan2d_run_configs
 
-        configs, out_base = giraffe_config_from_yaml(cfg, args), cfg["training"]["out_dir"]
+        configs, out_base = gan2d_run_configs(cfg), cfg["training"]["out_dir"]
+    else:
+        from .giraffe.train_loop import giraffe_run_configs
+
+        configs, out_base = giraffe_run_configs(cfg, args), cfg["training"]["out_dir"]
     for path in import_jax_run(args.src, out_base, configs):
         print(f"wrote {path}")
 

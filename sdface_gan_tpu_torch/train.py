@@ -1,26 +1,33 @@
-"""Train CLI of the port: the ``--sdf 1`` flow of the repository's
-``train.py`` (stage A, the volume renderer, then stage B, the full
-pipeline), with the same flags plus ``--device``.
+"""Train CLI of the port, the repository's ``train.py`` with the same flags
+plus ``--device``.
 
     python -m sdface_gan_tpu_torch.train --config configs/256res/ffhq_256_sdf_tpu.yaml \\
         --sdf 1 --dataset_path <store>
+    python -m sdface_gan_tpu_torch.train --config configs/64res/synthetic_64_giraffe.yaml \\
+        --sdf 0 [--vae 1] [--i_embed 1 | --small_net 1]
 
-Stage A writes ``out/<exp>/volume_renderer/`` and is skipped when its
-``vol_renderer`` exists; stage B writes ``out/<exp>/`` and is skipped when
+``--sdf 1`` trains the SDF family.  Stage A writes
+``out/<exp>/volume_renderer/`` and is skipped when its ``vol_renderer``
+exists; stage B writes ``out/<exp>/`` and is skipped when
 ``full_pipeline`` exists; ``--wod 1`` goes straight to stage B from stage
 A's ``sdf_init_models``.  ``--vae 1`` / ``--psp 1`` then run stage C, an
 inversion encoder against the frozen ``full_pipeline`` generator, into
 ``out/<exp>/encoder/`` / ``encoder_psp/`` (the ID and LPIPS terms with
 ``--irse_weights`` / ``--lpips_weights``).  A stage whose periodic
-``models_*`` checkpoint exists resumes from it; ``--exit-after`` seconds
-saves and exits with code 3.  Runs on ``--device cuda`` (the default;
-raises without a card) or ``--device cpu``, with TF32 off so that f32
-stays f32.  The NGP field trains by ``--ngp 1`` or by the yaml's
-``rendering: type: ngp``.  ``--sdf 0`` (training the GIRAFFE and gan2d
-families) is not ported yet and raises ``NotImplementedError`` naming
-ROADMAP.md queue 1 item 7; a GIRAFFE model trained by the JAX package is
-imported (``import_jax_checkpoints --sdf 0``) and served by ``python -m
-sdface_gan_tpu_torch.render`` and ``... .extract_mesh``.
+``models_*`` checkpoint exists resumes from it.  The NGP field trains by
+``--ngp 1`` or by the yaml's ``rendering: type: ngp``.
+
+``--sdf 0`` trains the family the yaml's ``method`` names, as the root
+``train.py`` dispatches: GIRAFFE (the default; ``giraffe/train_loop.py``,
+with the VAE encoder under ``--vae 1`` and the hash or small decoders
+under ``--i_embed 1`` / ``--small_net 1``) or the gan2d baseline
+(``method: gan2d``), over the yaml's image glob, into its
+``training.out_dir``.  It resumes from ``model`` (and ``encoder``) there,
+as it does from a JAX run imported by ``import_jax_checkpoints --sdf 0``.
+
+``--exit-after`` seconds saves and exits with code 3.  Runs on ``--device
+cuda`` (the default; raises without a card) or ``--device cpu``, with TF32
+off so that f32 stays f32.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import os
 
 
 def parse_args(argv=None):
+    from .giraffe.config import add_giraffe_flags
+
     p = argparse.ArgumentParser(description="Train an SDFace-GAN model with the PyTorch port.")
     p.add_argument("--config", type=str, default="configs/256res/ffhq_256_sdf.yaml")
     p.add_argument("--sdf", type=int, default=0)
@@ -38,11 +47,8 @@ def parse_args(argv=None):
     p.add_argument("--wod", type=int, default=0)
     p.add_argument("--vae", type=int, default=0)
     p.add_argument("--psp", type=int, default=0)
-    p.add_argument("--small_net", type=int, default=0)
-    p.add_argument("--i_embed", type=int, default=0)
+    add_giraffe_flags(p)
     p.add_argument("--i_embed_views", type=int, default=0)
-    p.add_argument("--finest_res", type=int, default=512)
-    p.add_argument("--log2_hashmap_size", type=int, default=19)
     p.add_argument("--exit-after", dest="exit_after", type=int, default=-1)
     p.add_argument("--dataset_path", type=str, default=None,
                    help="record-store dir (overrides the yaml data path)")
@@ -70,12 +76,26 @@ def main(argv=None) -> None:
     from .config.yaml_config import default_config_path
 
     cfg = load_config(args.config, default_config_path())
-    if args.sdf != 1:
-        raise NotImplementedError(
-            "--sdf 0 (training the GIRAFFE and gan2d families) is not ported yet; see "
-            "ROADMAP.md, queue 1 item 7 (GIRAFFE training). A JAX GIRAFFE run serves through "
-            "import_jax_checkpoints --sdf 0, then render / extract_mesh")
-    train_sdf(args, cfg)
+    if args.sdf == 1:
+        train_sdf(args, cfg)
+    else:
+        train_giraffe_family(args, cfg)
+
+
+def train_giraffe_family(args, cfg) -> None:
+    """``--sdf 0``: gan2d when the yaml's ``method`` says so, else GIRAFFE."""
+    from .utils.device import disable_tf32, resolve_device
+
+    device = resolve_device(args.device)
+    disable_tf32()
+    if cfg.get("method", "giraffe") == "gan2d":
+        from .gan2d.train_loop import train_gan2d
+
+        train_gan2d(args, cfg, device)
+    else:
+        from .giraffe.train_loop import train_giraffe
+
+        train_giraffe(args, cfg, device)
 
 
 def stage_configs(cfg, stage_a: bool, ngp: bool = False, fc: bool = False, wod: bool = False,

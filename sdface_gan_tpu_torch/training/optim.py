@@ -9,16 +9,22 @@ stages).
   ``mapping`` (here ``style.*``) and ``renderer`` frozen.
 * Stage C (the encoder): Adam 5e-4 for the VAE, Ranger 1e-4 for pSp
   (``sdface_gan_tpu/training/optim.py:74-159``).
+* The GIRAFFE and gan2d families: :class:`RMSprop` (G lr 5e-4, D lr 1e-4
+  by default), or Adam when the yaml names it
+  (``sdface_gan_tpu/giraffe/trainer.py:51-60``).
 
 ``torch.optim.Adam`` with ``eps=1e-8`` is optax's ``adam`` (``eps_root=0``).
 ``Ranger`` is the JAX package's ``ranger``: gradient centralization, then
 optax's ``radam``, inside its ``lookahead`` (slow weights in the optimizer
 state).  ``torch.optim.RAdam`` puts eps elsewhere and is not used.
+:class:`RMSprop` is optax's ``rmsprop(lr, decay=0.99, eps=1e-8)``, whose eps
+lies inside the root; ``torch.optim.RMSprop`` adds it outside and is not
+used.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Tuple
+from typing import Any, Iterable, List, Tuple
 
 import torch
 from torch import nn
@@ -152,3 +158,46 @@ def encoder_optimizer(params: Iterable[torch.Tensor], vae: bool = True) -> torch
     the VAE, Ranger 1e-4 for pSp."""
     params = list(params)
     return _adam(params, 5e-4, 0.9, 0.999) if vae else Ranger(params, 1e-4)
+
+
+RMS_DECAY, RMS_EPS = 0.99, 1e-8
+
+
+class RMSprop(torch.optim.Optimizer):
+    """optax's ``rmsprop(lr, decay=0.99, eps=1e-8)`` (``scale_by_rms`` with
+    ``initial_scale=0`` and ``eps_in_sqrt=True``; no bias correction, no
+    momentum, not centred): per step ``nu <- decay * nu + (1 - decay) *
+    g^2`` and ``p <- p - lr * g / sqrt(nu + eps)``, in optax's order of
+    operations (``RMS_DECAY``, ``RMS_EPS``).  The state of each parameter
+    is ``nu`` alone.  A parameter without a gradient steps with a zero one,
+    as optax sees it."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float):
+        super().__init__(params, dict(lr=lr))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = dict(nu=torch.zeros_like(p))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("RMSprop takes no closure")
+        for group in self.param_groups:
+            lr = group["lr"]
+            for p in group["params"]:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                st = self.state[p]
+                st["nu"] = (1 - RMS_DECAY) * (g * g) + RMS_DECAY * st["nu"]
+                p.add_(torch.rsqrt(st["nu"] + RMS_EPS) * g * -lr)
+        return None
+
+
+def giraffe_optimizers(hp: Any, g: nn.Module,
+                       d: nn.Module) -> Tuple[torch.optim.Optimizer, torch.optim.Optimizer]:
+    """(G, D) optimizers of the GIRAFFE and gan2d trainers: :class:`RMSprop`
+    at ``hp.lr_g`` / ``hp.lr_d``, or optax's ``adam`` (``torch.optim.Adam``'s
+    defaults) when ``hp.optimizer`` is not RMSprop."""
+    if getattr(hp, "optimizer", "RMSprop").lower() == "rmsprop":
+        return RMSprop(g.parameters(), hp.lr_g), RMSprop(d.parameters(), hp.lr_d)
+    return (_adam(g.parameters(), hp.lr_g, 0.9, 0.999),
+            _adam(d.parameters(), hp.lr_d, 0.9, 0.999))

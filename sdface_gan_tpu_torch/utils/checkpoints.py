@@ -15,8 +15,8 @@ geometry entries and the sampler.
 ``import_jax_run`` turns a JAX run, exported from its orbax checkpoints by
 ``scripts/export_jax_checkpoint.py``, into these files under the same
 names, so the port's training resumes a JAX run and its tools read it: an
-SDF run (stages A, B and C, optimizer states included) or a GIRAFFE run's
-generators (``g``, ``g_ema``, ``it``, ``fid_best``) and VAE encoder.
+SDF run (stages A, B and C) or a GIRAFFE or gan2d run (every tree of its
+``CheckpointIO``), optimizer states included.
 """
 
 from __future__ import annotations
@@ -105,6 +105,18 @@ class CheckpointIO:
         return dst
 
 
+class GiraffeRunConfigs(NamedTuple):
+    """The configs a GIRAFFE or gan2d run trains under, as the train entry
+    builds them from a yaml and its flags: the generator's
+    (``GiraffeConfig``, or ``Gan2dGeneratorConfig`` for gan2d), the DC
+    discriminator's, the trainer's hyperparameters (the optimizer and its
+    learning rates) and the VAE encoder's (GIRAFFE's ``--vae 1``)."""
+    generator: Any
+    discriminator: Any
+    hp: Any
+    encoder: Any = None
+
+
 class RunConfigs(NamedTuple):
     """The configs a run trains under, as the train entry builds them from
     a yaml and its flags: (GeneratorConfig, discriminator config,
@@ -145,35 +157,83 @@ _GIRAFFE_KEYS = {"model": {"g", "d", "g_ema", "g_opt", "d_opt", "it", "fid_best"
                  "model_best": {"g", "d", "g_ema", "it", "fid_best"},
                  "model_it": {"g", "d", "g_ema", "it"},
                  "encoder": {"e", "e_opt"}}
-# what GIRAFFE's training needs and the import leaves out until it is ported
-# (ROADMAP.md, queue 1 item 7)
-_GIRAFFE_LEFT = ("d", "g_opt", "d_opt", "e_opt")
+# a gan2d run's one tree (``gan2d/train_loop.py``)
+_GAN2D_KEYS = {"model": {"g", "d", "g_ema", "g_opt", "d_opt", "it"}}
 
 
-def _giraffe_kind(rel: str) -> str:
-    """The kind of a GIRAFFE run's top-level checkpoint: ``model``,
-    ``model_best``, ``model_it`` or ``encoder``."""
+def _giraffe_kind(rel: str, gan2d: bool) -> str:
+    """The kind of a GIRAFFE run's top-level checkpoint (``model``,
+    ``model_best``, ``model_it`` or ``encoder``), or a gan2d run's
+    (``model``)."""
     kind = "model_it" if re.fullmatch(r"model_\d{7}", rel) else rel
-    if kind not in _GIRAFFE_KEYS:
+    if kind not in (_GAN2D_KEYS if gan2d else _GIRAFFE_KEYS):
         raise ValueError(
-            f"{rel}: not a checkpoint of a GIRAFFE run (model, model_best, model_<it>, "
-            "encoder at its top level); an SDF run's stages import with --sdf 1")
+            f"{rel}: not a checkpoint of a {'gan2d' if gan2d else 'GIRAFFE'} run ("
+            + ("model" if gan2d else "model, model_best, model_<it>, encoder")
+            + " at its top level); an SDF run's stages import with --sdf 1")
     return kind
 
 
-def _giraffe_tree(tree: Dict[str, Any], kind: str, cfg) -> Dict[str, Any]:
-    """A GIRAFFE tree in the port's form: ``g`` / ``g_ema`` with ``it`` and
-    ``fid_best``, or the VAE encoder ``e``."""
-    from .convert import jax_giraffe_params_to_state_dict, jax_vae_params_to_state_dict
+def _optax_state(opt: torch.optim.Optimizer, module, state: Any, to_state_dict,
+                 what: str) -> Dict[str, Any]:
+    """optax's ``rmsprop`` or ``adam`` chain state as ``opt``'s state dict."""
+    from ..training.optim import RMSprop
+    from .jax_export import adam_state, rmsprop_state
+
+    if isinstance(opt, RMSprop):
+        return rmsprop_state(opt, module, state, to_state_dict, what)
+    if not isinstance(state[0], dict) or "count" not in state[0]:
+        raise ValueError(f"{what}: not optax's adam state; was the run trained with another "
+                         "optimizer?")
+    return adam_state(opt, module, state[0], to_state_dict, what)
+
+
+def _giraffe_tree(tree: Dict[str, Any], kind: str, configs: GiraffeRunConfigs,
+                  what: str) -> Dict[str, Any]:
+    """A GIRAFFE or gan2d tree in the port's form: ``g``, ``d``, ``g_ema``
+    with ``it`` (and ``fid_best``), the optimizer states of ``model``; or
+    the VAE encoder ``e`` and its Adam state."""
+    from ..encoder.vae import VAEEncoder
+    from ..gan2d.generator import Gan2dGenerator, Gan2dGeneratorConfig
+    from ..giraffe.discriminator import DCDiscriminator
+    from ..giraffe.generator import GiraffeGenerator
+    from ..training.optim import encoder_optimizer, giraffe_optimizers
+    from .convert import (
+        jax_dc_disc_params_to_state_dict,
+        jax_gan2d_params_to_state_dict,
+        jax_giraffe_params_to_state_dict,
+        jax_vae_params_to_state_dict,
+    )
     from .jax_export import convert
 
     if kind == "encoder":
-        return {"e": convert(jax_vae_params_to_state_dict, tree["e"])}
-    out: Dict[str, Any] = {k: convert(jax_giraffe_params_to_state_dict, tree[k], cfg)
-                           for k in ("g", "g_ema")}
-    out["it"] = int(tree["it"])
+        def e_sd(t):
+            return convert(jax_vae_params_to_state_dict, t)
+
+        e = VAEEncoder(configs.encoder)
+        opt = encoder_optimizer(e.parameters(), vae=True)
+        return {"e": e_sd(tree["e"]),
+                "e_opt": _optax_state(opt, e, tree["e_opt"], e_sd, f"{what} e_opt")}
+    gan2d = isinstance(configs.generator, Gan2dGeneratorConfig)
+
+    def g_sd(t):
+        if gan2d:
+            return convert(jax_gan2d_params_to_state_dict, t)
+        return convert(jax_giraffe_params_to_state_dict, t, configs.generator)
+
+    def d_sd(t):
+        return convert(jax_dc_disc_params_to_state_dict, t)
+
+    out: Dict[str, Any] = {"g": g_sd(tree["g"]), "d": d_sd(tree["d"]),
+                           "g_ema": g_sd(tree["g_ema"]), "it": int(tree["it"])}
     if "fid_best" in tree:
         out["fid_best"] = float(tree["fid_best"])
+    if "g_opt" in tree:
+        g = (Gan2dGenerator if gan2d else GiraffeGenerator)(configs.generator)
+        d = DCDiscriminator(configs.discriminator)
+        g_opt, d_opt = giraffe_optimizers(configs.hp, g, d)
+        out["g_opt"] = _optax_state(g_opt, g, tree["g_opt"], g_sd, f"{what} g_opt")
+        out["d_opt"] = _optax_state(d_opt, d, tree["d_opt"], d_sd, f"{what} d_opt")
     return out
 
 
@@ -252,22 +312,22 @@ def import_jax_run(src: str, out_base: str, configs) -> List[str]:
     """Write the port's checkpoint ``<out_base>/<rel>.pt`` for every archive
     ``<src>/<rel>.npz`` of an exported JAX run trained under ``configs``: a
     :class:`RunConfigs` for an SDF run (``models_*`` with their optimizer
-    states, and the stage artifacts), a ``GiraffeConfig`` for a GIRAFFE run
-    (``g``, ``g_ema``, ``it``, ``fid_best`` of ``model``, ``model_best`` and
-    ``model_*``; the VAE ``e`` of ``encoder``; it prints what it leaves for
-    GIRAFFE's training, not ported yet).  Refuses, before writing anything, a tree
-    of the other family and a port checkpoint that exists.  Returns the
-    paths written."""
-    from ..giraffe.generator import GiraffeConfig
+    states, and the stage artifacts), a :class:`GiraffeRunConfigs` for a
+    GIRAFFE run (``model`` with its optimizer states, ``model_best``,
+    ``model_*``, the VAE's ``encoder``) or a gan2d run (``model``).
+    Refuses, before writing anything, a tree of another family and a port
+    checkpoint that exists.  Returns the paths written."""
+    from ..gan2d.generator import Gan2dGeneratorConfig
     from .jax_export import export_keys, read_export
 
-    giraffe = isinstance(configs, GiraffeConfig)
+    giraffe = isinstance(configs, GiraffeRunConfigs)
+    gan2d = giraffe and isinstance(configs.generator, Gan2dGeneratorConfig)
     plan = []
     for root, _, names in os.walk(src):
         for n in sorted(names):
             if n.endswith(".npz"):
                 rel = os.path.relpath(os.path.join(root, n), src)[:-4]
-                plan.append((rel, _giraffe_kind(rel), None) if giraffe
+                plan.append((rel, _giraffe_kind(rel, gan2d), None) if giraffe
                             else (rel, *_jax_kind(rel)))
     if not plan:
         raise FileNotFoundError(f"no exported checkpoint (.npz) under {src}")
@@ -276,7 +336,8 @@ def import_jax_run(src: str, out_base: str, configs) -> List[str]:
             raise FileExistsError(f"{_path(out_base, rel)} exists; the import does not "
                                   "overwrite a port checkpoint")
         keys = export_keys(os.path.join(src, rel + ".npz"))
-        want = _GIRAFFE_KEYS[stage] if giraffe else _KEYS[stage, artifact]
+        want = ((_GAN2D_KEYS if gan2d else _GIRAFFE_KEYS)[stage] if giraffe
+                else _KEYS[stage, artifact])
         if keys != want:
             raise ValueError(f"{rel}: keys {sorted(keys)}, expected {sorted(want)}")
     written = []
@@ -284,11 +345,9 @@ def import_jax_run(src: str, out_base: str, configs) -> List[str]:
         tree = read_export(os.path.join(src, rel + ".npz"))
         base, name = os.path.split(os.path.join(out_base, rel))
         if giraffe:
-            written.append(save_checkpoint(base, name, _giraffe_tree(tree, stage, configs)))
-            left = [k for k in _GIRAFFE_LEFT if k in tree]
-            print(f"{rel}: {', '.join(left)} not imported: GIRAFFE's training is not ported "
-                  "yet (ROADMAP.md, queue 1 item 7)")
-            continue
-        to_port = _gan_stage_tree if stage in ("a", "b") else _encoder_tree
-        written.append(save_checkpoint(base, name, to_port(tree, stage, artifact, configs, rel)))
+            port = _giraffe_tree(tree, stage, configs, rel)
+        else:
+            to_port = _gan_stage_tree if stage in ("a", "b") else _encoder_tree
+            port = to_port(tree, stage, artifact, configs, rel)
+        written.append(save_checkpoint(base, name, port))
     return written

@@ -15,9 +15,11 @@ the reference ``g_ema`` names, which the port's ``Generator`` uses.
 
 Values are copied bit for bit, for every field type ('sdf', 'ngp', 'fc').
 The discriminators (``jax_disc_params_to_state_dict``), the FID
-Inception (``jax_inception_params_to_state_dict``) and stage C's encoders
+Inception (``jax_inception_params_to_state_dict``), stage C's encoders
 and perceptual nets (``jax_{vae,psp,irse,lpips}_params_to_state_dict``)
-have converters too.
+and the GIRAFFE family's generators and discriminators
+(``jax_{giraffe,dc_disc,resnet_disc,gan2d}_params_to_state_dict``) have
+converters too.
 """
 
 from __future__ import annotations
@@ -338,6 +340,29 @@ def jax_giraffe_params_to_state_dict(params: Dict[str, Any], cfg) -> Dict[str, t
             f"{'small' if cfg.small_decoder else 'the NeRF MLP'}"
             f"{' with' if want_hash else ' without'} one: are --small_net / --i_embed "
             "those of the run?")
+    return _plain_tree(params)
+
+
+def _plain_tree(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, Any] = {}
     _giraffe_entries(sd, "", params)
     return _tensors(sd)
+
+
+def jax_dc_disc_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_dc_discriminator`` tree -> the port's ``DCDiscriminator``
+    state dict (``blocks.{i}``, ``conv_out``; HWIO -> OIHW), bit for bit."""
+    return _plain_tree(params)
+
+
+def jax_resnet_disc_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_resnet_discriminator`` tree -> the port's
+    ``ResnetDiscriminator`` state dict, bit for bit (both flatten NHWC
+    before ``fc``, so its weight is only transposed)."""
+    return _plain_tree(params)
+
+
+def jax_gan2d_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_gan2d_generator`` tree -> the port's ``Gan2dGenerator``
+    state dict, bit for bit (its ``fc`` emits (h, w, c) in both)."""
+    return _plain_tree(params)

@@ -9,14 +9,17 @@ the JSON string ``__dtypes__``.  :func:`read_export` turns an archive back
 into the nested tree: dicts, lists (a missing index is ``None``), numpy
 leaves, and ``torch.bfloat16`` tensors for the bfloat16 leaves.
 
-The optimizer states, both exact:
+The optimizer states, all exact:
 
 * optax ``adam`` (a chain, ``[{count, mu, nu}]``) -> ``torch.optim.Adam``
   state: ``exp_avg`` / ``exp_avg_sq`` are ``mu`` / ``nu`` taken through the
   parameters' own converter (``utils/convert.py``, a pure permutation of
   layout) and ``step`` is ``count``;
 * the JAX package's ``ranger`` (``{inner: [gc, [{count, mu, nu}]], slow,
-  step}``) -> the port's ``Ranger`` state ``{step, mu, nu, slow}``.
+  step}``) -> the port's ``Ranger`` state ``{step, mu, nu, slow}``;
+* optax ``rmsprop`` (a chain, ``[{nu}]``: ``ScaleByRmsState`` and empty
+  states) -> the port's ``RMSprop`` state ``{nu}``, every leaf of the JAX
+  tree a parameter of the port's optimizer.
 
 The state is keyed by the port optimizer's own parameter order, and the
 ``param_groups`` are that optimizer's: lr and betas (those adjusted for
@@ -114,8 +117,8 @@ def fill_like(moments: Any, params: Any) -> Any:
 def _port_state(opt: torch.optim.Optimizer, module: nn.Module, step,
                 tensors: Dict[str, Dict[str, torch.Tensor]], what: str) -> Dict[str, Any]:
     """``opt.state_dict()`` with each parameter's state ``{"step": step,
-    name: tensors[name][param name], ...}``; a tensor of a leaf that is no
-    parameter of ``opt`` must be zero."""
+    name: tensors[name][param name], ...}`` (no step when ``step`` is None);
+    a tensor of a leaf that is no parameter of ``opt`` must be zero."""
     names = {id(p): n for n, p in module.named_parameters()}
     trained = set()
     for group in opt.param_groups:
@@ -129,8 +132,9 @@ def _port_state(opt: torch.optim.Optimizer, module: nn.Module, step,
                     raise ValueError(f"{what}: {k} of {n} is {tuple(sd[n].shape)}, the "
                                      f"parameter {tuple(p.shape)}")
             # one step tensor per parameter: Adam increments it in place
-            opt.state[p] = {"step": step.clone() if torch.is_tensor(step) else step,
-                            **{k: sd[n] for k, sd in tensors.items()}}
+            opt.state[p] = ({} if step is None else
+                            {"step": step.clone() if torch.is_tensor(step) else step})
+            opt.state[p].update((k, sd[n]) for k, sd in tensors.items())
             trained.add(n)
     for k, sd in tensors.items():
         for n, v in sd.items():
@@ -166,3 +170,23 @@ def ranger_state(opt: torch.optim.Optimizer, module: nn.Module, ranger: Dict[str
     return _port_state(opt, module, step, {"mu": to_state_dict(radam["mu"]),
                                            "nu": to_state_dict(radam["nu"]),
                                            "slow": to_state_dict(ranger["slow"])}, what)
+
+
+def rmsprop_state(opt: torch.optim.Optimizer, module: nn.Module, rms: Any,
+                  to_state_dict: Callable[[Any], Dict[str, torch.Tensor]],
+                  what: str) -> Dict[str, Any]:
+    """The state dict of ``opt`` (the port's ``RMSprop`` over ``module``'s
+    parameters) holding optax's ``rmsprop`` chain state ``[{nu}, ...]``, in
+    the optimizer's parameter order.  Raises when the state is another
+    optimizer's or its leaf count is not the parameters'."""
+    first = rms[0] if isinstance(rms, list) else rms
+    if not isinstance(first, dict) or set(first) != {"nu"}:
+        raise ValueError(f"{what}: not optax's rmsprop state (keys "
+                         f"{sorted(first) if isinstance(first, dict) else type(first)}); "
+                         "was the run trained with another optimizer?")
+    nu = to_state_dict(first["nu"])
+    n_params = sum(len(group["params"]) for group in opt.param_groups)
+    if len(nu) != n_params:
+        raise ValueError(f"{what}: optax's state holds {len(nu)} leaves, the port's "
+                         f"optimizer {n_params} parameters")
+    return _port_state(opt, module, None, {"nu": nu}, what)

@@ -43,6 +43,7 @@ from sdface_gan_tpu_torch.serving import SDFaceSampler  # noqa: E402
 from sdface_gan_tpu_torch.utils.convert import jax_params_to_state_dict  # noqa: E402
 
 from test_torch_port_models import IMAGE_TOL, RES, _configs  # noqa: E402
+from test_torch_port_training import _two_threads  # noqa: E402,F401  (autouse: two threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "scripts", "torch_convergence_run.py")

@@ -868,20 +868,21 @@ def test_jax_giraffe_fixture_serves_on_the_card_as_jax_rendered_it(cuda, tmp_pat
 
     from sdface_gan_tpu_torch.config import load_config
     from sdface_gan_tpu_torch.config.yaml_config import default_config_path
-    from sdface_gan_tpu_torch.giraffe.config import giraffe_config_from_yaml
     from sdface_gan_tpu_torch.giraffe.generator import (
         GiraffeGenerator,
         LatentCodes,
         giraffe_forward,
     )
+    from sdface_gan_tpu_torch.giraffe.train_loop import giraffe_run_configs
     from sdface_gan_tpu_torch.utils.checkpoints import CheckpointIO, import_jax_run
 
     fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                            "jax_giraffe_run")
-    gcfg = giraffe_config_from_yaml(
+    configs = giraffe_run_configs(
         load_config(os.path.join(fixture, "jax_giraffe.yaml"), default_config_path()),
         types.SimpleNamespace(i_embed=1, log2_hashmap_size=10, finest_res=64))
-    import_jax_run(os.path.join(fixture, "run"), str(tmp_path), gcfg)
+    gcfg = configs.generator
+    import_jax_run(os.path.join(fixture, "run"), str(tmp_path), configs)
     g = GiraffeGenerator(gcfg)
     g.load_state_dict(CheckpointIO(str(tmp_path)).load("model")["g_ema"])
     g = g.cuda().eval()
@@ -905,3 +906,106 @@ def test_jax_giraffe_fixture_serves_on_the_card_as_jax_rendered_it(cuda, tmp_pat
     assert bool(oob.any()) and bool((code[oob] == 0).all())
     want = hg.hash_encode_reference(x, g.decoder.hash_table.detach(), gcfg.decoder.hash_spec, 1.0)
     assert (code - want).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# GIRAFFE's training: K1 on the hash decoders' box-local points, the steps on
+# the card against the CPU, K1 in G steps only
+# ---------------------------------------------------------------------------
+
+def test_giraffe_k1_on_box_local_points_matches_plain_vjp(cuda):
+    """K1 asked for the table gradient alone (the G step's points need no
+    d x) on the upstream GIRAFFE grid (16 x 2, T = 2^19), bound 1, at
+    box-local points / 15 of which most lie outside the box, a std-1 table:
+    within 1e-5 of the plain VJP's norm."""
+    from sdface_gan_tpu_torch.giraffe.decoder import giraffe_hash_spec
+
+    spec = giraffe_hash_spec()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.uniform(-1.0, 1.0, (1 << 17, 3)) * 2.2).astype(np.float32)).cuda()
+    oob = (x.abs() > 1.0).any(-1).float().mean().item()
+    assert 0.5 < oob < 0.95
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    table = torch.randn((spec.table_size, spec.level_dim), generator=gen, device="cuda")
+    g = torch.randn((x.shape[0], spec.output_dim), generator=gen, device="cuda")
+    before = _ext.LAUNCHES["hash_encode_backward"]
+    dx, got = hg.hash_encode_backward(x, table, g, spec, 1.0, need_x=False, need_table=True)
+    assert dx is None and _ext.LAUNCHES["hash_encode_backward"] == before + 1
+    _, want = hg.hash_encode_backward_reference(x, table, g, spec, 1.0, need_x=False,
+                                                need_table=True)
+    assert (got - want).norm().item() <= GRAD_RTOL[torch.float32] * want.norm().item()
+
+
+def _giraffe_fixture_models():
+    """The committed fixture's configs (hash decoder, T = 2^10; 16 samples per
+    ray, batch 2) and G (table redrawn at std 1), D and VAE on the CPU, as
+    the train entry builds them from seed 1."""
+    import dataclasses
+    import os
+    import types
+
+    from sdface_gan_tpu_torch.config import load_config
+    from sdface_gan_tpu_torch.config.yaml_config import default_config_path
+    from sdface_gan_tpu_torch.giraffe.train_loop import giraffe_models, giraffe_run_configs
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                           "jax_giraffe_run")
+    configs = giraffe_run_configs(
+        load_config(os.path.join(fixture, "jax_giraffe.yaml"), default_config_path()),
+        types.SimpleNamespace(i_embed=1, log2_hashmap_size=10, finest_res=64))
+    configs = configs._replace(generator=dataclasses.replace(configs.generator,
+                                                             n_ray_samples=16))
+    g, d, _, _, _, e, _ = giraffe_models(configs, torch.Generator().manual_seed(1), "cpu", True)
+    with torch.no_grad():
+        g.decoder.hash_table.normal_(generator=torch.Generator().manual_seed(2))
+    return configs, g, d, e
+
+
+def test_giraffe_steps_on_the_card_match_the_cpu(cuda):
+    """One D, one G and one VAE E step of GIRAFFE's trainer on the same
+    weights and draws: the card against the CPU (loss rel 1e-4, every
+    gradient within 1e-3 of its norm + 1e-6), each step's gradients over its
+    own module only; on the card K1 runs in the G step alone (the table's
+    gradient, the hash table being a G parameter), and in neither the D
+    step (its fakes rendered without a graph) nor the E step."""
+    from sdface_gan_tpu_torch.giraffe import trainer as tr
+
+    configs, g, d, e = _giraffe_fixture_models()
+    gcfg, hp = configs.generator, configs.hp
+    gen = torch.Generator().manual_seed(5)
+    reals = torch.rand((2, 32, 32, 3), generator=gen)
+
+    def run(kind, dev):
+        gd, dd, ed = (copy.deepcopy(m).to(dev) for m in (g, d, e))
+        # the same draws on either device: made on the host, mapped on dev
+        gen = torch.Generator().manual_seed(6)
+        scene = tr.sample_scene_draws(gen, gcfg, 2, dev)
+        enc = tr.sample_encoder_draws(gen, gcfg, 2, dev)
+        if kind == "d":
+            loss, _ = tr.giraffe_d_loss(gd, dd, gcfg, hp, reals.to(dev), scene)
+            own = dd
+        elif kind == "g":
+            with tr.frozen(dd):
+                loss, _ = tr.giraffe_g_loss(gd, dd, gcfg, scene)
+            own = gd
+        else:
+            with tr.frozen(gd, dd):
+                loss, _ = tr.giraffe_e_loss(ed, gd, dd, gcfg, reals.to(dev), enc)
+            own = ed
+        grads = torch.autograd.grad(loss, list(own.parameters()))
+        assert all(p.grad is None for m in (gd, dd, ed) for p in m.parameters())
+        return loss.item(), [t.cpu() for t in grads]
+
+    with torch.enable_grad():
+        for kind in ("d", "g", "e"):
+            _ext.reset_launch_counts()
+            lc, gc = run(kind, "cuda")
+            torch.cuda.synchronize()
+            launches = dict(_ext.LAUNCHES)
+            lh, gh = run(kind, "cpu")
+            assert launches["hash_encode"] > 0, (kind, launches)
+            assert (launches["hash_encode_backward"] > 0) == (kind == "g"), (kind, launches)
+            assert launches["hash_encode_double_backward"] == 0
+            assert abs(lc - lh) <= 1e-4 * abs(lh), (kind, lc, lh)
+            for a, b in zip(gc, gh):
+                assert (a - b).norm() <= 1e-3 * b.norm() + 1e-6, kind

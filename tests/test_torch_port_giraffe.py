@@ -71,6 +71,7 @@ from sdface_gan_tpu_torch.giraffe import neural_renderer as p_nr  # noqa: E402
 from sdface_gan_tpu_torch.giraffe import rendering as p_rend  # noqa: E402
 from sdface_gan_tpu_torch.utils import checkpoints  # noqa: E402
 from sdface_gan_tpu_torch.utils.convert import (  # noqa: E402
+    jax_dc_disc_params_to_state_dict,
     jax_giraffe_params_to_state_dict,
     jax_vae_params_to_state_dict,
 )
@@ -81,6 +82,7 @@ sys.path.insert(0, str(REPO / "scripts"))
 from export_jax_checkpoint import export_run  # noqa: E402
 
 from test_torch_port_models import IMAGE_TOL  # noqa: E402
+from test_torch_port_training import _two_threads  # noqa: E402,F401  (autouse: two threads)
 
 FIXTURE = REPO / "tests" / "fixtures" / "jax_giraffe_run"
 IMAGES = REPO / "tests" / "fixtures" / "images"
@@ -733,7 +735,8 @@ def test_full_width_forward_matches_jax(flags):
 def test_full_width_model_tree_imports_bit_exact(tmp_path, monkeypatch):
     """A flagship-width ``model`` tree (hash decoder, DC discriminator,
     RMSprop states) saved by JAX's ``CheckpointIO``, exported and imported
-    by the CLI: ``g`` and ``g_ema`` equal the converter's bit for bit."""
+    by the CLI: ``g``, ``g_ema`` and ``d`` equal the converter's bit for
+    bit, with the optimizer states beside them."""
     jcfg, pcfg = _full_width(dict(i_embed=1))
     g = j_init(jax.random.PRNGKey(0), jcfg)
     g_ema = jax.tree_util.tree_map(lambda x: x * 0.5, g)
@@ -751,8 +754,11 @@ def test_full_width_model_tree_imports_bit_exact(tmp_path, monkeypatch):
     import_cli.main(["--src", str(tmp_path / "export"), "--config",
                      "configs/256res/ffhq_256.yaml", "--sdf", "0", "--i_embed", "1"])
     got = checkpoints.load_checkpoint(str(run_out / "out" / "ffhq256"), "model")
-    assert set(got) == {"g", "g_ema", "it", "fid_best"} and got["it"] == 7
-    assert got["fid_best"] == 12.5
+    assert set(got) == {"g", "d", "g_ema", "g_opt", "d_opt", "it", "fid_best"}
+    assert got["it"] == 7 and got["fid_best"] == 12.5
+    want_d = jax_dc_disc_params_to_state_dict(jax.tree_util.tree_map(np.asarray, d))
+    assert all(torch.equal(got["d"][k], v) for k, v in want_d.items())
+    assert len(got["g_opt"]["state"]) == len(got["g"])
     for name, tree in (("g", g), ("g_ema", g_ema)):
         want = jax_giraffe_params_to_state_dict(jax.tree_util.tree_map(np.asarray, tree), pcfg)
         assert set(got[name]) == set(want)
@@ -773,6 +779,17 @@ def _fixture_cfgs():
     flags = _Flags(i_embed=1, log2_hashmap_size=10, finest_res=64)
     return (j_config.giraffe_config_from_yaml(j_load_config(path, default_config_path()), flags),
             p_config.giraffe_config_from_yaml(load_config(path, p_default()), flags))
+
+
+def _fixture_run_configs(img_size=None):
+    """The port's run configs of the fixture's yaml and flags (``img_size``
+    replacing the yaml's)."""
+    from sdface_gan_tpu_torch.giraffe.train_loop import giraffe_run_configs
+
+    cfg = load_config(str(FIXTURE / "jax_giraffe.yaml"), p_default())
+    if img_size is not None:
+        cfg["data"]["img_size"] = img_size
+    return giraffe_run_configs(cfg, _Flags(i_embed=1, log2_hashmap_size=10, finest_res=64))
 
 
 def _fixture_scene(s, to=np.asarray):
@@ -811,13 +828,13 @@ def imported(tmp_path, monkeypatch):
 
 
 def test_fixture_imported_renders_jax_s_images(capsys, imported):
-    """``model`` and ``model_0000004`` imported (what is left out printed);
-    the port's ``g_ema`` renders JAX's codes, camera,
+    """``model`` and ``model_0000004`` imported (nothing left out); the
+    port's ``g_ema`` renders JAX's codes, camera,
     transforms and background rotation within ``IMAGE_TOL`` of JAX's
     images, and the ``object_rotation`` frames within it too."""
     assert sorted(os.listdir(imported)) == ["model.pt", "model_0000004.pt"]
     out = capsys.readouterr().out
-    assert "model: d, g_opt, d_opt not imported" in out
+    assert "not imported" not in out and "model.pt" in out
     _, pcfg = _fixture_cfgs()
     state = checkpoints.CheckpointIO(str(imported)).load("model")
     assert state["it"] == 4 and state["fid_best"] == float("inf")
@@ -905,24 +922,35 @@ def test_checkpoint_io_round_trip_and_backup(tmp_path):
 
 
 def test_encoder_tree_imports_and_is_told_from_stage_c(tmp_path, capsys):
-    """A GIRAFFE run's top-level ``encoder`` ({e, e_opt}) imports its VAE
-    (``e_opt`` not imported: GIRAFFE's training is not ported); the SDF stage C's
-    ``encoder/encoder`` and a top-level ``encoder`` holding {e, g_ema} are
-    refused under ``--sdf 0``, before anything is written."""
+    """A GIRAFFE run's top-level ``encoder`` ({e, e_opt}) imports its VAE and
+    its Adam state; the SDF stage C's ``encoder/encoder`` and a top-level
+    ``encoder`` holding {e, g_ema} are refused under ``--sdf 0``, before
+    anything is written."""
     import optax
 
-    _, pcfg = _fixture_cfgs()
+    configs = _fixture_run_configs(img_size=16)
+    pcfg = configs.generator
     ecfg = j_vae.VAEEncoderConfig(img_size=16, z_size=2 * pcfg.z_dim)
     e = j_vae.init_vae_encoder(jax.random.PRNGKey(0), ecfg)
+    adam = optax.adam(5e-4)
+    state = adam.init(e)
+    _, state = adam.update(jax.tree_util.tree_map(jnp.ones_like, e), state, e)
     run = tmp_path / "run"
-    j_ckpt.CheckpointIO(str(run)).save("encoder", e=e, e_opt=optax.adam(5e-4).init(e))
+    j_ckpt.CheckpointIO(str(run)).save("encoder", e=e, e_opt=state)
     export_run(str(run), str(tmp_path / "x"))
-    checkpoints.import_jax_run(str(tmp_path / "x"), str(tmp_path / "out"), pcfg)
-    assert "encoder: e_opt not imported" in capsys.readouterr().out
+    checkpoints.import_jax_run(str(tmp_path / "x"), str(tmp_path / "out"), configs)
+    assert "not imported" not in capsys.readouterr().out
     got = checkpoints.load_checkpoint(str(tmp_path / "out"), "encoder")
     want = jax_vae_params_to_state_dict(jax.tree_util.tree_map(np.asarray, e))
-    assert set(got) == {"e"} and all(torch.equal(got["e"][k], v) for k, v in want.items())
-    VAEEncoder(VAEEncoderConfig(img_size=16, z_size=2 * pcfg.z_dim)).load_state_dict(got["e"])
+    assert set(got) == {"e", "e_opt"}
+    assert all(torch.equal(got["e"][k], v) for k, v in want.items())
+    model = VAEEncoder(VAEEncoderConfig(img_size=16, z_size=2 * pcfg.z_dim))
+    model.load_state_dict(got["e"])
+    opt = torch.optim.Adam(model.parameters(), lr=5e-4)
+    opt.load_state_dict(got["e_opt"])
+    mu = jax_vae_params_to_state_dict(jax.tree_util.tree_map(np.asarray, state[0].mu))
+    for name, p in model.named_parameters():
+        assert torch.equal(opt.state[p]["exp_avg"], mu[name]) and opt.state[p]["step"] == 1
 
     for where, tree in (("sdf", {"e": e, "g_ema": {"w": jnp.ones(2)}}),
                         ("top", {"e": e, "g_ema": {"w": jnp.ones(2)}})):
@@ -932,34 +960,37 @@ def test_encoder_tree_imports_and_is_told_from_stage_c(tmp_path, capsys):
         export_run(str(run), str(tmp_path / f"x_{where}"))
         with pytest.raises(ValueError, match="--sdf 1" if where == "sdf" else "keys"):
             checkpoints.import_jax_run(str(tmp_path / f"x_{where}"), str(tmp_path / f"o_{where}"),
-                                       pcfg)
+                                       configs)
         assert not (tmp_path / f"o_{where}").exists()
 
 
 def test_import_refusals(tmp_path, monkeypatch):
-    """Before writing anything: a gan2d run (naming ROADMAP), a GIRAFFE
-    tree under ``--sdf 1``, an SDF run under ``--sdf 0``, a hash-decoder
-    tree imported without ``--i_embed 1``, an existing port checkpoint."""
+    """Before writing anything: a GIRAFFE run under a gan2d yaml (its
+    ``model`` holds ``fid_best``, a gan2d one does not), a GIRAFFE tree
+    under ``--sdf 1``, an SDF run under ``--sdf 0``, a hash-decoder tree
+    imported without ``--i_embed 1``, an existing port checkpoint."""
     (tmp_path / "gan2d.yaml").write_text("method: gan2d\ntraining:\n  out_dir: out/g2d\n")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 7"):
+    with pytest.raises(ValueError, match="not a checkpoint of a gan2d run"):
         import_cli.main(["--src", str(FIXTURE / "run"), "--config", "gan2d.yaml", "--sdf", "0"])
     assert not (tmp_path / "out").exists()
     with pytest.raises(ValueError, match="import with --sdf 0"):
         checkpoints.import_jax_run(str(FIXTURE / "run"), str(tmp_path / "o1"),
                                    checkpoints.RunConfigs(None, None, None, None))
-    _, pcfg = _fixture_cfgs()
+    configs = _fixture_run_configs()
+    pcfg = configs.generator
     with pytest.raises(ValueError, match="import with --sdf 1"):
         checkpoints.import_jax_run(str(REPO / "tests" / "fixtures" / "jax_run" / "stage_b"),
-                                   str(tmp_path / "o2"), pcfg)
+                                   str(tmp_path / "o2"), configs)
     plain = dataclasses.replace(pcfg, decoder=dataclasses.replace(
         pcfg.decoder, positional_encoding="normal", hash_spec=None))
     with pytest.raises(ValueError, match="--small_net / --i_embed"):
-        checkpoints.import_jax_run(str(FIXTURE / "run"), str(tmp_path / "o3"), plain)
+        checkpoints.import_jax_run(str(FIXTURE / "run"), str(tmp_path / "o3"),
+                                   configs._replace(generator=plain))
     assert not any((tmp_path / o).exists() for o in ("o1", "o2"))
-    checkpoints.import_jax_run(str(FIXTURE / "run"), str(tmp_path / "o4"), pcfg)
+    checkpoints.import_jax_run(str(FIXTURE / "run"), str(tmp_path / "o4"), configs)
     with pytest.raises(FileExistsError):
-        checkpoints.import_jax_run(str(FIXTURE / "run"), str(tmp_path / "o4"), pcfg)
+        checkpoints.import_jax_run(str(FIXTURE / "run"), str(tmp_path / "o4"), configs)
 
 
 def test_jax_render_cli_cannot_load_a_hash_model(tmp_path, monkeypatch):

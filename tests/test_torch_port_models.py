@@ -27,6 +27,7 @@ from sdface_gan_tpu_torch.models import generator, renderer, stylegan2  # noqa: 
 from sdface_gan_tpu_torch.utils.convert import jax_params_to_state_dict  # noqa: E402
 
 from test_torch_import import _build_reference_state  # noqa: E402
+from test_torch_port_training import _two_threads  # noqa: E402,F401  (autouse: two threads)
 
 DEPTH, WIDTH, STYLE, SIZE, RES, SAMPLES = 2, 32, 16, 32, 16, 6
 THUMB_TOL = dict(rtol=1e-4, atol=2e-5)

@@ -41,6 +41,7 @@ from sdface_gan_tpu_torch.serving import SDFaceSampler  # noqa: E402
 from sdface_gan_tpu_torch.utils.convert import jax_params_to_state_dict  # noqa: E402
 
 from test_torch_port_models import IMAGE_TOL, THUMB_TOL  # noqa: E402
+from test_torch_port_training import _two_threads  # noqa: E402,F401  (autouse: two threads)
 
 SIZE, RES, SAMPLES = 32, 16, 6
 CONFIGS = Path(__file__).resolve().parents[1] / "configs" / "256res"

@@ -62,6 +62,7 @@ from sdface_gan_tpu_torch.utils.convert import (  # noqa: E402
     jax_disc_params_to_state_dict,
     jax_params_to_state_dict,
 )
+from test_torch_port_training import _two_threads  # noqa: E402,F401  (autouse: two threads)
 
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-6
 # JAX's CPU f32 sum of the smoothness's 357k squared differences drifts by

@@ -32,6 +32,7 @@ from test_torch_port_models import (  # noqa: E402
     _configs,
     _port_model,
 )
+from test_torch_port_training import _two_threads  # noqa: E402,F401  (autouse: two threads)
 
 PACKAGE = Path(__file__).resolve().parents[1] / "sdface_gan_tpu_torch"
 

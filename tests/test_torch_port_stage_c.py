@@ -68,6 +68,14 @@ def _two_threads():
         torch.set_num_threads(n)
 
 
+def _jit(fn, **kw):
+    """``jax.jit`` with XLA's quick compile: the JAX side runs once per test,
+    and eagerly JAX compiles every operation apart (IR-SE-50's init and the
+    pSp loss's backward: minutes eagerly)."""
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0,
+                                         "xla_llvm_disable_expensive_passes": True}, **kw)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
@@ -89,6 +97,16 @@ def _generators(jcfg, pcfg, seed=1):
     g = generator.Generator(pcfg, device="cpu")
     g.load_state_dict(jax_params_to_state_dict(gp, pcfg))
     return gp, g
+
+
+def _jax_value_and_grad(ep, gp, jcfg, ecfg, loss_utils, imgs, thumbs, jc, **kw):
+    """``jax.value_and_grad`` of :func:`_jax_loss` with respect to ``ep``,
+    jitted over the arrays (the configs, the loss's nets and the cameras
+    closed over)."""
+    def loss(ep, gp, imgs, thumbs, kw):
+        return _jax_loss(ep, gp, jcfg, ecfg, loss_utils, imgs, thumbs, jc, **kw)
+
+    return _jit(jax.value_and_grad(loss))(ep, gp, imgs, thumbs, kw)
 
 
 def _jax_loss(ep, gp, jcfg, ecfg, loss_utils, imgs, thumbs, jc, eps=None, latent_avg=None):
@@ -134,9 +152,9 @@ def test_vae_encoder_loss_matches_jax():
     imgs, thumbs = _images(0, BATCH, 16), _images(1, BATCH, 8)
     eps = np.asarray(jax.random.normal(jax.random.PRNGKey(9), (BATCH, 16)))
     jc = j_cams(8, jax.random.PRNGKey(3), batch=BATCH)
-    lj, gj = jax.value_and_grad(_jax_loss)(ep, gp, jcfg, jecfg, j_losses.LossUtils(),
-                                           jnp.asarray(imgs), jnp.asarray(thumbs), jc,
-                                           eps=jnp.asarray(eps))
+    lj, gj = _jax_value_and_grad(ep, gp, jcfg, jecfg, j_losses.LossUtils(),
+                                 jnp.asarray(imgs), jnp.asarray(thumbs), jc,
+                                 eps=jnp.asarray(eps))
     inputs = encoder_loop.EncoderInputs(_t(imgs), _t(thumbs), CameraParams(*map(_t, jc)),
                                         eps=_t(eps))
     g.requires_grad_(False)
@@ -158,11 +176,11 @@ def test_psp_encoder_loss_matches_jax():
     gp, g = _generators(jcfg, pcfg)
     n_latent = jcfg.decoder.n_latent
     jecfg = j_psp.PSPConfig(img_size=PSP_RES, style_count=n_latent, renderer_style_dim=256)
-    ep = j_psp.init_psp_encoder(jax.random.PRNGKey(2), jecfg)
+    ep = _jit(j_psp.init_psp_encoder, static_argnums=1)(jax.random.PRNGKey(2), jecfg)
     e = encoder.PSPEncoder(encoder.PSPConfig(img_size=PSP_RES, style_count=n_latent,
                                              renderer_style_dim=256))
     e.load_state_dict(jax_psp_params_to_state_dict(ep))
-    lp = j_lpips.init_lpips(jax.random.PRNGKey(5))
+    lp = _jit(j_lpips.init_lpips)(jax.random.PRNGKey(5))
     lnet = encoder.LPIPS()
     lnet.load_state_dict(jax_lpips_params_to_state_dict(lp))
     rng = np.random.default_rng(6)
@@ -170,7 +188,7 @@ def test_psp_encoder_loss_matches_jax():
            0.1 * rng.standard_normal((1, 512)).astype(np.float32))
     imgs, thumbs = _images(7, BATCH, PSP_RES), _images(8, BATCH, 8)
     jc = j_cams(8, jax.random.PRNGKey(3), batch=BATCH)
-    lj, gj = jax.value_and_grad(_jax_loss)(
+    lj, gj = _jax_value_and_grad(
         ep, gp, jcfg, jecfg, j_losses.LossUtils(lpips_params=lp),
         jnp.asarray(imgs), jnp.asarray(thumbs), jc,
         latent_avg=tuple(map(jnp.asarray, avg)))

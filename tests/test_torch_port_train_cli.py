@@ -23,6 +23,7 @@ from sdface_gan_tpu_torch import train as train_cli
 from sdface_gan_tpu_torch.data.png import encode_png
 from sdface_gan_tpu_torch.training import loop
 from sdface_gan_tpu_torch.utils import checkpoints
+from test_torch_port_training import _two_threads  # noqa: E402,F401  (autouse: two threads)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = """inherit_from: configs/256res/ffhq_256_sdf.yaml
@@ -186,14 +187,18 @@ def test_wod_starts_stage_b_from_the_sphere_init(ws, monkeypatch):
 
 @pytest.mark.parametrize("case", ["sdf0", "vae", "psp"])
 def test_paths_not_ported_raise(ws, case):
-    """``--sdf 0`` raises before anything is written, with or without stage
-    C's flags: stage C is ported in the SDF flow only (it trains there, in
-    ``tests/test_torch_port_stage_c.py``)."""
+    """``--sdf 0`` on an SDF yaml takes the GIRAFFE family's path (the
+    yaml's ``method``, GIRAFFE by default, as the root ``train.py``
+    dispatches), with or without stage C's flags (stage C of the SDF flow
+    trains in ``tests/test_torch_port_stage_c.py``; GIRAFFE's ``--vae 1`` in
+    ``tests/test_torch_port_giraffe_training.py``).  That path reads the
+    yaml's image glob, which matches no image here: it raises before
+    anything is written."""
     config = _write_config(ws, f"tiny_{case}")
     more = {"sdf0": [], "vae": ["--vae", "1"], "psp": ["--psp", "1"]}[case]
     args = _args(config, *more)
     args[args.index("--sdf") + 1] = "0"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(IOError, match="no images match data/ffhq/images"):
         train_cli.main(args)
     assert not (ws / "out" / f"tiny_{case}").exists()
 
