@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Phases, each printed as one JSON line; any failure raises and exits
-non-zero with no ``ok`` line:
+Phases, each printed as JSON lines (every line carries ``t_s``, the
+script's seconds so far, and each phase ends with a ``wall`` line of its
+wall seconds; a ``walls`` line sums them up before the ``kernels`` line);
+any failure raises and exits non-zero with no ``ok`` line:
 
 1. device  - nvidia-smi name and power limit, torch's device name and
              capability.  No CUDA: exit 2.  Run outside the repository
@@ -13,6 +15,12 @@ non-zero with no ``ok`` line:
              (``csrc/siren_field.cu``, ``csrc/hash_grid.cu``) with one
              nvcc process each, all started together, unless a build for
              the source already exists; ptxas registers and spills.
+   prepare - beside the build and kernel_check, on a thread (host work
+             only, the card idle): the native library (g++), train_cli's
+             images and store, evaluate's 48 procedural 256^2 heads, and the
+             512^2 phases' 24 procedural 512^2 heads and their 64 + 512
+             store (``data.synthetic --res 512``, ``prepare_data --size
+             64,512``); awaited before serve.
 3. kernel_check - each kernel against its plain PyTorch version on the card:
              * siren_field at full width (W=256, D=8, style 256, B=2,
                P=64*64*24) and at depth 3, P=700 (a partial tile), and at
@@ -133,8 +141,7 @@ non-zero with no ``ok`` line:
              procedural 320 x 288 PNG images and the committed image
              fixtures (JPEG, BMP, palette / interlaced / 16-bit PNG) through ``python -m
              sdface_gan_tpu_torch.prepare_data --size 256`` (records, store
-             bytes, seconds; the native record-store and PNG library built
-             by g++ first); the loader's work for 20 batches of 8 (decode,
+             bytes, seconds; made in prepare); the loader's work for 20 batches of 8 (decode,
              flip, HAMMING thumb) and the prefetching DataLoader's time per
              batch, beside the stage-A step time; ``python -m
              sdface_gan_tpu_torch.train --config
@@ -142,32 +149,40 @@ non-zero with no ``ok`` line:
              sphere-init steps, 3 stage-A and 3 stage-B iterations): exit 0,
              both artifacts, finite losses, d_ms/g_ms logged, stage medians
              and wall time, alone on the card; then together: the entry's
-             command again (it trains nothing), a fresh experiment with
-             ``--exit-after 1`` that exits 3 leaving a ``models_*``
-             checkpoint, the same command without it resuming at step + 1
-             and finishing, and ``python -m sdface_gan_tpu_torch.train
-             --config configs/256res/ffhq_256_sdf_ngp_tpu.yaml --sdf 1``
-             (NGP by the yaml's type): exit 0, both artifacts, finite losses
-             with g_smooth (its logged step ms taken beside the other two,
-             ``card_shared_with``).  Each command runs in a
-             ``.chip_smoke_train_*`` directory with a ``configs`` symlink.
+             command again (it trains nothing), ``python -m
+             sdface_gan_tpu_torch.train --config
+             configs/256res/ffhq_256_sdf_ngp_tpu.yaml --sdf 1`` (NGP by the
+             yaml's type): exit 0, both artifacts, finite losses with
+             g_smooth (its logged step ms taken beside the others,
+             ``card_shared_with``), and evaluate's untimed tools (the
+             heads' FID stats, both probe stages, sdf_mesh), with
+             evaluate's untimed eval runs in this process.  In stage C's
+             wave, at batch 2: a fresh experiment with ``--exit-after 1``
+             that exits 3 leaving a ``models_*`` checkpoint, then the same
+             command without it resuming at step + 1 and finishing
+             (train_cli_flow).  Each
+             command runs in one ``.chip_smoke_train_*`` directory with a
+             ``configs`` symlink.
 9. evaluate - the evaluation and geometry tools over train_cli's two
              artifacts, in its directory: 48 procedural 256^2 heads into a
-             store (``python -m sdface_gan_tpu_torch.data.synthetic``) and
-             their FID stats (``calc_fid_stats``); ``eval.main`` in this
-             process, f32 with the PNG dump against the store (finite FID
-             and KID), then bf16 and f32 with ``--no_dump`` against the
-             stats (images/s: generation + Inception, host clock after a
-             synchronise), then the NGP artifact: siren_field (or
-             hash_encode and table_gather) launched once per batch, the
-             plain field and the plain encode never on a CUDA tensor, and a
-             short profiled run of each dtype showing its field kernel by
-             name (f32: siren_field_f32_kernel, bf16: siren_field_mma_kernel)
-             and not the other; ``probe_geometry --stage a`` and ``--stage b
+             store (``python -m sdface_gan_tpu_torch.data.synthetic``, in
+             prepare) and their FID stats (``calc_fid_stats``, in
+             train_cli's wave); ``eval.main`` in this process, f32 with the
+             PNG dump against the store (finite FID and KID), then bf16 and
+             f32 with ``--no_dump`` against the stats (images/s: generation
+             + Inception, host clock after a synchronise), then the NGP
+             artifact: siren_field (or hash_encode and table_gather)
+             launched once per batch, the plain field and the plain encode
+             never on a CUDA tensor; the f32 dump run profiled whole and a
+             short profiled bf16 run (both untimed, in this process while
+             train_cli's wave runs) show each dtype's field kernel by name
+             (f32: siren_field_f32_kernel, bf16: siren_field_mma_kernel) and
+             not the other; each ``eval.main``'s seconds and its FID's
+             ``sqrtm`` seconds; ``probe_geometry --stage a`` and ``--stage b
              --mesh`` (four identities and a verdict) and ``sdf_mesh
              --identities 2`` (32 view PNGs, a mesh or its failure line per
-             identity), started with the heads' store before the timed
-             evals, and ``eval_files`` on the dump after them, each exit 0;
+             identity), run in train_cli's wave, and ``eval_files`` on the
+             dump in stage C's wave (evaluate_files), each exit 0;
              the FID Inception on the card against the CPU (TF32
              off, <= 1e-4 of max |activation|, 256^2 and 512^2) and its ms
              per batch of 8; sdf_mesh's surface probe at 128^3 timed, its
@@ -196,7 +211,17 @@ non-zero with no ``ok`` line:
              ``encoder`` / ``encoder_psp`` written, every loss finite (their
              logged E-step ms share the card); a ``--vae 1`` run cut by
              ``--exit-after 1`` (exit 3) that the next run resumes at step +
-             1; and giraffe_train's CLI runs.
+             1 (its own experiment, holding copies of train_cli's two stage
+             artifacts); and the rest of the script's untimed work, at once:
+             giraffe_train's CLI runs, train_cli's cut pair (batch 2), the
+             CLI runs of bridge_and_images (then eval_files) and of giraffe,
+             and the staged 512^2 CLI (train_512, after the ``--psp 1`` run),
+             so that no more than four 10-14 GB train processes share the
+             card (its used memory sampled: the peak in GB), with
+             train_512's card-vs-CPU parity in this process after stage C's
+             parity.  The processes of a wave (and
+             of train_cli's) run with two host threads each and the
+             allocator's expandable segments.
 11. bench   - ``python -m sdface_gan_tpu_torch.bench`` and ``... .bench_ngp`` at
              their defaults (the flagship at batch 32; the upstream hash grid,
              stage-A NGP at batch 4, three NGP serving grids at batch 8), one
@@ -223,14 +248,16 @@ non-zero with no ``ok`` line:
              per decode; 48 JPEGs through ``prepare_data --size 256``
              (images/s); the committed JAX run (``tests/fixtures/jax_run/``)
              imported: stage A's archive by ``python -m
-             sdface_gan_tpu_torch.import_jax_checkpoints`` from its yaml,
-             stage B's by ``import_jax_run``; its ``full_pipeline`` served by
+             sdface_gan_tpu_torch.import_jax_checkpoints`` from its yaml (in
+             stage C's wave, after its 32^2 store), stage B's by
+             ``import_jax_run``; its ``full_pipeline`` served by
              ``SDFaceSampler.from_checkpoint`` in f32 through the field kernel
              (width 64) with JAX's z, angles and truncation pair, within 2e-3
              + IMAGE_TOL (rtol 2e-3, atol 2e-4) of JAX's images; its stage-B
              ``models_0000002`` resumed for two iterations (resumed at step
              3, finite losses, ``models_*`` written); ``train`` from JAX's
-             ``sdf_init_models`` (2 + 2 iterations); a VAE stage C (2
+             ``sdf_init_models`` (2 + 2 iterations, in stage C's wave after
+             the import); a VAE stage C (2
              iterations) against JAX's generator; and train_cli's flagship
              ``full_pipeline`` through ``from_checkpoint`` in bf16 at batch
              8, bit-equal to a sampler built from the same state dict.
@@ -253,14 +280,16 @@ non-zero with no ``ok`` line:
              (64^3, faces on the card, alpha against the CPU's); the
              committed JAX GIRAFFE run (``tests/fixtures/jax_giraffe_run/``)
              imported by ``python -m sdface_gan_tpu_torch.import_jax_checkpoints
-             --sdf 0 --i_embed 1 ...``, JAX's codes, camera, transforms and
+             --sdf 0 --i_embed 1 ...`` (in stage C's wave), JAX's codes, camera, transforms and
              background rotation rendered through the hash kernel within
              2e-3 + IMAGE_TOL of JAX's images; ``python -m
              sdface_gan_tpu_torch.render`` over the yaml's programs with
              ``--export_meshes 1``, ``render --vae 1`` (a port-saved VAE
              ``encoder.pt``, the committed image files) and ``extract_mesh
-             --n_meshes 2``, run together: PNG sheets and ``.ply`` files,
-             seconds of each command.
+             --n_meshes 2`` after the import, and both entries on the
+             surface model (the seeded plain generator, density x 20), in
+             stage C's wave: PNG sheets and ``.ply`` files, seconds of each
+             command.
 15. giraffe_train - GIRAFFE's and gan2d's training, after giraffe in
              train_cli's directory (its CLI processes, below, run beside
              train_stage_c's train processes): the D, G and (``--vae 1``) E
@@ -283,7 +312,38 @@ non-zero with no ``ok`` line:
              resuming it at it 5-6, a ``train --sdf 0 --exit-after 1`` run
              (exit 3) and its resume at it + 1 (exit 3 again), and a
              ``method: gan2d`` yaml at 64^2 for 3 iterations.
-16. the ``kernels`` line (launches of every phase's counted runs: the
+16. serve_512 - the 512^2 configuration
+             (``configs/512res/ffhq_512_sdf_tpu.yaml``, resolved as
+             ``bench_serving_512`` resolves it: the 8 x 256 SIREN field at
+             64^2 x 24 samples under a decoder to 512^2, ``n_latent`` 8)
+             behind ``SDFaceSampler`` at batch 8, bf16 weights: two seed
+             requests and one azim/elev request counted (siren_field in
+             every request, no plain field on the card), a profiled request
+             showing siren_field_mma_kernel<256> by name and neither the f32
+             kernel nor a plain field; one f32 request through the fused
+             field against the plain field (<= 2e-3) and the bf16 request
+             under the bf16 contract.
+17. bench_512 - ``python -m sdface_gan_tpu_torch.bench_serving_512`` (batch
+             4, 8, 16, 32) and ``... .bench_train_512`` (the D step with R1,
+             the G step and the path step at batch 2, 4, 8) at their
+             defaults, one after the other, alone on the card: every batch
+             ``fits_hbm`` with its peak GB, finite values, the card named,
+             the field kernel once per timed serving call; images/s, ms per
+             batch, the step ms and ``it_per_s_combined``.
+18. train_512 - what ran in stage C's wave: ``python -m
+             sdface_gan_tpu_torch.train --config
+             configs/512res/ffhq_512_sdf_tpu.yaml --sdf 1 --iters 20
+             --sphere_init_iters 10`` over the 64 + 512 store (sphere init,
+             stage A at 64^2 with the yaml's 4,096 eikonal points, no remat
+             and bf16 G, the A -> B transfer, stage B at 512^2): exit 0,
+             every logged loss finite, ``vol_renderer`` and
+             ``full_pipeline``, a 512^2 sample grid; and train_512_parity:
+             the stage-B D step (R1) and G step at 512^2 at the CPU tests'
+             width cut, the card against the CPU under ``masked_parity``
+             (loss rel 1e-4, gradients 1e-3 of their norm), the path step
+             so in f64 and in f32 against the CPU's f64 no worse than the
+             CPU's own f32 (x 1.2 + 1e-4).
+19. the ``kernels`` line (launches of every phase's counted runs: the
              bench processes report theirs), then the nvidia-smi line, then
              the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32: this process
@@ -334,8 +394,12 @@ SOURCES = ("siren_field", "hash_grid")
 NGP_BOUND = 2.0  # NGPSirenConfig.bound
 
 
+START = time.perf_counter()
+
+
 def emit(**record) -> None:
-    print(json.dumps(record), flush=True)
+    """One JSON line; ``t_s`` is the script's wall seconds when it was printed."""
+    print(json.dumps({**record, "t_s": round(time.perf_counter() - START, 1)}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1952,6 +2016,7 @@ CLI_NGP_CONFIG, CLI_NGP_EXP = "configs/256res/ffhq_256_sdf_ngp_tpu.yaml", "ffhq2
 CLI_TRAIN_FLAGS = ("--batch", str(CLI_BATCH), "--sphere_init_iters", "2", "--log_every", "1",
                    "--save_every", "1000", "--sample_every", "1000")
 CLI_TIMEOUT_S = 420
+CLI_CUT_BATCH = 2  # the --exit-after flow's batch (the stage flow is what it checks)
 
 
 def procedural_images(n: int, hw: tuple, seed: int) -> list:
@@ -1998,172 +2063,227 @@ def _step_medians(rows: list) -> dict:
                 g_ms=statistics.median(r["g_ms"] for r in adv))
 
 
-def train_cli(results: dict, smi: str) -> None:
-    """The port's command-line training: a store prepared from PNG files by
-    ``python -m sdface_gan_tpu_torch.prepare_data``, the loader timed on the
-    host, ``python -m sdface_gan_tpu_torch.train`` through sphere init, stage A
-    and stage B at full width, then the stage flow (a rerun trains nothing,
-    ``--exit-after`` exits 3 and the next run resumes)."""
-    import re
-    import tempfile
+def prepare(td: str) -> dict:
+    """Host-only preparation in ``td``, on a thread beside the kernels' build
+    (the card idles then): the native library (g++), train_cli's images
+    (16 procedural 320 x 288 PNGs and the committed image fixtures), then
+    at once train_cli's store (``prepare_data --size 256``), evaluate's 48
+    procedural 256^2 heads (``data.synthetic``) and the 512^2 phase's heads
+    and their 64 + 512 store (``data.synthetic --res 512``, ``prepare_data
+    --size 64,512``)."""
+    from sdface_gan_tpu_torch import native
+    from sdface_gan_tpu_torch.data.png import encode_png
 
+    fresh = not native.library_path().exists()
+    t0 = time.perf_counter()
+    native.build()
+    native_s = time.perf_counter() - t0
+    os.makedirs(os.path.join(td, "imgs"))
+    for i, img in enumerate(procedural_images(CLI_IMAGES, CLI_HW, seed=11)):
+        with open(os.path.join(td, "imgs", f"{i:05d}.png"), "wb") as f:
+            f.write(encode_png(img))
+    # the committed JPEG, BMP and palette / interlaced / 16-bit PNG files
+    # too: stages A, B and C then train on a store holding decoded JPEGs
+    for name in image_fixtures():
+        shutil.copy(os.path.join(IMAGE_FIXTURES, name), os.path.join(td, "imgs", name))
+    runs = run_modules_together({
+        "store": [("prepare_data", ["imgs", "--out", "store", "--size", str(CLI_SIZE),
+                                    "--n_worker", "8"])],
+        "heads": [("data.synthetic", ["--out", "heads", "--n", str(EVAL_HEADS), "--res",
+                                      str(EVAL_HEAD_RES), "--seed", "3"])],
+        "heads_512": [("data.synthetic", ["--out", "heads_512", "--png_dir", "heads_512_png",
+                                          "--n", str(CLI_512_HEADS), "--res", "512",
+                                          "--seed", "5"]),
+                      ("prepare_data", ["heads_512_png", "--out", CLI_512_STORE, "--size",
+                                        "64,512", "--n_worker", "8"])]}, td)
+    return dict(native_s=native_s, native_built=fresh, runs=runs,
+                seconds=time.perf_counter() - t0)
+
+
+def train_cli(results: dict, smi: str, td: str, prepared: dict, beside) -> tuple:
+    """The port's command-line training in ``td``: the store that
+    :func:`prepare` made from PNG files by ``python -m
+    sdface_gan_tpu_torch.prepare_data``, the loader timed on the host,
+    ``python -m sdface_gan_tpu_torch.train`` through sphere init, stage A and
+    stage B at full width, alone on the card; then, together, its rerun
+    (which trains nothing), the NGP generator's run, and evaluate's tools
+    that need no timing: the heads' FID stats, both probe stages and
+    sdf_mesh; ``beside()`` runs in this process meanwhile.  Returns (those
+    tools' results, ``beside()``'s) for :func:`evaluate`.  A run cut by
+    ``--exit-after`` and its resume run in stage C's wave
+    (:func:`train_cli_cut_jobs`, checked by :func:`train_cli_flow`)."""
     import numpy as np
 
-    from sdface_gan_tpu_torch import native
     from sdface_gan_tpu_torch.data import DataLoader, MultiResolutionDataset
-    from sdface_gan_tpu_torch.data.png import encode_png
     from sdface_gan_tpu_torch.utils.checkpoints import checkpoint_exists
 
     import gc
 
     import torch
 
+    t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()  # leave the card's memory to the training subprocesses
-    fresh = not native.library_path().exists()
-    t0 = time.perf_counter()
-    native.build()
-    native_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_train_") as td:
-        os.symlink(os.path.join(HERE, "configs"), os.path.join(td, "configs"))
-        os.makedirs(os.path.join(td, "imgs"))
-        for i, img in enumerate(procedural_images(CLI_IMAGES, CLI_HW, seed=11)):
-            with open(os.path.join(td, "imgs", f"{i:05d}.png"), "wb") as f:
-                f.write(encode_png(img))
-        # the committed JPEG, BMP and palette / interlaced / 16-bit PNG files
-        # too: stages A, B and C then train on a store holding decoded JPEGs
-        fixtures = image_fixtures()
-        for name in fixtures:
-            shutil.copy(os.path.join(IMAGE_FIXTURES, name), os.path.join(td, "imgs", name))
-        store = os.path.join(td, "store")
-        prep = run_module("prepare_data", ["imgs", "--out", "store", "--size", str(CLI_SIZE),
-                                           "--n_worker", "8"], td)
-        store_bytes = sum(os.path.getsize(os.path.join(store, n)) for n in os.listdir(store))
-        ds = MultiResolutionDataset(store, CLI_SIZE, CLI_THUMB)
-        records = len(ds)
-        check(records == CLI_IMAGES + len(fixtures), f"{records} records in the store")
-        rec_store = dict(records=records, fixture_files=len(fixtures), store_bytes=store_bytes,
-                         seconds=prep["seconds"], native_build_s=native_s, native_built=fresh)
-        emit(phase="train_cli_store", **rec_store)
+    store = os.path.join(td, "store")
+    prep = prepared["runs"]["store"]
+    store_bytes = sum(os.path.getsize(os.path.join(store, n)) for n in os.listdir(store))
+    ds = MultiResolutionDataset(store, CLI_SIZE, CLI_THUMB)
+    records = len(ds)
+    fixtures = image_fixtures()
+    check(records == CLI_IMAGES + len(fixtures), f"{records} records in the store")
+    # prepare_data's seconds were taken beside the kernels' build
+    rec_store = dict(records=records, fixture_files=len(fixtures), store_bytes=store_bytes,
+                     seconds=prep["seconds"], native_build_s=prepared["native_s"],
+                     native_built=prepared["native_built"], beside="the kernels' build")
+    emit(phase="train_cli_store", **rec_store)
 
-        # the loader's work, synchronously (decode, flip, HAMMING thumb, stack)
-        rng = np.random.default_rng(0)
-        work_ms = []
-        for b in range(20):
-            t0 = time.perf_counter()
-            items = [ds.__getitem__(int(i), rng)
-                     for i in (np.arange(CLI_BATCH) + b * CLI_BATCH) % records]
-            imgs, thumbs = np.stack([a for a, _ in items]), np.stack([t for _, t in items])
-            work_ms.append((time.perf_counter() - t0) * 1e3)
-        check(imgs.shape == (CLI_BATCH, CLI_SIZE, CLI_SIZE, 3) and thumbs.shape ==
-              (CLI_BATCH, CLI_THUMB, CLI_THUMB, 3) and bool(np.isfinite(imgs).all()), "loader batch shapes")
-        # and through the prefetching DataLoader, as the consumer sees it
-        with DataLoader(ds, batch_size=CLI_BATCH, seed=0) as loader:
-            it = iter(loader)
+    # the loader's work, synchronously (decode, flip, HAMMING thumb, stack)
+    rng = np.random.default_rng(0)
+    work_ms = []
+    for b in range(20):
+        t0 = time.perf_counter()
+        items = [ds.__getitem__(int(i), rng)
+                 for i in (np.arange(CLI_BATCH) + b * CLI_BATCH) % records]
+        imgs, thumbs = np.stack([a for a, _ in items]), np.stack([t for _, t in items])
+        work_ms.append((time.perf_counter() - t0) * 1e3)
+    check(imgs.shape == (CLI_BATCH, CLI_SIZE, CLI_SIZE, 3) and thumbs.shape ==
+          (CLI_BATCH, CLI_THUMB, CLI_THUMB, 3) and bool(np.isfinite(imgs).all()),
+          "loader batch shapes")
+    # and through the prefetching DataLoader, as the consumer sees it
+    with DataLoader(ds, batch_size=CLI_BATCH, seed=0) as loader:
+        it = iter(loader)
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(20):
             next(it)
-            t0 = time.perf_counter()
-            for _ in range(20):
-                next(it)
-            loader_ms = (time.perf_counter() - t0) * 1e3 / 20
-        ds.close()
+        loader_ms = (time.perf_counter() - t0) * 1e3 / 20
+    ds.close()
 
-        cmd = ["--config", CLI_CONFIG, "--sdf", "1", "--dataset_path", "store",
-               "--iters", "3", *CLI_TRAIN_FLAGS]
-        with open(os.path.join(td, "cut.yaml"), "w") as f:
-            f.write(f"inherit_from: {CLI_CONFIG}\ntraining:\n  out_dir: out/smoke_cut\n")
-        cut_cmd = ["--config", "cut.yaml", "--sdf", "1", "--dataset_path", "store",
-                   "--iters", "6", *CLI_TRAIN_FLAGS]
-        # the entry alone on the card (its logged step ms are this phase's
-        # timings); then its rerun, a run cut by --exit-after with its
-        # resume, and the NGP generator's run together
-        entry = run_module("train", cmd, td)
-        check("precision: f32 matmuls and convolutions without TF32" in entry["stdout"],
-              "the entry trains with TF32 off, as train_parity checks")
-        out = os.path.join(td, "out", CLI_EXP)
-        vr = os.path.join(out, "volume_renderer")
-        check(checkpoint_exists(vr, "vol_renderer") and checkpoint_exists(out, "full_pipeline"),
-              "both stage artifacts written")
-        rows_a = _train_rows(os.path.join(vr, "vol_render_metrics.jsonl"))
-        rows_b = _train_rows(os.path.join(out, "full_pipeline_metrics.jsonl"))
-        _finite_losses(rows_a, "train_cli stage A")
-        _finite_losses(rows_b, "train_cli stage B")
-        check([r["step"] for r in rows_a if "g" in r] == [0, 1, 2]
-              and [r["step"] for r in rows_b] == [0, 1, 2], "3 + 3 iterations logged")
-        check(all("d_ms" in r and "g_ms" in r for r in rows_b + [r for r in rows_a if "g" in r]),
-              "d_ms and g_ms logged")
-        for r in rows_a + rows_b:
-            emit(phase="train", run="train_cli", **r)
-        stage_a, stage_b = _step_medians(rows_a), _step_medians(rows_b)
-        step_a_ms = stage_a["d_ms"] + stage_a["g_ms"]
-        rec_loader = dict(batch=CLI_BATCH, resolution=CLI_SIZE, thumb=CLI_THUMB,
-                          batch_work_ms_median=statistics.median(work_ms),
-                          loader_ms_per_batch=loader_ms, stage_a_step_ms=step_a_ms,
-                          keeps_up=statistics.median(work_ms) < step_a_ms,
-                          prefetch_threads=1)
-        emit(phase="train_cli_loader", **rec_loader)
-        rec_entry = dict(config=CLI_CONFIG, command_s=entry["seconds"], stage_a=stage_a,
-                         stage_b=stage_b, sphere_init_iters=2, iters=3)
-        emit(phase="train_cli_entry", **rec_entry)
+    cmd = ["--config", CLI_CONFIG, "--sdf", "1", "--dataset_path", "store",
+           "--iters", "3", *CLI_TRAIN_FLAGS]
+    # the entry alone on the card (its logged step ms are this phase's
+    # timings); then its rerun and the NGP generator's run together
+    entry = run_module("train", cmd, td)
+    check("precision: f32 matmuls and convolutions without TF32" in entry["stdout"],
+          "the entry trains with TF32 off, as train_parity checks")
+    out = os.path.join(td, "out", CLI_EXP)
+    vr = os.path.join(out, "volume_renderer")
+    check(checkpoint_exists(vr, "vol_renderer") and checkpoint_exists(out, "full_pipeline"),
+          "both stage artifacts written")
+    rows_a = _train_rows(os.path.join(vr, "vol_render_metrics.jsonl"))
+    rows_b = _train_rows(os.path.join(out, "full_pipeline_metrics.jsonl"))
+    _finite_losses(rows_a, "train_cli stage A")
+    _finite_losses(rows_b, "train_cli stage B")
+    check([r["step"] for r in rows_a if "g" in r] == [0, 1, 2]
+          and [r["step"] for r in rows_b] == [0, 1, 2], "3 + 3 iterations logged")
+    check(all("d_ms" in r and "g_ms" in r for r in rows_b + [r for r in rows_a if "g" in r]),
+          "d_ms and g_ms logged")
+    for r in rows_a + rows_b:
+        emit(phase="train", run="train_cli", **r)
+    stage_a, stage_b = _step_medians(rows_a), _step_medians(rows_b)
+    step_a_ms = stage_a["d_ms"] + stage_a["g_ms"]
+    rec_loader = dict(batch=CLI_BATCH, resolution=CLI_SIZE, thumb=CLI_THUMB,
+                      batch_work_ms_median=statistics.median(work_ms),
+                      loader_ms_per_batch=loader_ms, stage_a_step_ms=step_a_ms,
+                      keeps_up=statistics.median(work_ms) < step_a_ms,
+                      prefetch_threads=1)
+    emit(phase="train_cli_loader", **rec_loader)
+    rec_entry = dict(config=CLI_CONFIG, command_s=entry["seconds"], stage_a=stage_a,
+                     stage_b=stage_b, sphere_init_iters=2, iters=3)
+    emit(phase="train_cli_entry", **rec_entry)
 
-        before = _tree_mtimes(out)
-        runs = run_modules_together({
-            "rerun": [("train", cmd)],
-            "cut": [("train", cut_cmd + ["--exit-after", "1"], 3), ("train", cut_cmd)],
-            "ngp": [("train", ["--config", CLI_NGP_CONFIG, "--sdf", "1", "--dataset_path",
-                               "store", "--iters", "3", *CLI_TRAIN_FLAGS])]}, td)
-        rerun, resume, ngp = runs["rerun"], runs["cut"], runs["ngp"]
-        check(_tree_mtimes(out) == before, "a rerun trains nothing")
-        # the cut run (exit 3, checked by run_modules_together) left a models_*
-        # checkpoint at some step k - 1; its resume says it started at k
-        resumed = re.search(r"resumed volume renderer at step (\d+)", resume["stdout"])
-        check(resumed is not None and int(resumed.group(1)) >= 1,
-              "the run cut by --exit-after was resumed at its checkpoint's step + 1")
-        check(checkpoint_exists(os.path.join(td, "out", "smoke_cut"), "full_pipeline"),
-              "the resumed run finished")
-        rec_flow = dict(rerun_rc=rerun["rc"], rerun_s=rerun["seconds"], exit_after_rc=3,
-                        exit_after_step=int(resumed.group(1)) - 1, resume_rc=resume["rc"],
-                        cut_and_resume_s=resume["seconds"])
-        emit(phase="train_cli_flow", **rec_flow)
+    before = _tree_mtimes(out)
+    wave = Background(lambda: run_modules_together({
+        "rerun": [("train", cmd)],
+        "ngp": [("train", ["--config", CLI_NGP_CONFIG, "--sdf", "1", "--dataset_path",
+                           "store", "--iters", "3", *CLI_TRAIN_FLAGS])],
+        # evaluate's tools that time nothing: the heads' stats (for eval's
+        # --fid_file runs), both probe stages and sdf_mesh
+        "heads_stats": [("calc_fid_stats", ["heads_png", "--out", "heads_stats.npz",
+                                            "--img_size", str(EVAL_HEAD_RES), "--batch", "16"])],
+        "probe_a": [("probe_geometry", ["--config", CLI_CONFIG, "--stage", "a"])],
+        "probe_b": [("probe_geometry", ["--config", CLI_CONFIG, "--stage", "b", "--mesh"])],
+        "sdf_mesh": [("sdf_mesh", ["--config", CLI_CONFIG, "--identities", "2"])]}, td))
+    beside_out = beside()
+    runs = wave.result()
+    rerun, ngp = runs.pop("rerun"), runs.pop("ngp")
+    # every file it had is untouched and no checkpoint or log is new (the
+    # probes and sdf_mesh write their own files beside them)
+    after = _tree_mtimes(out)
+    check(all(after.get(k) == v for k, v in before.items())
+          and not any(k.endswith((".pt", ".jsonl")) for k in after.keys() - before.keys()),
+          "a rerun trains nothing")
+    check(f"wrote stats for {EVAL_HEADS} images" in runs["heads_stats"]["stdout"],
+          "calc_fid_stats")
 
-        # the NGP generator from its tuned yaml (rendering: type: ngp), run above
-        ngp_out = os.path.join(td, "out", CLI_NGP_EXP)
-        ngp_vr = os.path.join(ngp_out, "volume_renderer")
-        check(checkpoint_exists(ngp_vr, "vol_renderer")
-              and checkpoint_exists(ngp_out, "full_pipeline"), "NGP: both stage artifacts")
-        ngp_a = _train_rows(os.path.join(ngp_vr, "vol_render_metrics.jsonl"))
-        ngp_b = _train_rows(os.path.join(ngp_out, "full_pipeline_metrics.jsonl"))
-        _finite_losses(ngp_a, "train_cli NGP stage A")
-        _finite_losses(ngp_b, "train_cli NGP stage B")
-        adv = [r for r in ngp_a if "g" in r]
-        check([r["step"] for r in adv] == [0, 1, 2] and [r["step"] for r in ngp_b] == [0, 1, 2]
-              and all("g_smooth" in r for r in adv), "NGP: 3 + 3 iterations, g_smooth logged")
-        for r in ngp_a + ngp_b:
-            emit(phase="train", run="train_cli_ngp", **r)
-        # its step ms were logged with the rerun and the cut pair on the card
-        rec_ngp = dict(config=CLI_NGP_CONFIG, command_s=ngp["seconds"],
-                       stage_a=_step_medians(ngp_a), stage_b=_step_medians(ngp_b),
-                       card_shared_with=["rerun", "cut"], g_smooth=[r["g_smooth"] for r in adv])
-        emit(phase="train_cli_ngp", **rec_ngp)
-        results["train_cli"] = dict(store=rec_store, loader=rec_loader, entry=rec_entry,
-                                    flow=rec_flow, ngp=rec_ngp)
-        emit(phase="train_cli", nvidia_smi=smi, records=records, store_bytes=store_bytes,
-             store_s=prep["seconds"], loader_ms_per_batch=loader_ms,
-             batch_work_ms_median=rec_loader["batch_work_ms_median"], stage_a_step_ms=step_a_ms,
-             loader_keeps_up=rec_loader["keeps_up"], entry_rc=entry["rc"],
-             entry_s=entry["seconds"], stage_a=stage_a, stage_b=stage_b, rerun_rc=rerun["rc"],
-             exit_after_rc=3, resume_rc=resume["rc"])
-        # the evaluation and geometry tools over the artifacts just trained
-        evaluate(results, smi, td)
-        # and stage C over them (giraffe_train's CLI runs beside its own)
-        giraffe_cli = train_stage_c(results, smi, td)
-        # then JAX's checkpoints and the image decoders
-        bridge_and_images(results, smi, td)
-        # and the GIRAFFE family, served, then trained
-        giraffe(results, smi, td)
-        giraffe_train(results, smi, td, giraffe_cli)
+    # the NGP generator from its tuned yaml (rendering: type: ngp), run above
+    ngp_out = os.path.join(td, "out", CLI_NGP_EXP)
+    ngp_vr = os.path.join(ngp_out, "volume_renderer")
+    check(checkpoint_exists(ngp_vr, "vol_renderer")
+          and checkpoint_exists(ngp_out, "full_pipeline"), "NGP: both stage artifacts")
+    ngp_a = _train_rows(os.path.join(ngp_vr, "vol_render_metrics.jsonl"))
+    ngp_b = _train_rows(os.path.join(ngp_out, "full_pipeline_metrics.jsonl"))
+    _finite_losses(ngp_a, "train_cli NGP stage A")
+    _finite_losses(ngp_b, "train_cli NGP stage B")
+    adv = [r for r in ngp_a if "g" in r]
+    check([r["step"] for r in adv] == [0, 1, 2] and [r["step"] for r in ngp_b] == [0, 1, 2]
+          and all("g_smooth" in r for r in adv), "NGP: 3 + 3 iterations, g_smooth logged")
+    for r in ngp_a + ngp_b:
+        emit(phase="train", run="train_cli_ngp", **r)
+    # its step ms were logged with the rerun and evaluate's tools on the card
+    rec_ngp = dict(config=CLI_NGP_CONFIG, command_s=ngp["seconds"],
+                   stage_a=_step_medians(ngp_a), stage_b=_step_medians(ngp_b),
+                   card_shared_with=["rerun", *runs], g_smooth=[r["g_smooth"] for r in adv])
+    emit(phase="train_cli_ngp", **rec_ngp)
+    wall = time.perf_counter() - t_phase
+    results["train_cli"] = dict(store=rec_store, loader=rec_loader, entry=rec_entry,
+                                rerun=dict(rc=rerun["rc"], seconds=rerun["seconds"]),
+                                ngp=rec_ngp, wall_s=wall)
+    emit(phase="train_cli", nvidia_smi=smi, records=records, store_bytes=store_bytes,
+         store_s=prep["seconds"], loader_ms_per_batch=loader_ms,
+         batch_work_ms_median=rec_loader["batch_work_ms_median"], stage_a_step_ms=step_a_ms,
+         loader_keeps_up=rec_loader["keeps_up"], entry_rc=entry["rc"],
+         entry_s=entry["seconds"], stage_a=stage_a, stage_b=stage_b, rerun_rc=rerun["rc"],
+         wave_s={k: v["seconds"] for k, v in {"rerun": rerun, "ngp": ngp, **runs}.items()},
+         wall_s=wall)
+    return runs, beside_out
 
 
-# The train_stage_c phase: stage C over train_cli's artifacts.
+def train_cli_cut_jobs(td: str) -> dict:
+    """train_cli's stage flow, for stage C's wave: a fresh experiment
+    (``cut.yaml``) cut by ``--exit-after 1`` (exit 3, a ``models_*`` left),
+    then the same command resuming at step + 1 and finishing; at batch
+    ``CLI_CUT_BATCH``, so that it holds a few GB of the card beside stage
+    C's train processes (at the entry's batch 8 it peaks at ~17 GB)."""
+    with open(os.path.join(td, "cut.yaml"), "w") as f:
+        f.write(f"inherit_from: {CLI_CONFIG}\ntraining:\n  out_dir: out/smoke_cut\n")
+    cut_cmd = ["--config", "cut.yaml", "--sdf", "1", "--dataset_path", "store",
+               "--iters", str(STAGE_C_CUT_ITERS), *CLI_TRAIN_FLAGS, "--batch", str(CLI_CUT_BATCH)]
+    return {"cli_cut": [("train", cut_cmd + ["--exit-after", "1"], 3), ("train", cut_cmd)]}
+
+
+def train_cli_flow(td: str, resume: dict) -> dict:
+    """What :func:`train_cli_cut_jobs` left: the cut run exited 3 (checked by
+    ``run_modules_together``) with a ``models_*`` checkpoint at some step k -
+    1; its resume says it started at k and finished both stages."""
+    import re
+
+    from sdface_gan_tpu_torch.utils.checkpoints import checkpoint_exists
+
+    resumed = re.search(r"resumed volume renderer at step (\d+)", resume["stdout"])
+    check(resumed is not None and int(resumed.group(1)) >= 1,
+          "the run cut by --exit-after was resumed at its checkpoint's step + 1")
+    check(checkpoint_exists(os.path.join(td, "out", "smoke_cut"), "full_pipeline"),
+          "the resumed run finished")
+    rec = dict(exit_after_rc=3, exit_after_step=int(resumed.group(1)) - 1, resume_rc=resume["rc"],
+               cut_and_resume_s=resume["seconds"], command_s=resume["command_s"])
+    emit(phase="train_cli_flow", **rec)
+    return rec
+
+
+# The train_stage_c phase: stage C over train_cli's artifacts, and the
+# script's wave of untimed processes: job -> the job that follows it
+WAVE_AFTER = {"psp": "train_512", "giraffe_fixture": "giraffe_surface", "bridge": "eval_files"}
 STAGE_C_TOLERANCES = {"vae": (1e-4, 1e-3), "psp": (1e-4, 1e-3)}
 STAGE_C_STEPS = 5  # timed E steps per encoder (median after the first)
 STAGE_C_CUT_ITERS = 12  # --exit-after 1 cuts well before this (after step 0 so far)
@@ -2379,16 +2499,19 @@ def _stage_c_rows(enc_dir: str, what: str, steps: list) -> list:
     return rows
 
 
-def train_stage_c(results: dict, smi: str, td: str) -> dict:
+def train_stage_c(results: dict, smi: str, td: str, extra_jobs: dict, beside: dict) -> dict:
     """Stage C on the card over train_cli's artifacts, in its directory:
     both E steps' time and memory at full width (and a profiled pSp step)
-    and an NGP E step by kernel, alone on the card; then, beside
-    train_64's run, the parity of both E steps and the train entry:
-    ``--vae 1`` and ``--psp 1`` (with two weight archives of random ID and
-    LPIPS nets) and ``--vae 1`` under the NGP yaml, each skipping stages A
-    and B, 3 iterations; beside them a ``--vae 1`` run cut by ``--exit-after
-    1`` (exit 3) that the next run resumes at step + 1, and giraffe_train's
-    CLI runs (:func:`giraffe_train_jobs`), whose results it returns."""
+    and an NGP E step by kernel, alone on the card; then the script's wave
+    of untimed work: train_64's run, the parity of both E steps and the
+    in-process ``beside`` checks (name -> fn()), and at once the train
+    entry: ``--vae 1`` and ``--psp 1`` (with two weight archives of random
+    ID and LPIPS nets) and ``--vae 1`` under the NGP yaml, each skipping
+    stages A and B, 3 iterations; a ``--vae 1`` run cut by ``--exit-after
+    1`` (exit 3) that the next run resumes at step + 1 (its own experiment,
+    holding copies of train_cli's two stage artifacts); giraffe_train's CLI
+    runs (:func:`giraffe_train_jobs`) and ``extra_jobs``.  Returns the
+    results of giraffe_train's runs, of ``extra_jobs`` and of ``beside``."""
     import gc
 
     import torch
@@ -2399,8 +2522,8 @@ def train_stage_c(results: dict, smi: str, td: str) -> dict:
 
     t0 = time.perf_counter()
     # the timed E steps and the profiled NGP step alone on the card; then
-    # train_64's run (which times nothing) beside the parity and the train
-    # processes (whose logged E-step ms share the card)
+    # train_64's run and the wave's processes (which time nothing; the train
+    # processes' logged E-step ms share the card) beside the parities
     timing = stage_c_timing(td)
     emit(phase="train_stage_c_timing", nvidia_smi=smi, **timing)
     _ext.reset_launch_counts()
@@ -2408,10 +2531,6 @@ def train_stage_c(results: dict, smi: str, td: str) -> dict:
     emit(phase="train_stage_c_ngp", nvidia_smi=smi, **ngp)
     run_64 = start_train_64()
     try:
-        parity = stage_c_parity()
-        gc.collect()
-        torch.cuda.empty_cache()  # leave the card to the train processes
-
         # random ID / LPIPS nets in the archive formats --irse_weights and
         # --lpips_weights read (model_ir_se50.pth; {"alex": features.*, "lin": lin*})
         seed = torch.Generator().manual_seed
@@ -2426,23 +2545,53 @@ def train_stage_c(results: dict, smi: str, td: str) -> dict:
         torch.save({"alex": alex, "lin": lins}, lpips_path)
 
         base = ["--sdf", "1", "--dataset_path", "store", *CLI_TRAIN_FLAGS]
-        cut_cmd = ["--config", "cut.yaml", "--iters", str(STAGE_C_CUT_ITERS), "--vae", "1",
+        # the cut run's own experiment, from copies of the entry's artifacts
+        cut_out = os.path.join(td, "out", "smoke_c_cut")
+        os.makedirs(os.path.join(cut_out, "volume_renderer"))
+        for rel in ("volume_renderer/vol_renderer.pt", "full_pipeline.pt"):
+            shutil.copy(os.path.join(td, "out", CLI_EXP, rel), os.path.join(cut_out, rel))
+        with open(os.path.join(td, "cut_c.yaml"), "w") as f:
+            f.write(f"inherit_from: {CLI_CONFIG}\ntraining:\n  out_dir: out/smoke_c_cut\n")
+        cut_cmd = ["--config", "cut_c.yaml", "--iters", str(STAGE_C_CUT_ITERS), "--vae", "1",
                    *base]
         out, ngp_out = os.path.join(td, "out", CLI_EXP), os.path.join(td, "out", CLI_NGP_EXP)
         before = {k: os.stat(os.path.join(d, f"{n}.pt")).st_mtime_ns
                   for k, (d, n) in {"vr": (os.path.join(out, "volume_renderer"), "vol_renderer"),
                                     "fp": (out, "full_pipeline"), "ngp": (ngp_out, "full_pipeline")
                                     }.items()}
-        runs = run_modules_together({
+        stage_c = {
             "vae": [("train", ["--config", CLI_CONFIG, "--iters", "3", "--vae", "1", *base])],
             "psp": [("train", ["--config", CLI_CONFIG, "--iters", "3", "--psp", "1",
                                "--irse_weights", irse_path, "--lpips_weights", lpips_path,
                                *base])],
             "ngp": [("train", ["--config", CLI_NGP_CONFIG, "--iters", "3", "--vae", "1",
                                *base])],
-            "cut": [("train", cut_cmd + ["--exit-after", "1"], 3), ("train", cut_cmd)],
-            **giraffe_train_jobs(td)}, td)
-        giraffe_cli = {k: runs.pop(k) for k in ("giraffe_resume", "giraffe_cut", "gan2d")}
+            "cut": [("train", cut_cmd + ["--exit-after", "1"], 3), ("train", cut_cmd)]}
+        # a job of WAVE_AFTER's values starts when its key's job ends: no more
+        # than four of the train processes that peak at 10-14 GB of the card
+        # (stage C's four, the staged 512^2 CLI) run at once; the card's used
+        # memory is sampled meanwhile
+        jobs, split = chained({**stage_c, **giraffe_train_jobs(td), **extra_jobs}, WAVE_AFTER)
+        gc.collect()
+        torch.cuda.empty_cache()  # leave the card to the wave's processes
+        wave = Background(lambda: split(run_modules_together(jobs, td)))
+        memory = CardMemory()
+        # the parities in this process while the wave runs
+        parity = stage_c_parity()
+        beside_out = {}
+        for name, fn in beside.items():
+            t_beside = time.perf_counter()
+            beside_out[name] = fn()
+            emit(phase="wall", of=name, wall_s=time.perf_counter() - t_beside,
+                 beside="stage C's wave")
+        gc.collect()
+        torch.cuda.empty_cache()  # leave the card to the train processes
+        try:
+            runs = wave.result()
+        finally:
+            card_peak_used_gb = memory.stop()
+        others = {k: runs.pop(k) for k in ("giraffe_resume", "giraffe_cut", "gan2d",
+                                           *extra_jobs)}
     except BaseException:
         run_64[0].kill()
         run_64[0].wait()
@@ -2455,7 +2604,7 @@ def train_stage_c(results: dict, smi: str, td: str) -> dict:
                                "fp": (out, "full_pipeline"), "ngp": (ngp_out, "full_pipeline")
                                }.items()}
     check(before == after, "stages A and B skipped: their artifacts untouched")
-    for kind, r in runs.items():
+    for kind, r in {**runs, "cut": cut}.items():
         check("sphere init" not in r["stdout"] and "initialized renderer" not in r["stdout"],
               f"train --{kind}: no stage A or B ran")
     check("loaded ArcFace ID-loss weights" in runs["psp"]["stdout"]
@@ -2476,8 +2625,8 @@ def train_stage_c(results: dict, smi: str, td: str) -> dict:
     resumed = [int(ln.rsplit(" ", 1)[1]) for ln in cut["stdout"].splitlines()
                if ln.startswith("resumed encoder at step ")]
     check(len(resumed) == 1 and resumed[0] >= 1, "the next stage-C run resumed from a checkpoint")
-    cut_dir = os.path.join(td, "out", "smoke_cut", "encoder")
-    _stage_c_rows(cut_dir, "train --vae 1 resumed", list(range(STAGE_C_CUT_ITERS)))
+    _stage_c_rows(os.path.join(cut_out, "encoder"), "train --vae 1 resumed",
+                  list(range(STAGE_C_CUT_ITERS)))
     rec = dict(parity={k: {m: v[m] for m in ("loss_rel_err", "worst_param",
                                               "worst_grad_rel_err", "held_with")}
                        for k, v in parity.items()},
@@ -2489,10 +2638,11 @@ def train_stage_c(results: dict, smi: str, td: str) -> dict:
                cli_e_ms_card_shared={k: statistics.median(r["e_ms"] for r in rs[1:])
                                      for k, rs in rows.items()},
                exit_after_step=resumed[0] - 1, exit_after_and_resume_s=cut["seconds"],
-               seconds=time.perf_counter() - t0)
+               wave_s={k: v["seconds"] for k, v in others.items()},
+               wave_card_peak_used_gb=card_peak_used_gb, seconds=time.perf_counter() - t0)
     results["train_stage_c"] = rec
-    emit(phase="train_stage_c", nvidia_smi=smi, **rec)
-    return giraffe_cli
+    emit(phase="train_stage_c", nvidia_smi=smi, wall_s=rec["seconds"], **rec)
+    return {**others, **beside_out}
 
 
 # The bridge_and_images phase: JAX's checkpoints and the image decoders.
@@ -2558,7 +2708,24 @@ def jax_fixture_configs():
                                      psp=encoder_config(stage_b[0], size, True))
 
 
-def bridge_and_images(results: dict, smi: str, td: str) -> None:
+def bridge_jobs(td: str) -> dict:
+    """bridge_and_images' CLI runs for stage C's wave, in turn: train_cli's
+    images into a store at the committed JAX run's size, stage A's archive
+    imported by ``python -m sdface_gan_tpu_torch.import_jax_checkpoints`` from
+    its yaml, and the train entry from JAX's imported ``sdf_init_models``
+    (2 + 2 iterations)."""
+    _, size, _ = jax_fixture_configs()
+    shutil.copy(os.path.join(JAX_FIXTURE, "jax_bridge.yaml"), os.path.join(td, "jax_bridge.yaml"))
+    return {"bridge": [
+        ("prepare_data", ["imgs", "--out", "store32", "--size", str(size), "--n_worker", "8"]),
+        ("import_jax_checkpoints", ["--src", os.path.join(JAX_FIXTURE, "stage_a"), "--config",
+                                    "jax_bridge.yaml", "--sdf", "1"]),
+        ("train", ["--config", "jax_bridge.yaml", "--sdf", "1", "--dataset_path", "store32",
+                   "--batch", str(BRIDGE_BATCH), "--iters", "2", "--log_every", "1",
+                   "--save_every", "1000", "--sample_every", "1000"])]}
+
+
+def bridge_and_images(results: dict, smi: str, td: str, cli: dict) -> None:
     """JAX's checkpoints and the image decoders on the card's machine, in
     train_cli's directory: the committed images decoded (byte-equal to the
     PIL decodes committed beside them) and timed, the JPEG fixtures through
@@ -2568,8 +2735,9 @@ def bridge_and_images(results: dict, smi: str, td: str) -> None:
     ``SDFaceSampler.from_checkpoint`` through the f32 field kernel with
     JAX's z, angles and truncation pair, against JAX's images; its stage-B
     ``models_0000002`` resumed by ``train_full_pipeline`` for two iterations
-    (resumed at step 3, finite losses, ``models_*`` written); the train
-    entry from JAX's imported ``sdf_init_models``; a VAE stage C against the
+    (resumed at step 3, finite losses, ``models_*`` written); what the train
+    entry from JAX's imported ``sdf_init_models`` wrote (``cli``, the runs of
+    :func:`bridge_jobs` in stage C's wave); a VAE stage C against the
     imported generator; and train_cli's own flagship ``full_pipeline``
     through ``from_checkpoint`` (bf16, batch 8), bit-equal to a sampler
     built from the same state dict in this process."""
@@ -2616,19 +2784,16 @@ def bridge_and_images(results: dict, smi: str, td: str) -> None:
                        images_per_s=n_jpeg / prep["seconds"])
     emit(phase="bridge_prepare_jpeg", nvidia_smi=smi, **rec_prepare)
 
-    # the committed JAX run, imported
+    # the committed JAX run, imported (stage A's archive by the CLI, in the wave)
     samples, size, configs = jax_fixture_configs()
-    shutil.copy(os.path.join(JAX_FIXTURE, "jax_bridge.yaml"), os.path.join(td, "jax_bridge.yaml"))
-    cli_import = run_module("import_jax_checkpoints", [
-        "--src", os.path.join(JAX_FIXTURE, "stage_a"), "--config", "jax_bridge.yaml",
-        "--sdf", "1"], td)
+    import_s, entry_s = cli["bridge"]["command_s"][1:]
     jax_out = os.path.join(td, "out", "jax_bridge")
     check(checkpoint_exists(os.path.join(jax_out, "volume_renderer"), "sdf_init_models"),
           "import_jax_checkpoints wrote sdf_init_models where train looks")
     stage_b_dir = os.path.join(td, "jax_stage_b")
     t0 = time.perf_counter()
     written = import_jax_run(os.path.join(JAX_FIXTURE, "stage_b"), stage_b_dir, configs)
-    import_s = time.perf_counter() - t0
+    import_stage_b_s = time.perf_counter() - t0
     check(len(written) == 2, "stage B's two archives imported")
 
     gcfg, sd_cfg, hp = configs.stage_b
@@ -2657,8 +2822,6 @@ def bridge_and_images(results: dict, smi: str, td: str) -> None:
 
     # stage B from JAX's models_0000002, two more iterations
     store32 = os.path.join(td, "store32")
-    run_module("prepare_data", ["imgs", "--out", "store32", "--size", str(size),
-                                "--n_worker", "8"], td)
     start = latest_checkpoint_step(stage_b_dir)
     ds = MultiResolutionDataset(store32, resolution=size, nerf_resolution=gcfg.renderer.out_im_res)
     buf = io.StringIO()
@@ -2682,11 +2845,8 @@ def bridge_and_images(results: dict, smi: str, td: str) -> None:
     resume = dict(resumed_at=start + 1, iterations=BRIDGE_RESUME_ITERS,
                   step_ms=[r["d_ms"] + r["g_ms"] + r.get("path_ms", 0.0) for r in rows])
 
-    # the train entry from JAX's sphere init
-    entry = run_module("train", ["--config", "jax_bridge.yaml", "--sdf", "1", "--dataset_path",
-                                 "store32", "--batch", str(BRIDGE_BATCH), "--iters", "2",
-                                 "--log_every", "1", "--save_every", "1000",
-                                 "--sample_every", "1000"], td)
+    # the train entry from JAX's sphere init (run in the wave)
+    entry = cli["bridge"]
     check("loaded sphere-initialized model" in entry["stdout"],
           "train started stage A from JAX's imported sdf_init_models")
     check(checkpoint_exists(jax_out, "full_pipeline"), "train finished stages A and B")
@@ -2729,9 +2889,9 @@ def bridge_and_images(results: dict, smi: str, td: str) -> None:
 
     rec = dict(decode={n: r["ms"] for n, r in decoded.items()},
                jpeg_178x218_decode_ms_median=statistics.median(jpeg_ms),
-               prepare_jpeg=rec_prepare, import_cli_s=cli_import["seconds"],
-               import_stage_b_s=import_s, serve_jax=serve, stage_b_resume=resume,
-               train_entry_s=entry["seconds"],
+               prepare_jpeg=rec_prepare, import_cli_s=import_s,
+               import_stage_b_s=import_stage_b_s, serve_jax=serve, stage_b_resume=resume,
+               train_entry_s=entry_s, cli_beside="stage C's wave",
                stage_c_e_ms=[r["e_ms"] for r in c_rows],
                flagship_from_checkpoint=dict(batch=BATCH, dtype="bfloat16", bit_equal=True,
                                              launches=flagship_launches["siren_field"]),
@@ -2739,7 +2899,7 @@ def bridge_and_images(results: dict, smi: str, td: str) -> None:
                              siren_field=flagship_launches["siren_field"]),
                seconds=time.perf_counter() - t_phase)
     results["bridge_and_images"] = rec
-    emit(phase="bridge_and_images", nvidia_smi=smi, **rec)
+    emit(phase="bridge_and_images", nvidia_smi=smi, wall_s=rec["seconds"], **rec)
 
 
 # The giraffe phase: the GIRAFFE generator at full width, the committed JAX
@@ -2750,6 +2910,8 @@ GIRAFFE_BATCH, GIRAFFE_REQUESTS, GIRAFFE_MESH_RES = 4, 5, 64
 GIRAFFE_TOL = 2e-3  # serve_compare's card-vs-CPU bar
 GIRAFFE_FIXTURE = os.path.join(HERE, "tests", "fixtures", "jax_giraffe_run")
 GIRAFFE_FIXTURE_FLAGS = ["--i_embed", "1", "--log2_hashmap_size", "10", "--finest_res", "64"]
+GIRAFFE_FIXTURE_KW = {k[2:]: int(v) for k, v in zip(GIRAFFE_FIXTURE_FLAGS[::2],
+                                                     GIRAFFE_FIXTURE_FLAGS[1::2])}
 GIRAFFE_IMAGES = "tests/fixtures/images/head*[gp]"  # the committed image files
 # The surface model: ffhq_256's seeded plain generator with its density
 # scaled so that the mesh CLIs' level (0.005) cuts object 0's box (a seeded
@@ -2990,17 +3152,59 @@ def ply_faces(path: str) -> int:
     raise RuntimeError(f"check failed: {path} has no face element")
 
 
-def giraffe(results: dict, smi: str, td: str) -> None:
+def giraffe_jobs(td: str) -> dict:
+    """giraffe's CLI runs for stage C's wave, and the files they read: the
+    surface model (ffhq_256's seeded plain generator, as :func:`giraffe`
+    serves it, its density scaled) and a port-saved VAE ``encoder.pt``
+    beside the committed JAX GIRAFFE run's import; then, in turn, the
+    import (``import_jax_checkpoints --sdf 0``), ``render`` over the yaml's
+    programs with ``--export_meshes 1``, ``render --vae 1`` on the committed
+    image files and ``extract_mesh --n_meshes 2`` from it; beside them
+    ``render --export_meshes 1`` and ``extract_mesh`` of the surface model."""
+    import torch
+
+    from sdface_gan_tpu_torch.encoder.vae import VAEEncoder, VAEEncoderConfig
+    from sdface_gan_tpu_torch.utils.checkpoints import CheckpointIO
+
+    _, g_plain_cpu = giraffe_model(GIRAFFE_CONFIG, {})
+    save_surface_model(g_plain_cpu, td)
+    del g_plain_cpu
+    if not os.path.exists(os.path.join(td, "tests")):
+        os.symlink(os.path.join(HERE, "tests"), os.path.join(td, "tests"))
+    shutil.copy(os.path.join(GIRAFFE_FIXTURE, "jax_giraffe.yaml"), td)
+    gcfg, _ = giraffe_model(os.path.join(td, "jax_giraffe.yaml"), GIRAFFE_FIXTURE_KW)
+    e = VAEEncoder(VAEEncoderConfig(img_size=gcfg.neural_renderer.img_size,
+                                    z_size=2 * gcfg.z_dim), torch.Generator().manual_seed(3))
+    CheckpointIO(os.path.join(td, "out", "jax_giraffe")).save("encoder", e=e.state_dict())
+    with open(os.path.join(td, "jax_giraffe_vae.yaml"), "w") as f:
+        f.write("inherit_from: jax_giraffe.yaml\nrendering:\n  render_dir: rendering_vae\n")
+    return {
+        "giraffe_fixture": [
+            ("import_jax_checkpoints", ["--src", os.path.join(GIRAFFE_FIXTURE, "run"),
+                                        "--config", "jax_giraffe.yaml", "--sdf", "0",
+                                        *GIRAFFE_FIXTURE_FLAGS]),
+            ("render", ["--config", "jax_giraffe.yaml", "--export_meshes", "1",
+                        *GIRAFFE_FIXTURE_FLAGS]),
+            ("render", ["--config", "jax_giraffe_vae.yaml", "--vae", "1", "--vae_images",
+                        GIRAFFE_IMAGES, *GIRAFFE_FIXTURE_FLAGS]),
+            ("extract_mesh", ["--config", "jax_giraffe.yaml", "--n_meshes", "2",
+                              *GIRAFFE_FIXTURE_FLAGS])],
+        "giraffe_surface": [
+            ("render", ["--config", "giraffe_surface.yaml", "--export_meshes", "1"]),
+            ("extract_mesh", ["--config", "giraffe_surface.yaml", "--n_meshes", "2"])]}
+
+
+def giraffe(results: dict, smi: str, td: str, cli: dict) -> None:
     """The GIRAFFE serving path on the card: the full-width generator with
     the plain, hash and small decoders against the CPU; the hash kernel on a
     request's box-local points; marching cubes; the committed JAX GIRAFFE
-    run imported, served against JAX's images, and the render and
-    extract_mesh entries from it."""
+    run, imported in stage C's wave, served against JAX's images; and what
+    the render and extract_mesh entries (``cli``, the runs of
+    :func:`giraffe_jobs` in that wave) wrote."""
     import numpy as np
     import torch
 
     from sdface_gan_tpu_torch.data.png import decode_png
-    from sdface_gan_tpu_torch.encoder.vae import VAEEncoder, VAEEncoderConfig
     from sdface_gan_tpu_torch.giraffe.generator import (
         GiraffeGenerator,
         LatentCodes,
@@ -3014,7 +3218,6 @@ def giraffe(results: dict, smi: str, td: str) -> None:
     emit(phase="giraffe_plain", nvidia_smi=smi, **plain)
     mesh = giraffe_mesh_check(gcfg_plain, g_plain, g_plain_cpu)
     emit(phase="giraffe_mesh", **mesh)
-    save_surface_model(g_plain_cpu, td)
     del g_plain, g_plain_cpu
     hashed, gcfg_hash, g_hash, _, hash_inputs = serve_giraffe(
         "hash", GIRAFFE_HASH_CONFIG, dict(i_embed=1), True)
@@ -3026,19 +3229,12 @@ def giraffe(results: dict, smi: str, td: str) -> None:
     del g_small
     torch.cuda.empty_cache()
 
-    # the committed JAX run, imported and served
-    if not os.path.exists(os.path.join(td, "tests")):
-        os.symlink(os.path.join(HERE, "tests"), os.path.join(td, "tests"))
-    shutil.copy(os.path.join(GIRAFFE_FIXTURE, "jax_giraffe.yaml"), td)
-    cli_import = run_module("import_jax_checkpoints", [
-        "--src", os.path.join(GIRAFFE_FIXTURE, "run"), "--config", "jax_giraffe.yaml",
-        "--sdf", "0", *GIRAFFE_FIXTURE_FLAGS], td)
+    # the committed JAX run, imported in the wave, and served
     out = os.path.join(td, "out", "jax_giraffe")
     ckpt = CheckpointIO(out)
     check(ckpt.exists("model") and ckpt.exists("model_0000004"),
           "import_jax_checkpoints --sdf 0 wrote model and model_0000004")
-    flags = dict(i_embed=1, log2_hashmap_size=10, finest_res=64)
-    gcfg, _ = giraffe_model(os.path.join(td, "jax_giraffe.yaml"), flags)
+    gcfg, _ = giraffe_model(os.path.join(td, "jax_giraffe.yaml"), GIRAFFE_FIXTURE_KW)
     g = GiraffeGenerator(gcfg)
     g.load_state_dict(ckpt.load("model")["g_ema"])
     g = g.cuda().eval()
@@ -3064,27 +3260,18 @@ def giraffe(results: dict, smi: str, td: str) -> None:
         img_zero = giraffe_forward(g, gcfg, **scene)
     jax_rec = dict(max_abs_err_vs_jax=err, bar="2e-3 + 2e-4 + 2e-3 |jax|",
                    encode_moves_image=(img - img_zero).abs().max().item(),
-                   launches=dict(hash_encode=jax_launches), import_s=cli_import["seconds"])
+                   launches=dict(hash_encode=jax_launches),
+                   import_s=cli["giraffe_fixture"]["command_s"][0])
     emit(phase="giraffe_jax_model", nvidia_smi=smi, **jax_rec)
     del g
 
-    # the entries, together: from the fixture render (meshes), render --vae
-    # and extract_mesh; from the surface model render (meshes) and extract_mesh
-    e = VAEEncoder(VAEEncoderConfig(img_size=gcfg.neural_renderer.img_size,
-                                    z_size=2 * gcfg.z_dim), torch.Generator().manual_seed(3))
-    ckpt.save("encoder", e=e.state_dict())
-    with open(os.path.join(td, "jax_giraffe_vae.yaml"), "w") as f:
-        f.write("inherit_from: jax_giraffe.yaml\nrendering:\n  render_dir: rendering_vae\n")
-    cli = run_modules_together({
-        "render": [("render", ["--config", "jax_giraffe.yaml", "--export_meshes", "1",
-                               *GIRAFFE_FIXTURE_FLAGS])],
-        "render_vae": [("render", ["--config", "jax_giraffe_vae.yaml", "--vae", "1",
-                                   "--vae_images", GIRAFFE_IMAGES, *GIRAFFE_FIXTURE_FLAGS])],
-        "extract_mesh": [("extract_mesh", ["--config", "jax_giraffe.yaml", "--n_meshes", "2",
-                                           *GIRAFFE_FIXTURE_FLAGS])],
-        "render_surface": [("render", ["--config", "giraffe_surface.yaml", "--export_meshes", "1"])],
-        "extract_mesh_surface": [("extract_mesh", ["--config", "giraffe_surface.yaml",
-                                                   "--n_meshes", "2"])]}, td)
+    # what the entries wrote in the wave: from the fixture render (meshes),
+    # render --vae and extract_mesh; from the surface model render (meshes)
+    # and extract_mesh
+    fixture_s, surface_s = cli["giraffe_fixture"]["command_s"], cli["giraffe_surface"]["command_s"]
+    cli_s = dict(import_jax_checkpoints=fixture_s[0], render=fixture_s[1],
+                 render_vae=fixture_s[2], extract_mesh=fixture_s[3],
+                 render_surface=surface_s[0], extract_mesh_surface=surface_s[1])
     sheets = {}
     for render_dir in ("rendering", "rendering_vae"):
         for program in ("object_rotation", "interpolate_app"):
@@ -3106,17 +3293,17 @@ def giraffe(results: dict, smi: str, td: str) -> None:
           f"render --export_meshes and extract_mesh meshed the surface model ({surface_plys})")
     check(os.path.exists(os.path.join(surface_out, "rendering", "object_rotation.png")),
           "render wrote the surface model's object_rotation.png")
-    check("conditioning on 4 real images" in cli["render_vae"]["stdout"],
+    check("conditioning on 4 real images" in cli["giraffe_fixture"]["stdouts"][2],
           "render --vae encoded the committed images")
     rec = dict(plain=plain, mesh=mesh, hash=hashed, hash_encode=encode, small=small,
                jax_model=jax_rec, sheets=sheets, ply_faces=plys, surface_ply_faces=surface_plys,
-               cli_s={k: v["seconds"] for k, v in cli.items()},
+               cli_s=cli_s, cli_beside="stage C's wave",
                launches=dict(hash_encode=hashed["launches"]["hash_encode"]
                              + small["launches"]["hash_encode"] + jax_launches),
                seconds=time.perf_counter() - t_phase)
     results["giraffe"] = rec
-    emit(phase="giraffe", nvidia_smi=smi, **{k: v for k, v in rec.items()
-                                             if k not in ("plain", "hash", "small")})
+    emit(phase="giraffe", nvidia_smi=smi, wall_s=rec["seconds"],
+         **{k: v for k, v in rec.items() if k not in ("plain", "hash", "small")})
 
 
 # The giraffe_train phase: GIRAFFE's and gan2d's training, after giraffe in
@@ -3533,30 +3720,48 @@ def eval_kernel_names(td: str, args: list) -> list:
     return [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
 
 
+# every process run_modules_together starts, so that main can stop those
+# still running when a phase fails while a wave runs in the background
+STARTED: list = []
+
+
 def run_modules_together(jobs: dict, cwd: str) -> dict:
     """Run the jobs at once, each a list of ``(module, args)`` or ``(module,
     args, rc)`` run in turn as ``python -m sdface_gan_tpu_torch.<module>
     <args>``; every command must exit ``rc`` (0 if not given; else the other
     processes are killed and this raises).  Returns each job's last
-    command's output and the job's seconds."""
+    command's output, the job's seconds, and each command's own seconds and
+    output."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
-    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # two host threads each: a wave runs more processes than the host has
+    # cores, and each would start a pool of one thread per core; the card's
+    # allocator grows its segments in place, which keeps the processes that
+    # share the card from holding unusable reserved memory
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               **{k: "2" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")},
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     live, lock, t0 = [], threading.Lock(), time.perf_counter()
 
     def chain(commands):
+        each, outs = [], []
         for module, args, *rc in commands:
+            t_cmd = time.perf_counter()
             with lock:
                 proc = subprocess.Popen([sys.executable, "-m", f"sdface_gan_tpu_torch.{module}",
                                          *args], cwd=cwd, env=env, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True)
                 live.append(proc)
+                STARTED.append(proc)
             stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
             want = rc[0] if rc else 0
             check(proc.returncode == want, f"{module} {' '.join(args)} exited {proc.returncode},"
                   f" expected {want}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
-        return dict(rc=proc.returncode, seconds=time.perf_counter() - t0, stdout=stdout)
+            each.append(time.perf_counter() - t_cmd)
+            outs.append(stdout)
+        return dict(rc=proc.returncode, seconds=time.perf_counter() - t0, stdout=stdout,
+                    command_s=each, stdouts=outs)
 
     try:
         with ThreadPoolExecutor(len(jobs)) as pool:
@@ -3568,6 +3773,80 @@ def run_modules_together(jobs: dict, cwd: str) -> dict:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
+
+
+def chained(jobs: dict, after: dict) -> tuple:
+    """``jobs`` with each job named as a key of ``after`` followed, in one
+    chain, by the job named as its value (which then starts only when the
+    first ends), for ``run_modules_together``; and a function that splits
+    its result back into both jobs' results."""
+    merged, marks = dict(jobs), {}
+    for first, then in after.items():
+        marks[then] = (first, len(merged[first]))
+        merged[first] = merged[first] + merged.pop(then)
+
+    def split(runs: dict) -> dict:
+        runs = dict(runs)
+        for then, (first, n) in marks.items():
+            r = runs[first]
+            for name, part in ((first, slice(None, n)), (then, slice(n, None))):
+                runs[name] = dict(rc=r["rc"] if name == then else 0, stdout=r["stdouts"][part][-1],
+                                  seconds=sum(r["command_s"][part]),
+                                  command_s=r["command_s"][part], stdouts=r["stdouts"][part])
+        return runs
+
+    return merged, split
+
+
+class Background:
+    """``fn()`` started now on a thread and awaited by :meth:`result`: a wave
+    of untimed processes (``run_modules_together``) that runs while this
+    process goes on with untimed work of its own."""
+
+    def __init__(self, fn):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(1)
+        self._future = self._pool.submit(fn)
+
+    def result(self):
+        try:
+            return self._future.result()
+        finally:
+            self._pool.shutdown()
+
+
+class CardMemory:
+    """The card's used memory (every process's, from ``cudaMemGetInfo``)
+    sampled on a thread every 0.2 s until :meth:`stop`, which returns its
+    peak in GB."""
+
+    def __init__(self):
+        import threading
+
+        self._stop, self._peak = threading.Event(), 0
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        import torch
+
+        while not self._stop.wait(0.2):
+            free, total = torch.cuda.mem_get_info()
+            self._peak = max(self._peak, total - free)
+
+    def stop(self) -> float:
+        self._stop.set()
+        self._thread.join()
+        return self._peak / 1e9
+
+
+def stop_started() -> None:
+    """Kill the processes of :func:`run_modules_together` still running."""
+    for proc in STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def closed_mesh(faces) -> bool:
@@ -3702,68 +3981,129 @@ def marching_cubes_check() -> dict:
     return dict(resolution=SURFACE_RES, seconds=seconds, verts=len(verts), faces=len(faces))
 
 
-def evaluate(results: dict, smi: str, td: str) -> None:
-    """The port's evaluation and geometry tools over train_cli's artifacts
-    (``ffhq256_sdf_tpu``, ``ffhq256_sdf_ngp_tpu``, in ``td``): from the
-    command line, a store of procedural heads and its FID stats, beside both
-    probe stages and sdf_mesh; eval in this process, alone on the card (f32
-    with the PNG dump against the store, FID and KID; bf16 and f32 with
-    ``--no_dump`` against the stats, timed; NGP), each through its kernels
-    by launch count and by name; eval_files on the dump from the command
-    line; the Inception, align_volume and marching cubes checked on the
-    card; the surface probe timed."""
+@contextlib.contextmanager
+def timed_fid():
+    """Seconds spent inside the FID's ``calculate_frechet_distance`` (its
+    2048^2 ``sqrtm`` on the host) while the block runs, as a list of calls;
+    the values pass through untouched."""
+    from sdface_gan_tpu_torch import evaluation
+
+    original, seconds = evaluation.calculate_frechet_distance, []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    evaluation.calculate_frechet_distance = timed
+    try:
+        yield seconds
+    finally:
+        evaluation.calculate_frechet_distance = original
+
+
+def timed_eval(td: str, name: str, timings: dict, *args, profile_names: bool = False) -> dict:
+    """:func:`run_eval` of ``args``, its wall seconds and its FID's seconds
+    put under ``name`` in ``timings`` ({"eval_main_s": ..., "fid_s": ...});
+    with ``profile_names`` the run is profiled whole and its CUDA kernels'
+    names returned too."""
+    t0 = time.perf_counter()
+    with timed_fid() as seconds:
+        if profile_names:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = run_eval(td, *args)
+            out["kernel_names"] = [ev.key for ev in prof.key_averages()
+                                   if ev.device_type == DeviceType.CUDA]
+        else:
+            out = run_eval(td, *args)
+    timings["eval_main_s"][name] = time.perf_counter() - t0
+    timings["fid_s"][name] = sum(seconds)
+    return out
+
+
+EVAL_COMMON = ("--config", CLI_CONFIG, "--sdf", "1", "--batch", str(BATCH))
+
+
+def evaluate_beside(td: str) -> dict:
+    """evaluate's untimed eval runs, in this process while train_cli's wave
+    runs (they time nothing, so the card may be shared): f32 with the PNG
+    dump against the heads' store (FID and KID), profiled whole for its
+    field kernel's name, and a short profiled bf16 run; each through its
+    kernel by launch count, no plain field on the card."""
     import gc
 
     import numpy as np
     import torch
 
-    t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    # the tools that need no store, beside the store and its stats
-    first = run_modules_together({
-        "heads": [("data.synthetic", ["--out", "heads", "--n", str(EVAL_HEADS), "--res",
-                                      str(EVAL_HEAD_RES), "--seed", "3"]),
-                  ("calc_fid_stats", ["heads_png", "--out", "heads_stats.npz", "--img_size",
-                                      str(EVAL_HEAD_RES), "--batch", "16"])],
-        "probe_a": [("probe_geometry", ["--config", CLI_CONFIG, "--stage", "a"])],
-        "probe_b": [("probe_geometry", ["--config", CLI_CONFIG, "--stage", "b", "--mesh"])],
-        "sdf_mesh": [("sdf_mesh", ["--config", CLI_CONFIG, "--identities", "2"])],
-    }, td)
-    first_s = time.perf_counter() - t_phase
-    check(f"wrote stats for {EVAL_HEADS} images" in first["heads"]["stdout"], "calc_fid_stats")
-
-    t_evals = time.perf_counter()
-    common = ["--config", CLI_CONFIG, "--sdf", "1", "--batch", str(BATCH)]
-    dump = run_eval(td, common + ["--n_images", str(EVAL_DUMP_IMAGES), "--real_dir", "heads"],
-                    ("siren_field",), EVAL_DUMP_IMAGES // BATCH)
+    timings = dict(eval_main_s={}, fid_s={})
+    dump = timed_eval(td, "dump", timings, [*EVAL_COMMON, "--n_images", str(EVAL_DUMP_IMAGES),
+                                            "--real_dir", "heads"],
+                      ("siren_field",), EVAL_DUMP_IMAGES // BATCH, profile_names=True)
     check(all(np.isfinite(dump["stats"][k]) for k in ("fid", "kid_mean", "kid_std")),
           "eval f32: finite FID and KID")
     dumped = sorted(os.listdir(os.path.join(td, "out", CLI_EXP, "eval")))
     check(dumped == [f"{i:07d}.png" for i in range(EVAL_DUMP_IMAGES)], "eval dumped its PNGs")
+    t0 = time.perf_counter()
+    names = {"float32": dump["kernel_names"],
+             "bfloat16": eval_kernel_names(td, [*EVAL_COMMON, "--n_images", str(BATCH),
+                                                "--no_dump", "--no_fid", "--g_dtype",
+                                                "bfloat16"])}
+    timings["eval_main_s"]["bfloat16_names"] = time.perf_counter() - t0
+    return dict(dump=dump, names=names, timings=timings)
+
+
+def evaluate(results: dict, smi: str, td: str, first: dict, beside: dict) -> None:
+    """The port's evaluation and geometry tools over train_cli's artifacts
+    (``ffhq256_sdf_tpu``, ``ffhq256_sdf_ngp_tpu``, in ``td``): what
+    ``beside`` (:func:`evaluate_beside`, during train_cli's wave) found;
+    eval in this process, alone on the card: bf16 and f32 with
+    ``--no_dump`` against the heads' stats, timed, and NGP, each through its
+    kernels by launch count; each dtype's field kernel by name; what
+    ``first`` (train_cli's wave: both probe stages and sdf_mesh) printed and
+    wrote; the Inception, align_volume and marching cubes checked on the
+    card; the surface probe timed.  eval_files scores the dump in stage C's
+    wave (:func:`evaluate_files`)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from sdface_gan_tpu_torch.ops import siren_kernel as sk
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    common = list(EVAL_COMMON)
+    dump, names, timings = beside["dump"], beside["names"], beside["timings"]
+    evals_s, fid_s = timings["eval_main_s"], timings["fid_s"]
+
     rate_args = common + ["--n_images", str(EVAL_RATE_IMAGES), "--no_dump",
                           "--fid_file", "heads_stats.npz"]
     rate = {}
     for dtype in ("bfloat16", "float32"):
-        rate[dtype] = run_eval(td, rate_args + ["--g_dtype", dtype], ("siren_field",),
-                               EVAL_RATE_IMAGES // BATCH)
+        rate[dtype] = timed_eval(td, dtype, timings, rate_args + ["--g_dtype", dtype],
+                                 ("siren_field",), EVAL_RATE_IMAGES // BATCH)
         check(np.isfinite(rate[dtype]["stats"]["fid"]), f"eval {dtype} --no_dump: finite FID")
-    from sdface_gan_tpu_torch.ops import siren_kernel as sk
-
-    names = {}
     for dtype, other in (("float32", "bfloat16"), ("bfloat16", "float32")):
-        names[dtype] = eval_kernel_names(td, common + ["--n_images", str(BATCH), "--no_dump",
-                                                       "--no_fid", "--g_dtype", dtype])
         mine, theirs = sk.kernel_name(getattr(torch, dtype)), sk.kernel_name(getattr(torch, other))
         check(any(mine in k for k in names[dtype]) and not any(theirs in k for k in names[dtype]),
               f"eval --g_dtype {dtype} runs {mine} and not {theirs}")
-    ngp = run_eval(td, ["--config", CLI_NGP_CONFIG, "--sdf", "1", "--batch", str(BATCH),
-                        "--n_images", str(EVAL_NGP_IMAGES), "--no_dump", "--no_fid"],
-                   ("hash_encode", "table_gather"), EVAL_NGP_IMAGES // BATCH)
+    ngp = timed_eval(td, "ngp", timings, ["--config", CLI_NGP_CONFIG, "--sdf", "1", "--batch",
+                                          str(BATCH), "--n_images", str(EVAL_NGP_IMAGES),
+                                          "--no_dump", "--no_fid"],
+                     ("hash_encode", "table_gather"), EVAL_NGP_IMAGES // BATCH)
     eval_rec = dict(
         dump=dict(n_images=EVAL_DUMP_IMAGES, fid=dump["stats"]["fid"],
                   kid=[dump["stats"]["kid_mean"], dump["stats"]["kid_std"]],
-                  launches=dump["launches"]["siren_field"], seconds=dump["stats"]["seconds"]),
+                  launches=dump["launches"]["siren_field"], seconds=dump["stats"]["seconds"],
+                  profiled=True, card_shared_with="train_cli's wave"),
         no_dump={d: dict(n_images=EVAL_RATE_IMAGES, fid=r["stats"]["fid"],
                          launches=r["launches"]["siren_field"], seconds=r["stats"]["seconds"],
                          images_per_s=r["images_per_s"],
@@ -3772,19 +4112,12 @@ def evaluate(results: dict, smi: str, td: str) -> None:
                  images_per_s=ngp["images_per_s"], warm_images_per_s=ngp["warm_images_per_s"],
                  launches={k: ngp["launches"][k] for k in ("hash_encode", "table_gather")}),
         kernel_by_name={d: [k[:60] for k in v if "siren_field" in k] for d, v in names.items()},
-        lines=dump["lines"] + rate["bfloat16"]["lines"], seconds=time.perf_counter() - t_evals)
+        lines=dump["lines"] + rate["bfloat16"]["lines"], eval_main_s=evals_s, fid_s=fid_s,
+        seconds=sum(evals_s.values()))
     emit(phase="evaluate_eval", nvidia_smi=smi, **eval_rec)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # eval_files on the dump, alone on the card
-    t_files = time.perf_counter()
-    files = run_modules_together({"eval_files": [("eval_files", [
-        os.path.join("out", CLI_EXP, "eval"), "--fid_file", "heads_stats.npz",
-        "--batch", "16"])]}, td)["eval_files"]
-    files_s = time.perf_counter() - t_files
-    fid_line = [ln for ln in files["stdout"].splitlines() if ln.startswith("FID:")]
-    check(len(fid_line) == 1 and np.isfinite(float(fid_line[0].split()[1])), "eval_files FID")
     verdicts = {}
     for stage in ("a", "b"):
         lines = first[f"probe_{stage}"]["stdout"].splitlines()
@@ -3801,9 +4134,8 @@ def evaluate(results: dict, smi: str, td: str) -> None:
         check(f"id{ident:03d}.obj" in objs or any(
             ln.startswith(f"id{ident}: marching cubes failed") for ln in mesh_lines),
               f"sdf_mesh: identity {ident} has a mesh or its failure line")
-    cli_rec = dict(first_block_s=first_s, eval_files_s=files_s,
-                   seconds={k: v["seconds"] for k, v in first.items()},
-                   eval_files_fid=float(fid_line[0].split()[1]), probe=verdicts,
+    cli_rec = dict(seconds={k: v["seconds"] for k, v in first.items()},
+                   beside="train_cli's rerun and NGP run", probe=verdicts,
                    sdf_mesh=mesh_lines, objs=objs)
     emit(phase="evaluate_cli", **cli_rec)
 
@@ -3822,7 +4154,24 @@ def evaluate(results: dict, smi: str, td: str) -> None:
          probe_surface_ms=checks["surface"]["probe_surface_ms"],
          marching_cubes_s=checks["marching_cubes"]["seconds"],
          probe_verdicts={k: v["verdict"] for k, v in verdicts.items()},
-         sdf_mesh=mesh_lines)
+         sdf_mesh=mesh_lines, eval_main_s=evals_s, fid_s=fid_s)
+
+
+def evaluate_files_jobs() -> dict:
+    """eval_files on eval's dump against the heads' stats, for stage C's wave."""
+    return {"eval_files": [("eval_files", [os.path.join("out", CLI_EXP, "eval"), "--fid_file",
+                                           "heads_stats.npz", "--batch", "16"])]}
+
+
+def evaluate_files(results: dict, files: dict) -> None:
+    import numpy as np
+
+    fid_line = [ln for ln in files["stdout"].splitlines() if ln.startswith("FID:")]
+    check(len(fid_line) == 1 and np.isfinite(float(fid_line[0].split()[1])), "eval_files FID")
+    rec = dict(eval_files_fid=float(fid_line[0].split()[1]), seconds=files["seconds"],
+               beside="stage C's wave")
+    results["evaluate"]["cli"]["eval_files"] = rec
+    emit(phase="evaluate_files", **rec)
 
 
 # The bench phase: the port's benches as a user runs them, then in this
@@ -4044,6 +4393,303 @@ def train_64(results: dict, smi: str, started: tuple) -> None:
     emit(phase="train_64", nvidia_smi=smi, **rec)
 
 
+# The 512 phases: configs/512res/ffhq_512_sdf_tpu.yaml served and trained.
+CONFIG_512, CLI_512_EXP = "configs/512res/ffhq_512_sdf_tpu.yaml", "ffhq512_sdf_tpu"
+CLI_512_HEADS, CLI_512_STORE, CLI_512_ITERS = 24, "store_512", 20
+# sphere init cut from the entry's 10,000 steps (depth only: its loss is the same)
+CLI_512_SPHERE_INIT = 10
+SERVE_512_BATCHES, TRAIN_512_BATCHES = (4, 8, 16, 32), (2, 4, 8)  # the benches' defaults
+# the width cut of tests/test_torch_port_512.py: the 512 pyramid over a 64^2
+# renderer, field 32 x 2, 4 samples, style 16, channel_base 16, batch 2
+PARITY_512 = dict(style=16, width=32, depth=2, samples=4, base=16, batch=2)
+TRAIN_512_TOLERANCES = {"stage_b_d_r1": (1e-4, 1e-3), "stage_b_g": (1e-4, 1e-3),
+                        "stage_b_path_f64": (1e-4, 1e-3)}
+
+
+def train_512_jobs() -> dict:
+    """The staged CLI at 512^2 for stage C's wave, over the 64 + 512 store of
+    :func:`prepare`: sphere init, stage A at 64^2 (the yaml's 4,096 eikonal
+    points, no remat, bf16 G), the A -> B transfer and stage B at 512^2, 20
+    iterations each (step-0 sample grids of both stages)."""
+    return {"train_512": [("train", ["--config", CONFIG_512, "--sdf", "1", "--dataset_path",
+                                     CLI_512_STORE, "--iters", str(CLI_512_ITERS),
+                                     "--sphere_init_iters", str(CLI_512_SPHERE_INIT),
+                                     "--log_every", "1", "--save_every", "1000"])]}
+
+
+def train_512_parity() -> dict:
+    """The three stage-B steps at 512^2 on the card against the CPU, from the
+    same weights and inputs, no jitter, at the width cut of
+    ``tests/test_torch_port_512.py`` (``PARITY_512``): the D step with R1 and
+    the G step in f32, held by ``masked_parity``'s rule (loss rel 1e-4, each
+    gradient 1e-3 of its norm + 1e-6).  The path step's gradients are sums of
+    512^2 products with cancellation, ~1e-2 of their norm from f64 in f32
+    (JAX's own, on the CPU), so it is held by that rule in f64 on both
+    devices, and in f32 by the bf16 contract's form against the CPU's f64:
+    the card's worst gradient no further than the CPU's f32 one x 1.2 +
+    1e-4, its loss within rel 1e-4."""
+    import copy
+
+    import torch
+
+    from sdface_gan_tpu_torch.geometry import CameraParams, generate_camera_params
+    from sdface_gan_tpu_torch.models import (
+        Generator,
+        GeneratorConfig,
+        RendererConfig,
+        StyleDiscConfig,
+        StyleDiscriminator,
+    )
+    from sdface_gan_tpu_torch.training import steps
+
+    c = PARITY_512
+    style, batch = c["style"], c["batch"]
+    cfg = GeneratorConfig(size=512, style_dim=style, full_pipeline=True, freeze_renderer=True,
+                          channel_base=c["base"], renderer=RendererConfig(
+                              type="sdf", out_im_res=64, n_samples=c["samples"],
+                              style_dim=style, width=c["width"], depth=c["depth"]))
+    scfg = StyleDiscConfig(size=512, channel_base=c["base"])
+    hp = steps.TrainHParams(batch=batch, style_dim=style)
+    seed = torch.Generator().manual_seed
+    cpu = dict(g=Generator(cfg, "cpu", seed(51)), d=StyleDiscriminator(scfg, seed(52)))
+    models = {("cpu", torch.float32): cpu,
+              ("cuda", torch.float32): {k: copy.deepcopy(m).cuda() for k, m in cpu.items()},
+              ("cpu", torch.float64): {k: copy.deepcopy(m).double() for k, m in cpu.items()}}
+    models[("cuda", torch.float64)] = {k: copy.deepcopy(m).cuda()
+                                       for k, m in models[("cpu", torch.float64)].items()}
+    gen = seed(53)
+    z, z2 = torch.randn((batch, style), generator=gen), torch.randn((batch, style), generator=gen)
+    cams = generate_camera_params(64, gen, batch=batch, device="cpu")
+    real = torch.rand((batch, 512, 512, 3), generator=gen) * 2 - 1
+    noise = torch.randn((batch // 2, 512, 512, 3), generator=gen) / 512.0
+
+    def inputs(dev, dtype, b=batch, **kw):
+        to = lambda t: t[:b].to(dev, dtype)  # noqa: E731
+        return steps.StepInputs(to(z), CameraParams(*map(to, cams)), to(z2), 3, **kw)
+
+    def d_r1(dev):
+        m = models[(dev, torch.float32)]
+        return (steps.stage_b_d_loss(m["g"], m["d"], cfg, scfg, hp, real.to(dev),
+                                     inputs(dev, torch.float32), regularize=True)[0], m["d"], None)
+
+    def g_step(dev):
+        m = models[(dev, torch.float32)]
+        return (steps.stage_b_g_loss(m["g"], m["d"], cfg, scfg, hp,
+                                     inputs(dev, torch.float32))[0], m["g"], "decoder.")
+
+    def path(dev, dtype):
+        g = models[(dev, dtype)]["g"]
+        p_in = inputs(dev, dtype, batch // 2, path_noise=noise.to(dev, dtype))
+        # the running mean at a fresh run's 0: (length - mean)^2 with mean ~
+        # length would amplify the lengths' rounding
+        return (steps.stage_b_path_loss(g, cfg, hp, p_in, torch.zeros((), dtype=dtype,
+                                                                      device=dev))[0],
+                g, "decoder.")
+
+    with torch.enable_grad():
+        out = masked_parity("train_512_parity",
+                            {"stage_b_d_r1": d_r1, "stage_b_g": g_step,
+                             "stage_b_path_f64": lambda dev: path(dev, torch.float64)},
+                            TRAIN_512_TOLERANCES)
+        truth_loss, truth_g, _ = path("cpu", torch.float64)
+        truth = _param_grads(truth_loss, truth_g, "decoder.")
+        f32 = {}
+        for dev in ("cuda", "cpu"):
+            loss, g, _ = path(dev, torch.float32)
+            grads = _param_grads(loss, g, "decoder.")
+            errs = _grad_errors({k: v.double() for k, v in grads.items()}, truth)
+            f32[dev] = dict(loss_rel_err=abs(loss.item() - truth_loss.item()) / truth_loss.item(),
+                            worst=_worst(errs))
+    card, host = f32["cuda"], f32["cpu"]
+    check(card["loss_rel_err"] <= 1e-4,
+          f"train_512_parity stage_b_path f32: card loss vs f64 rel {card['loss_rel_err']} <= 1e-4")
+    check(card["worst"][1] <= 1.2 * host["worst"][1] + 1e-4,
+          f"train_512_parity stage_b_path f32: card's worst gradient vs f64 {card['worst']} <= "
+          f"1.2 x the CPU's {host['worst']} + 1e-4")
+    out["stage_b_path_f32_vs_f64"] = dict(card=card, cpu=host, rule="card <= 1.2 x cpu + 1e-4")
+    emit(phase="train_512_parity", tolerances=TRAIN_512_TOLERANCES, width_cut=PARITY_512, **out)
+    return out
+
+
+def serve_512(results: dict, smi: str) -> None:
+    """The 512^2 generator of ``CONFIG_512`` (as ``bench_serving_512`` builds
+    it from the yaml) behind ``SDFaceSampler`` at batch 8, bf16 weights, no
+    truncation: warm up, zero the counts, answer two seed requests and one
+    azim/elev request, read the counts (siren_field launched in every
+    request, no plain field on the card); a profiled request shows
+    ``siren_field_mma_kernel<256>`` by name and no f32 kernel and no plain
+    field; one f32 request through the fused field against the plain field
+    (<= 2e-3), and the bf16 request's mean error against that f32 plain
+    image <= 1.2x the plain bf16 request's + 1e-4."""
+    import gc
+
+    import torch
+
+    from sdface_gan_tpu_torch import bench as bench_mod
+    from sdface_gan_tpu_torch.bench_serving_512 import config_512
+    from sdface_gan_tpu_torch.ops import siren_kernel as sk
+    from sdface_gan_tpu_torch.serving import SDFaceSampler
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config_512()
+    model = bench_mod.serving_model(cfg, torch.device("cuda"))
+    kw = dict(batch=BATCH, truncation=bench_mod.TRUNCATION)
+    sampler = SDFaceSampler(model, **kw)
+    sampler.warmup()
+    with plain_fields_on_card() as plain:
+        outs, launches, dt = drive(sampler, ["siren_field"])
+    check(not plain, f"serve_512: no plain field on the card ({plain})")
+    mma = sk.kernel_name(torch.bfloat16) + "<256>"
+    with plain_fields_on_card() as plain:
+        prof = profile_request(sampler, [mma], absent=[sk.kernel_name(torch.float32)])
+    check(not plain, f"serve_512: no plain field in the profiled request ({plain})")
+    plain16 = SDFaceSampler(model, use_fused_kernel=False, **kw).sample(seed=1)
+    model32 = bench_mod.serving_model(cfg, torch.device("cuda"), dtype=torch.float32)
+    fused32 = SDFaceSampler(model32, **kw).sample(seed=1)
+    plain32 = SDFaceSampler(model32, use_fused_kernel=False, **kw).sample(seed=1)
+    err = (fused32 - plain32).abs().max().item()
+    bf16_err = (outs[0].float() - plain32).abs().mean().item()
+    bf16_plain_err = (plain16.float() - plain32).abs().mean().item()
+    check(err <= 2e-3, f"serve_512 f32 request, fused vs plain field: max abs {err} <= 2e-3")
+    check(bf16_err <= 1.2 * bf16_plain_err + 1e-4,
+          f"serve_512 bf16 request vs f32 plain: mean abs {bf16_err} <= 1.2 * {bf16_plain_err}"
+          " + 1e-4")
+    rec = dict(config=CONFIG_512, size=cfg.size, n_latent=cfg.decoder.n_latent, batch=BATCH,
+               dtype="bfloat16", requests=3, launches=launches, seconds_three_requests=dt,
+               profile=dict(device_ms_total=prof["device_ms_total"], kernel=mma,
+                            kernel_ms=prof["kernel_ms"][mma], top=prof["top"][:6]),
+               f32_fused_vs_plain_max_abs_err=err, tolerance=2e-3,
+               bf16_fused_request_vs_f32_plain_mean_abs_err=bf16_err,
+               bf16_plain_request_vs_f32_plain_mean_abs_err=bf16_plain_err)
+    results["serve_512"] = rec
+    emit(phase="serve_512", nvidia_smi=smi, **rec)
+
+
+def bench_512(results: dict, smi: str) -> None:
+    """``python -m sdface_gan_tpu_torch.bench_serving_512`` and ``...
+    .bench_train_512`` at their defaults, one after the other, alone on the
+    card: a line per batch (4, 8, 16, 32; 2, 4, 8) with the JAX scripts'
+    keys, every batch ``fits_hbm``, finite values, the card named, the field
+    kernel once per timed serving call; images/s, ms per batch, the stage-B
+    step ms, ``it_per_s_combined`` and the peak GB."""
+    import math
+
+    import torch
+
+    from sdface_gan_tpu_torch.bench_serving_512 import ITERS
+
+    torch.cuda.empty_cache()  # leave the card to the bench processes
+    runs = {m: run_module(m, [], HERE) for m in ("bench_serving_512", "bench_train_512")}
+    serving = bench_lines(runs["bench_serving_512"]["stdout"])
+    training = bench_lines(runs["bench_train_512"]["stdout"])
+    check([r["batch"] for r in serving] == list(SERVE_512_BATCHES)
+          and [r["batch"] for r in training] == list(TRAIN_512_BATCHES),
+          f"bench_512: a line per batch ({[r['batch'] for r in serving + training]})")
+    for r in serving:
+        check(r["fits_hbm"] and r["finite"] and r["device"] == smi
+              and math.isfinite(r["img_per_s"]) and r["img_per_s"] > 0
+              and r["launches"]["siren_field"] == ITERS, f"bench_serving_512 line: {r}")
+    for r in training:
+        check(r["fits_hbm"] and r["finite"] and r["device"] == smi
+              and all(math.isfinite(r[k]) and r[k] > 0 for k in (
+                  "d_r1_ms", "g_ms", "path_ms", "it_per_s_combined"))
+              and r["peak_hbm_gb"] < 80, f"bench_train_512 line: {r}")
+    rec = dict(serving={r["batch"]: {k: r[k] for k in ("img_per_s", "ms_per_batch",
+                                                        "iter_ms_median", "iter_ms_max",
+                                                        "peak_memory_gb", "fits_hbm")}
+                        for r in serving},
+               training={r["batch"]: {k: r[k] for k in ("d_r1_ms", "g_ms", "path_ms",
+                                                         "it_per_s_combined", "peak_hbm_gb",
+                                                         "fits_hbm")}
+                         for r in training},
+               launches={k: sum(r["launches"][k] for r in serving) for k in serving[0]["launches"]},
+               seconds={m: r["seconds"] for m, r in runs.items()})
+    results["bench_512"] = rec
+    emit(phase="bench_512", nvidia_smi=smi, **rec)
+
+
+def train_512(results: dict, smi: str, td: str, cli: dict, parity: dict) -> None:
+    """What the staged 512^2 CLI (:func:`train_512_jobs`, in stage C's wave)
+    did: sphere init, then stage A and stage B 20 iterations each, every
+    logged loss finite, ``vol_renderer`` and ``full_pipeline`` written, a
+    512^2 sample grid; beside it the card-vs-CPU parity
+    (:func:`train_512_parity`)."""
+    from sdface_gan_tpu_torch.data.png import decode_png
+    from sdface_gan_tpu_torch.utils.checkpoints import checkpoint_exists
+
+    out = os.path.join(td, "out", CLI_512_EXP)
+    vr = os.path.join(out, "volume_renderer")
+    stdout = cli["stdout"]
+    check("sphere init done" in stdout and "initialized renderer from vol_renderer" in stdout,
+          "train_512: sphere init, then stage B from stage A's vol_renderer")
+    check(checkpoint_exists(vr, "vol_renderer") and checkpoint_exists(out, "full_pipeline"),
+          "train_512: vol_renderer and full_pipeline written")
+    rows_a = _train_rows(os.path.join(vr, "vol_render_metrics.jsonl"))
+    rows_b = _train_rows(os.path.join(out, "full_pipeline_metrics.jsonl"))
+    _finite_losses(rows_a, "train_512 stage A")
+    _finite_losses(rows_b, "train_512 stage B")
+    its = list(range(CLI_512_ITERS))
+    check([r["step"] for r in rows_a if "g" in r] == its and [r["step"] for r in rows_b] == its,
+          f"train_512: {CLI_512_ITERS} + {CLI_512_ITERS} iterations logged")
+    with open(os.path.join(out, "samples_0000000.png"), "rb") as f:
+        grid = decode_png(f.read())
+    check(grid.shape[0] % 512 == 0 and grid.shape[1] % 512 == 0 and grid.std() > 0,
+          f"train_512: a grid of 512^2 samples ({grid.shape})")
+    rec = dict(config=CONFIG_512, command_s=cli["seconds"], sphere_init_iters=CLI_512_SPHERE_INIT,
+               iters=CLI_512_ITERS, stage_a=_step_medians(rows_a), stage_b=_step_medians(rows_b),
+               step_ms_card_shared="stage C's wave", sample_grid=list(grid.shape),
+               parity={k: {m: v[m] for m in ("loss_rel_err", "worst_param",
+                                             "worst_grad_rel_err", "held_with")}
+                       for k, v in parity.items() if k.startswith("stage_b_") and "f32" not in k},
+               path_f32_vs_f64=parity["stage_b_path_f32_vs_f64"])
+    results["train_512"] = rec
+    emit(phase="train_512", nvidia_smi=smi, **rec)
+
+
+def build_kernels() -> None:
+    """Every CUDA source of the served paths, one nvcc each, started together;
+    ptxas's registers and spills."""
+    from sdface_gan_tpu_torch.ops import _ext
+
+    built = {src: not _ext.library_path(src).exists() for src in SOURCES}
+    t0 = time.perf_counter()
+    _ext.build(*SOURCES)
+    seconds = time.perf_counter() - t0
+    for src in SOURCES:
+        _ext.load(src)
+        ptxas = [ln.strip() for ln in open(str(_ext.library_path(src)) + ".log")
+                 if "registers" in ln or "spill" in ln or "Function properties" in ln]
+        emit(phase="build", source=f"csrc/{src}.cu", seconds_all_sources=seconds,
+             built=built[src], ptxas=ptxas)
+
+
+def kernel_check(results: dict) -> tuple:
+    """Each kernel against its plain version (the module docstring's phase 3)."""
+    checks = [check_field(DEPTH, POINTS, seed=1), check_field(3, 700, seed=2),
+              check_field(3, 700, seed=3, width=64), check_field(3, 700, seed=4, width=512),
+              # the bench's shape: one call at batch 32
+              check_field(DEPTH, POINTS, seed=16, batch=BENCH_BATCH)]
+    # the f32 kernel at every tile geometry class, ragged tiles (P = 1, 700)
+    f32_checks = [check_field(3, p, seed=5 + i, width=w, bf16=False)
+                  for i, (w, p) in enumerate((w, p) for w in (64, 192, 256, 320, 512)
+                                             for p in (1, 700))]
+    # and at sdf_mesh's surface probe: one call, B = 1, P = 128^3, full width
+    f32_checks.append(check_field(DEPTH, SURFACE_RES ** 3, seed=15, bf16=False, batch=1))
+    for rec in checks + f32_checks:
+        emit(phase="kernel_check", kernel="siren_field", **rec)
+    results["field_checks"], results["field_f32_checks"] = checks, f32_checks
+    gather_checks = check_table_gather()
+    bench_encode_check, bench_grad_checks = check_bench_hash()
+    encode_checks = check_hash_encode() + [bench_encode_check]
+    grad_checks = check_encode_grads() + bench_grad_checks
+    for rec in gather_checks + encode_checks + grad_checks:
+        emit(phase="kernel_check", **rec)
+    results["gather_checks"], results["encode_checks"] = gather_checks, encode_checks
+    results["grad_checks"] = grad_checks
+    return checks, f32_checks, gather_checks, encode_checks, grad_checks
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write every result to this JSON file")
@@ -4072,71 +4718,86 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    from sdface_gan_tpu_torch.ops import _ext
+    import tempfile
 
-    built = {src: not _ext.library_path(src).exists() for src in SOURCES}
-    t0 = time.perf_counter()
-    _ext.build(*SOURCES)
-    seconds = time.perf_counter() - t0
-    for src in SOURCES:
-        _ext.load(src)
-        ptxas = [ln.strip() for ln in open(str(_ext.library_path(src)) + ".log")
-                 if "registers" in ln or "spill" in ln or "Function properties" in ln]
-        emit(phase="build", source=f"csrc/{src}.cu", seconds_all_sources=seconds,
-             built=built[src], ptxas=ptxas)
+    walls = {}
 
-    checks = [check_field(DEPTH, POINTS, seed=1), check_field(3, 700, seed=2),
-              check_field(3, 700, seed=3, width=64), check_field(3, 700, seed=4, width=512),
-              # the bench's shape: one call at batch 32
-              check_field(DEPTH, POINTS, seed=16, batch=BENCH_BATCH)]
-    # the f32 kernel at every tile geometry class, ragged tiles (P = 1, 700)
-    f32_checks = [check_field(3, p, seed=5 + i, width=w, bf16=False)
-                  for i, (w, p) in enumerate((w, p) for w in (64, 192, 256, 320, 512)
-                                             for p in (1, 700))]
-    # and at sdf_mesh's surface probe: one call, B = 1, P = 128^3, full width
-    f32_checks.append(check_field(DEPTH, SURFACE_RES ** 3, seed=15, bf16=False, batch=1))
-    for rec in checks + f32_checks:
-        emit(phase="kernel_check", kernel="siren_field", **rec)
-    results["field_checks"], results["field_f32_checks"] = checks, f32_checks
-    gather_checks = check_table_gather()
-    bench_encode_check, bench_grad_checks = check_bench_hash()
-    encode_checks = check_hash_encode() + [bench_encode_check]
-    grad_checks = check_encode_grads() + bench_grad_checks
-    for rec in gather_checks + encode_checks + grad_checks:
-        emit(phase="kernel_check", **rec)
-    results["gather_checks"], results["encode_checks"] = gather_checks, encode_checks
-    results["grad_checks"] = grad_checks
+    def timed(name, fn, *fn_args):
+        """``fn(*fn_args)``; its wall seconds on a line of their own."""
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        walls[name] = time.perf_counter() - t0
+        emit(phase="wall", of=name, wall_s=walls[name])
+        return out
 
-    serve(results)
-    serve_f32(results)
-    ngp_model = serve_ngp(results)
-    timing = time_field(results)
-    ngp_timing = time_ngp_kernels(results, ngp_model)
-    del ngp_model
-    grad_timing = time_grad_kernels(results)
-    emit(phase="timing", nvidia_smi=smi, batch=BATCH, field=timing, ngp=ngp_timing,
-         encode_grads=grad_timing,
-         images_per_s=results["images_per_s"], ngp_images_per_s=results["ngp_images_per_s"],
-         f32_images_per_s=results["f32_request"]["images_per_s"],
-         f32_request_device_ms=results["f32_request"]["device_ms_total"],
-         f32_request_kernel_ms=results["f32_request"]["kernel_ms"],
-         ngp_upstream_images_per_s=results["ngp_upstream_images_per_s"])
+    # one working directory for the CLI phases, their files made beside the build
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_train_") as td:
+        try:
+            os.symlink(os.path.join(HERE, "configs"), os.path.join(td, "configs"))
+            prep = Background(lambda: prepare(td))
+            timed("build", build_kernels)
+            checks, f32_checks, gather_checks, encode_checks, grad_checks = timed(
+                "kernel_check", kernel_check, results)
+            prepared = prep.result()
+            emit(phase="prepare", beside="build and kernel_check", seconds=prepared["seconds"],
+                 native_build_s=prepared["native_s"],
+                 jobs_s={k: v["command_s"] for k, v in prepared["runs"].items()})
 
-    train(results)
-    train_ngp(results)
-    summary_keys = ("batch", "d_ms", "g_ms", "peak_memory_gb")
-    stage_b_keys = ("d_ms", "g_ms", "warm_reg_d_ms", "warm_path_ms", "peak_memory_gb")
-    emit(phase="train_summary", nvidia_smi=smi,
-         stage_a={k: {m: v[m] for m in summary_keys}
-                  for k, v in {**results["train"]["stage_a"],
-                               **results["train_ngp"]["stage_a"]}.items()},
-         stage_b={m: results["train"]["stage_b"][m] for m in stage_b_keys},
-         stage_b_t={m: results["train_ngp"]["stage_b"][m] for m in stage_b_keys},
-         ngp_g_step={s: {k: p["g_step"][k] for k in ("launches", "hash_kernel_device_ms",
-                                                      "device_ms_total", "host_ms")}
-                     for s, p in results["train_ngp"]["profile"].items()})
-    train_cli(results, smi)
-    bench(results, smi)
+            def serving():
+                serve(results)
+                serve_f32(results)
+                ngp_model = serve_ngp(results)
+                timing = time_field(results)
+                ngp_timing = time_ngp_kernels(results, ngp_model)
+                del ngp_model
+                grad_timing = time_grad_kernels(results)
+                emit(phase="timing", nvidia_smi=smi, batch=BATCH, field=timing, ngp=ngp_timing,
+                     encode_grads=grad_timing,
+                     images_per_s=results["images_per_s"],
+                     ngp_images_per_s=results["ngp_images_per_s"],
+                     f32_images_per_s=results["f32_request"]["images_per_s"],
+                     f32_request_device_ms=results["f32_request"]["device_ms_total"],
+                     f32_request_kernel_ms=results["f32_request"]["kernel_ms"],
+                     ngp_upstream_images_per_s=results["ngp_upstream_images_per_s"])
+                return timing, ngp_timing, grad_timing
+
+            timing, ngp_timing, grad_timing = timed("serve_and_timing", serving)
+            timed("train", train, results)
+            timed("train_ngp", train_ngp, results)
+            summary_keys = ("batch", "d_ms", "g_ms", "peak_memory_gb")
+            stage_b_keys = ("d_ms", "g_ms", "warm_reg_d_ms", "warm_path_ms", "peak_memory_gb")
+            emit(phase="train_summary", nvidia_smi=smi,
+                 stage_a={k: {m: v[m] for m in summary_keys}
+                          for k, v in {**results["train"]["stage_a"],
+                                       **results["train_ngp"]["stage_a"]}.items()},
+                 stage_b={m: results["train"]["stage_b"][m] for m in stage_b_keys},
+                 stage_b_t={m: results["train_ngp"]["stage_b"][m] for m in stage_b_keys},
+                 ngp_g_step={s: {k: p["g_step"][k] for k in ("launches",
+                                                              "hash_kernel_device_ms",
+                                                              "device_ms_total", "host_ms")}
+                             for s, p in results["train_ngp"]["profile"].items()})
+            first, evaluated = timed("train_cli", train_cli, results, smi, td, prepared,
+                                     lambda: evaluate_beside(td))
+            timed("evaluate", evaluate, results, smi, td, first, evaluated)
+            # the script's wave of untimed work, run beside stage C's parity
+            extra = {**train_cli_cut_jobs(td), **evaluate_files_jobs(), **bridge_jobs(td),
+                     **giraffe_jobs(td), **train_512_jobs()}
+            wave = timed("train_stage_c", train_stage_c, results, smi, td, extra,
+                         {"train_512_parity": train_512_parity})
+            results["train_cli"]["flow"] = train_cli_flow(td, wave["cli_cut"])
+            evaluate_files(results, wave["eval_files"])
+            timed("bridge_and_images", bridge_and_images, results, smi, td, wave)
+            timed("giraffe", giraffe, results, smi, td, wave)
+            timed("giraffe_train", giraffe_train, results, smi, td,
+                  {k: wave[k] for k in ("giraffe_resume", "giraffe_cut", "gan2d")})
+            timed("bench", bench, results, smi)
+            timed("serve_512", serve_512, results, smi)
+            timed("bench_512", bench_512, results, smi)
+            train_512(results, smi, td, wave["train_512"], wave["train_512_parity"])
+        finally:
+            stop_started()
+    results["walls"] = walls
+    emit(phase="walls", nvidia_smi=smi, wall_s=walls, total_s=time.perf_counter() - START)
 
     bf16, f32 = timing["bfloat16"], timing["float32"]
     gather, encode = ngp_timing["table_gather"], ngp_timing["hash_encode"]
@@ -4152,7 +4813,9 @@ def main() -> int:
              kernel=bf16["kernel"], design=bf16["design"],
              launches=results["launches"]["siren_field"]
              + results["evaluate"]["eval"]["no_dump"]["bfloat16"]["launches"]
-             + benched["siren_field"] + bridged["siren_field"], checked=True,
+             + benched["siren_field"] + bridged["siren_field"]
+             + results["serve_512"]["launches"]["siren_field"]
+             + results["bench_512"]["launches"]["siren_field"], checked=True,
              max_abs_err=checks[0]["bf16_max_abs_kernel_vs_plain"],
              f32_max_abs_err=checks[0]["f32_max_abs_err"],
              ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],

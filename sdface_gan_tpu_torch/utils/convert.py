@@ -16,8 +16,10 @@ the reference ``g_ema`` names, which the port's ``Generator`` uses.
 Values are copied bit for bit, for every field type ('sdf', 'ngp', 'fc').
 The discriminators (``jax_disc_params_to_state_dict``), the FID
 Inception (``jax_inception_params_to_state_dict``), stage C's encoders
-and perceptual nets (``jax_{vae,psp,irse,lpips}_params_to_state_dict``)
-and the GIRAFFE family's generators and discriminators
+and perceptual nets (``jax_{vae,psp,irse,lpips}_params_to_state_dict``),
+the VAE decoder and ``ResnetBlockFC``
+(``jax_{vae_decoder,resnet_block_fc}_params_to_state_dict``) and the
+GIRAFFE family's generators and discriminators
 (``jax_{giraffe,dc_disc,resnet_disc,gan2d}_params_to_state_dict``) have
 converters too.
 """
@@ -243,6 +245,24 @@ def jax_vae_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tens
     return _tensors(sd)
 
 
+def jax_vae_decoder_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_vae_decoder`` tree -> the port's ``VAEDecoder`` state
+    dict, bit for bit.  The transposed convs' [k, k, out, in] weights (the
+    JAX decoder flips them itself) become ``ConvTranspose2d``'s [in, out,
+    k, k]; the fc's output is an (h, w, c) map in both, so its weight is
+    only transposed."""
+    sd: Dict[str, Any] = {}
+    _put_linear(sd, "fc", params["fc"])
+    sd["fc_bn.weight"] = np.asarray(params["fc_bn"]["scale"])
+    sd["fc_bn.bias"] = np.asarray(params["fc_bn"]["bias"])
+    for i, block in enumerate(params["blocks"]):
+        sd[f"blocks.{i}.conv.weight"] = np.transpose(np.asarray(block["conv"]["w"]), (3, 2, 0, 1))
+        sd[f"blocks.{i}.bn.weight"] = np.asarray(block["bn"]["scale"])
+        sd[f"blocks.{i}.bn.bias"] = np.asarray(block["bn"]["bias"])
+    _put_conv(sd, "head", params["head"])
+    return _tensors(sd)
+
+
 def _irse_entries(sd: Dict[str, Any], prefix: str, params: Dict[str, Any]) -> None:
     _put_conv(sd, f"{prefix}input_layer.0", params["input_conv"])
     _put_stat_bn(sd, f"{prefix}input_layer.1", params["input_bn"])
@@ -359,6 +379,13 @@ def jax_resnet_disc_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, to
     """A JAX ``init_resnet_discriminator`` tree -> the port's
     ``ResnetDiscriminator`` state dict, bit for bit (both flatten NHWC
     before ``fc``, so its weight is only transposed)."""
+    return _plain_tree(params)
+
+
+def jax_resnet_block_fc_params_to_state_dict(params: Dict[str, Any]
+                                            ) -> Dict[str, torch.Tensor]:
+    """A JAX ``init_resnet_block_fc`` tree -> the port's ``ResnetBlockFC``
+    state dict (``fc_0``, ``fc_1``, the biasless ``shortcut``), bit for bit."""
     return _plain_tree(params)
 
 

@@ -799,6 +799,39 @@ def test_bench_forward_runs_the_bf16_field_kernel(cuda):
     assert any(siren_kernel.kernel_name(torch.bfloat16) + "<256>" in k for k in names), names
 
 
+def test_sampler_at_512_runs_the_field_kernel_and_matches_the_cpu(cuda):
+    """The 512^2 configuration's pyramid (``configs/512res/ffhq_512_sdf_tpu.yaml``:
+    the renderer at 64^2, three decoder doublings) at a width cut (field 64
+    x 2, 8 samples, style 64, ``channel_base`` 16): an f32 request through
+    the f32 field kernel on the card (one launch) within 2e-3 of the same
+    request on the CPU (the plain field), fixed z and viewpoint, no depth
+    jitter; a bf16 request runs ``siren_field_mma_kernel<64>`` by name."""
+    from dataclasses import replace
+
+    from sdface_gan_tpu_torch.bench_serving_512 import config_512
+
+    full = config_512()
+    cfg = replace(full, style_dim=64, channel_base=16, renderer=replace(
+        full.renderer, width=64, depth=2, n_samples=8, style_dim=64, perturb=0.0))
+    model = Generator(cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card = SDFaceSampler(copy.deepcopy(model).cuda(), batch=2, truncation=1.0)
+    cpu = SDFaceSampler(model, batch=2, truncation=1.0)
+    z = np.random.default_rng(6).standard_normal((2, 64)).astype(np.float32)
+    before = _ext.LAUNCHES["siren_field"]
+    got = card.sample(z=z, azim=0.2, elev=-0.1)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["siren_field"] == before + 1
+    want = cpu.sample(z=z, azim=0.2, elev=-0.1)
+    assert tuple(got.shape) == (2, 512, 512, 3)
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 2e-3, err
+    bf16 = SDFaceSampler(copy.deepcopy(model).cuda().to(torch.bfloat16), batch=2, truncation=1.0)
+    assert bool(torch.isfinite(bf16.sample(z=z, azim=0.2, elev=-0.1)).all())
+    names = _device_kernels(lambda: bf16.sample(seed=1))
+    assert any(siren_kernel.kernel_name(torch.bfloat16) + "<64>" in k for k in names), names
+    assert not any(siren_kernel.kernel_name(torch.float32) in k for k in names), names
+
+
 @pytest.mark.parametrize("grid", ["upstream", "tuned"])
 def test_bench_ngp_hash_functions_match_their_plain_versions(cuda, grid):
     """The forward and table gradient ``bench_hash_fwd_bwd`` times, through
