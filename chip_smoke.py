@@ -343,9 +343,44 @@ any failure raises and exits non-zero with no ``ok`` line:
              (loss rel 1e-4, gradients 1e-3 of their norm), the path step
              so in f64 and in f32 against the CPU's f64 no worse than the
              CPU's own f32 (x 1.2 + 1e-4).
-19. the ``kernels`` line (launches of every phase's counted runs: the
-             bench processes report theirs), then the nvidia-smi line, then
-             the ``ok`` line.
+19. ddp     - data parallelism (``sdface_gan_tpu_torch/parallel/``) on the
+             one card.  ddp_nccl: train_cli's entry under
+             ``python -m torch.distributed.run --standalone --nproc_per_node 1``
+             (an NCCL group at world 1, its own experiment), chained after
+             stage C's ``--vae 1`` in its wave with a plain rerun before it:
+             exit 0, its logged losses against the entry's at the same seed
+             within rel 1e-6 through stage A's first adversarial row (the
+             first inside the data-parallel span), 1e-3 over stage A's later
+             rows and stage B's first D loss, R1 and real score, and 0.25
+             over the rest of stage B (the card's kernels are not
+             bit-reproducible, and Adam turns that into drifts of a few %;
+             the plain rerun's distances are reported beside), its D and G
+             ms beside the entry's.  ddp, on a thread of this process beside
+             train_cli's wave once 40 GB of the card are free (stage C's wave
+             ran the card out of memory with it): two gloo ranks sharing
+             cuda:0 (``tests/torch_parallel_ranks.py``'s card job; NCCL needs a
+             card per rank) at global batch 8, seeded weights and live
+             generators, f32 with TF32 off: stage B's D (R1, the minibatch
+             stddev over both ranks), G and path steps at the flagship's
+             widths, stage A's D (R1) and G steps under ``_tpu`` and a VAE E
+             step at 256^2, each against rank 0's one-rank step at the same
+             global batch (train_parity's bars: metrics rel 1e-4, every
+             gradient 1e-3 of its norm; the StyleGAN steps under
+             masked_parity's rule: rank 0's step also replays the ranks'
+             leaky-ReLU masks and is held with them where a unit took the
+             other slope), the parameters after an Adam step bit-equal across
+             the ranks; the bf16 sampler's gathered batch
+             within 2e-3 of one rank's with ``siren_field_mma_kernel<256>`` in
+             rank 0's profile; the 128^3 probe through ``render_ray_sharded``
+             (``siren_field_f32_kernel<256>`` at P = 1,048,576 per rank) within
+             1e-5 of one rank's; no plain field call in either; each step's ms
+             beside the one-rank step's and the gloo all-reduce's ms and bytes
+             (diagnostics: two ranks share the card's SMs, gloo stages
+             through the host, the wave shares the card).  evaluate times the
+             f32 kernel alone at a rank's band (``field_at_rank_band``).
+20. the ``kernels`` line (launches of every phase's counted runs: the
+             bench processes and the ddp ranks report theirs), then the
+             nvidia-smi line, then the ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32: this process
 turns it off, and the train entry turns it off in its own (train_cli checks
 the line it prints).
@@ -1786,64 +1821,6 @@ def train(results: dict) -> None:
                             profile=prof)
 
 
-@contextlib.contextmanager
-def leaky_relu_masks(record=None, replay=None, flips=None):
-    """The masks of the port's kinked activations: the mapping network's
-    and the discriminators' ``fused_leaky_relu`` and ``torch.nn.functional``'s
-    ``relu``, ``prelu`` and ``leaky_relu`` (the encoders'): appended to
-    ``record`` in call order, or taken from the front of ``replay`` in the
-    same order, counting in ``flips`` the units whose own mask differs
-    ({"flipped": n, "units": n}).  Each keeps its function's own side at an
-    exact 0 (``x >= 0`` for ``fused_leaky_relu``, ``x > 0`` for torch's), so
-    only the masks' source differs from an unpatched run."""
-    import torch
-    import torch.nn.functional as F
-
-    from sdface_gan_tpu_torch.models import discriminator, stylegan2
-    from sdface_gan_tpu_torch.ops.fused_act import SQRT2
-
-    original = discriminator.fused_leaky_relu
-    originals = {name: getattr(F, name) for name in ("relu", "prelu", "leaky_relu")}
-    if flips is not None:
-        flips.update(flipped=0, units=0)
-
-    def masked(x, strict=False):
-        mask = x > 0 if strict else x >= 0
-        if replay is not None:
-            own, mask = mask, replay.pop(0).to(x.device)
-            flips["flipped"] += int((own != mask).sum())
-            flips["units"] += own.numel()
-        if record is not None:
-            record.append(mask)
-        return mask
-
-    def fn(x, bias=None, negative_slope=0.2, scale=SQRT2):
-        if bias is not None:
-            x = x + bias.reshape((1, -1) + (1,) * (x.ndim - 2))
-        return scale * torch.where(masked(x), x, negative_slope * x)
-
-    def relu(x, inplace=False):
-        return torch.where(masked(x, True), x, torch.zeros_like(x))
-
-    def prelu(x, weight):
-        w = weight.reshape((1, -1) + (1,) * (x.ndim - 2)) if x.ndim > 1 else weight
-        return torch.where(masked(x, True), x, w * x)
-
-    def leaky_relu(x, negative_slope=0.01, inplace=False):
-        return torch.where(masked(x, True), x, negative_slope * x)
-
-    for module in (discriminator, stylegan2):
-        module.fused_leaky_relu = fn
-    F.relu, F.prelu, F.leaky_relu = relu, prelu, leaky_relu
-    try:
-        yield
-    finally:
-        for module in (discriminator, stylegan2):
-            module.fused_leaky_relu = original
-        for name, f in originals.items():
-            setattr(F, name, f)
-
-
 def masked_parity(phase: str, steps: dict, tolerances: dict) -> dict:
     """The rule both training parities share.  ``steps``: name -> fn(dev)
     -> (loss, module, parameter prefix | None), one step from the same
@@ -1859,6 +1836,7 @@ def masked_parity(phase: str, steps: dict, tolerances: dict) -> dict:
     Both errors are reported: a flip moves only the own-mask one, a kernel
     defect both."""
     import torch
+    from torch_masks import leaky_relu_masks
 
     out, flipped, units = {}, 0, 0
     for name, step in steps.items():
@@ -2283,7 +2261,8 @@ def train_cli_flow(td: str, resume: dict) -> dict:
 
 # The train_stage_c phase: stage C over train_cli's artifacts, and the
 # script's wave of untimed processes: job -> the job that follows it
-WAVE_AFTER = {"psp": "train_512", "giraffe_fixture": "giraffe_surface", "bridge": "eval_files"}
+WAVE_AFTER = {"psp": "train_512", "giraffe_fixture": "giraffe_surface", "bridge": "eval_files",
+              "vae": "ddp_nccl"}
 STAGE_C_TOLERANCES = {"vae": (1e-4, 1e-3), "psp": (1e-4, 1e-3)}
 STAGE_C_STEPS = 5  # timed E steps per encoder (median after the first)
 STAGE_C_CUT_ITERS = 12  # --exit-after 1 cuts well before this (after step 0 so far)
@@ -3728,7 +3707,8 @@ STARTED: list = []
 def run_modules_together(jobs: dict, cwd: str) -> dict:
     """Run the jobs at once, each a list of ``(module, args)`` or ``(module,
     args, rc)`` run in turn as ``python -m sdface_gan_tpu_torch.<module>
-    <args>``; every command must exit ``rc`` (0 if not given; else the other
+    <args>`` (``python -m <module>`` for a ``torch.*`` module: the
+    launcher); every command must exit ``rc`` (0 if not given; else the other
     processes are killed and this raises).  Returns each job's last
     command's output, the job's seconds, and each command's own seconds and
     output."""
@@ -3748,10 +3728,10 @@ def run_modules_together(jobs: dict, cwd: str) -> dict:
         each, outs = [], []
         for module, args, *rc in commands:
             t_cmd = time.perf_counter()
+            target = module if module.startswith("torch.") else f"sdface_gan_tpu_torch.{module}"
             with lock:
-                proc = subprocess.Popen([sys.executable, "-m", f"sdface_gan_tpu_torch.{module}",
-                                         *args], cwd=cwd, env=env, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True)
+                proc = subprocess.Popen([sys.executable, "-m", target, *args], cwd=cwd, env=env,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 live.append(proc)
                 STARTED.append(proc)
             stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
@@ -3915,11 +3895,18 @@ def surface_probe(td: str) -> dict:
     kernel = dict(kernel=sk.kernel_name(torch.float32), batch=1, points=SURFACE_RES ** 3, ms=ms,
                   plain_ms=plain_ms,
                   **bound(flops, field_bytes(pack, 1, SURFACE_RES ** 3), PEAK_F32_FLOPS))
-    del args, pts, views, full, surf
+    # and at a rank's band of the ray-sharded probe over DDP_WORLD ranks
+    p_rank = SURFACE_RES ** 3 // DDP_WORLD
+    band = (pack, pts[:, :p_rank].contiguous(), views[:, :p_rank].contiguous(), gamma, beta)
+    per_rank = dict(points=p_rank, ms=cuda_ms(lambda: sk.siren_field_fused_parts(*band), iters=5),
+                    plain_ms=cuda_ms(lambda: sk.siren_field_reference(*band), iters=2, warmup=1),
+                    **bound(field_flops(DEPTH, WIDTH) * p_rank, field_bytes(pack, 1, p_rank),
+                            PEAK_F32_FLOPS))
+    del args, band, pts, views, full, surf
     torch.cuda.empty_cache()
     return dict(probe_surface_ms=probe_ms, align_volume_ms=align_ms,
                 align_max_abs_err=align_err, sdf_range=[sdf.min().item(), sdf.max().item()],
-                field_at_probe_shape=kernel)
+                field_at_probe_shape=kernel, field_at_rank_band=per_rank)
 
 
 def inception_checks() -> dict:
@@ -4647,6 +4634,257 @@ def train_512(results: dict, smi: str, td: str, cli: dict, parity: dict) -> None
     emit(phase="train_512", nvidia_smi=smi, **rec)
 
 
+# The ddp phase: data parallelism (sdface_gan_tpu_torch/parallel/) on one card.
+# NCCL refuses two ranks on one GPU, so the launcher's NCCL group runs at world
+# 1 (train_cli's wave) and the arithmetic that crosses ranks runs on two gloo
+# ranks sharing cuda:0 (beside stage C's wave).
+DDP_WORLD, DDP_BATCH = 2, 8
+DDP_TOL = (1e-4, 1e-3)  # train_parity's bars: loss rel, every gradient of its norm
+DDP_SAMPLER_TOL = 2e-3  # serve_compare's bar
+DDP_PROBE_TOL = 1e-5
+# The launcher's world of one against the run without it, by what the card
+# reproduces (plain reruns of train_cli's entry, scripts/torch_train_spread.py;
+# the readings in PERF.md section 6): every value through stage A's first
+# adversarial row, the first computed inside the data-parallel span (its metrics
+# through the group's all-reduce, its G half after an all-reduced D update),
+# reruns to a few ulp; stage A's later rows and stage B's first D loss, R1 and
+# real score (before stage B's first update, through the minibatch stddev's
+# gather, the fresh D on real images) to < 1e-4; the rest, from the generator
+# stage A trained, drifts: stage B's first fake score by up to 2e-4, and after
+# stage B's first update Adam's sign-like steps turn the card's run-to-run noise
+# into lr-sized moves of weights whose gradient is near 0, a few %.
+DDP_NCCL_TIERS = (1e-6, 1e-3, 0.25)
+DDP_NCCL_B_FIRST = ("d", "r1", "real_score")  # stage B's first row: the middle tier
+DDP_FREE_GB = 40.0  # the card memory the ranks and rank 0's one-rank run need
+DDP_WAIT_S = 60.0
+DDP_CASES = ("b_d", "b_g", "b_path", "a_d", "a_g", "vae_e")
+DDP_MASKED = ("b_d", "b_g", "b_path")  # the StyleGAN steps: masked_parity's leaky-ReLU rule
+
+
+def ddp_nccl_jobs(td: str) -> dict:
+    """train_cli's entry again as it ran (the card's own run-to-run spread),
+    then under ``python -m torch.distributed.run --nproc_per_node 1``: the
+    NCCL group at world 1; each its own experiment, one job for stage C's
+    wave (chained after ``--vae 1``, see ``WAVE_AFTER``)."""
+    cmds = []
+    for exp in ("smoke_ddp_plain", "smoke_ddp"):
+        with open(os.path.join(td, f"{exp}.yaml"), "w") as f:
+            f.write(f"inherit_from: {CLI_CONFIG}\ntraining:\n  out_dir: out/{exp}\n")
+        cmds.append(["--config", f"{exp}.yaml", "--sdf", "1", "--dataset_path", "store",
+                     "--iters", "3", *CLI_TRAIN_FLAGS])
+    return {"ddp_nccl": [("train", cmds[0]), ("torch.distributed.run", [
+        "--standalone", "--nproc_per_node", "1", "-m", "sdface_gan_tpu_torch.train", *cmds[1]])]}
+
+
+def _loss_rel_errs(td: str, exp: str) -> tuple:
+    """The largest relative difference of any logged loss of experiment
+    ``exp`` from train_cli's entry in each tier of ``DDP_NCCL_TIERS``: (0)
+    through stage A's first adversarial row, (1) stage A's later rows and
+    ``DDP_NCCL_B_FIRST`` of stage B's first row, (2) the rest of stage B;
+    each row's largest difference; and its stage medians."""
+    rows = {}
+    for e in (CLI_EXP, exp):
+        out = os.path.join(td, "out", e)
+        rows[e] = (_train_rows(os.path.join(out, "volume_renderer", "vol_render_metrics.jsonl")),
+                   _train_rows(os.path.join(out, "full_pipeline_metrics.jsonl")))
+    tiers, per_row = [0.0] * len(DDP_NCCL_TIERS), []
+    for stage, (got, want) in enumerate(zip(rows[exp], rows[CLI_EXP])):
+        check([r["step"] for r in got] == [r["step"] for r in want], f"{exp}: the steps logged")
+        adversarial_seen = False
+        for i, (g, w) in enumerate(zip(got, want)):
+            row = 0.0
+            for k, v in w.items():
+                if k in ("step", "time") or k.endswith("_ms"):
+                    continue
+                err = abs(g[k] - v) / max(abs(v), 1e-12)
+                tier = (int(adversarial_seen) if stage == 0
+                        else 1 if i == 0 and k in DDP_NCCL_B_FIRST else 2)
+                tiers[tier], row = max(tiers[tier], err), max(row, err)
+            adversarial_seen = adversarial_seen or "g" in w
+            per_row.append(dict(stage="AB"[stage], step=w["step"], max_rel_err=row))
+    return tiers, per_row, {"stage_a": _step_medians(rows[exp][0]),
+                            "stage_b": _step_medians(rows[exp][1])}
+
+
+def ddp_nccl_check(td: str, run: dict, smi: str) -> dict:
+    """The NCCL run's logged losses against the entry's at the same seed,
+    each tier within its bar of ``DDP_NCCL_TIERS``; the plain rerun's
+    distances reported beside (the card's own spread); its step ms beside
+    the entry's."""
+    check("data-parallel mesh: rank 0 of 1 on cuda:0 (nccl)" in run["stdouts"][1],
+          "the launcher's run formed an NCCL group at world 1")
+    plain, plain_rows, plain_ms = _loss_rel_errs(td, "smoke_ddp_plain")
+    nccl, nccl_rows, nccl_ms = _loss_rel_errs(td, "smoke_ddp")
+    check(all(e <= bar for e, bar in zip(nccl, DDP_NCCL_TIERS)),
+          f"NCCL world 1 vs no launcher: losses rel {nccl} by tier (<= {DDP_NCCL_TIERS}); "
+          f"the plain rerun's {plain}")
+    out = os.path.join(td, "out", CLI_EXP)
+    entry = {"stage_a": _step_medians(_train_rows(os.path.join(
+        out, "volume_renderer", "vol_render_metrics.jsonl"))),
+        "stage_b": _step_medians(_train_rows(os.path.join(out, "full_pipeline_metrics.jsonl")))}
+    rec = dict(rel_err_by_tier=nccl, bars=DDP_NCCL_TIERS, plain_rerun_rel_err_by_tier=plain,
+               rows=nccl_rows, plain_rerun_rows=plain_rows,
+               command_s=run["command_s"], step_ms=nccl_ms, plain_rerun_step_ms=plain_ms,
+               entry_step_ms=entry, card_shared_with="stage C's wave")
+    emit(phase="ddp_nccl", nvidia_smi=smi, **rec)
+    return rec
+
+
+def ddp_payload() -> dict:
+    """The card's 2-rank cases at global batch 8, seeded weights, live
+    generators: stage B's D (R1), G and path steps at the flagship's widths
+    (f32), stage A's D (R1) and G under ``_tpu`` (f32 here: the card against
+    itself), stage C's VAE E step at 256^2; the sampler (bf16, the fused
+    field) and the 128^3 surface probe (f32, rows split)."""
+    import torch
+
+    from sdface_gan_tpu_torch import configs, sdf_mesh
+    from sdface_gan_tpu_torch.encoder import VAEEncoderConfig
+    from sdface_gan_tpu_torch.geometry import generate_camera_params
+    from sdface_gan_tpu_torch.training.steps import StepInputs
+
+    gen = torch.Generator().manual_seed(90)
+    b = DDP_BATCH
+    gcfg_b = configs.ffhq_256_sdf(stage_a=False)
+    gcfg_a = configs.ffhq_256_sdf_tpu(stage_a=True)
+    hp_b = configs.train_hparams(batch=b)
+    hp_a = dataclasses.replace(configs.train_hparams(tpu=True, batch=b), g_param_dtype="float32")
+    vcfg, scfg = configs.discriminator_configs(256)
+    cams = generate_camera_params(RES, gen, batch=b, device="cpu")
+    z = lambda n=b: torch.randn((n, STYLE), generator=gen)  # noqa: E731
+    path = b // hp_b.path_batch_shrink
+    pcams = generate_camera_params(RES, gen, batch=path, device="cpu")
+    cases = {
+        "b_d": dict(kind="b_d", gcfg=gcfg_b, dcfg=scfg, hp=hp_b, g=91, d=92, gen_seed=93,
+                    inputs=StepInputs(z(), cams, z(), 4),
+                    real=torch.rand((b, 256, 256, 3), generator=gen) * 2 - 1),
+        "b_g": dict(kind="b_g", gcfg=gcfg_b, dcfg=scfg, hp=hp_b, g=91, d=92, gen_seed=94,
+                    inputs=StepInputs(z(), cams, z(), 4)),
+        "b_path": dict(kind="b_path", gcfg=gcfg_b, dcfg=scfg, hp=hp_b, g=91, d=92, gen_seed=95,
+                       inputs=StepInputs(z(path), pcams, z(path), 4),
+                       mean_path_length=torch.tensor(0.5)),
+        "a_d": dict(kind="a_d", gcfg=gcfg_a, dcfg=vcfg, hp=hp_a, g=96, d=97, gen_seed=98,
+                    inputs=StepInputs(z(), cams),
+                    real=torch.rand((b, RES, RES, 3), generator=gen) * 2 - 1),
+        "a_g": dict(kind="a_g", gcfg=gcfg_a, dcfg=vcfg, hp=hp_a, g=96, d=97, gen_seed=99,
+                    inputs=StepInputs(z(), cams)),
+        "vae_e": dict(kind="vae_e", gcfg=gcfg_b, g=91, e=100, gen_seed=101,
+                      ecfg=VAEEncoderConfig(img_size=CLI_SIZE, z_size=STYLE),
+                      inputs=encoder_inputs(gen, b, cams)),
+    }
+    _, surf_cfg = sdf_mesh.mesh_configs(gcfg_b, SURFACE_RES)
+    front = generate_camera_params(SURFACE_RES, batch=1, locations=torch.zeros((1, 2)))
+    style = torch.randn((1, STYLE), generator=gen)
+    return dict(device="cuda:0", cases=cases, allreduce_case="b_d", masked=DDP_MASKED,
+                samplers=[dict(gcfg=gcfg_b, g=91, batch=b, dtype="bfloat16",
+                               sample=dict(seed=7), profile=True)],
+                rays=dict(gcfg=surf_cfg, g=91, fused=True, profile=True,
+                          args=[front.focal, front.extrinsics, front.near, front.far, style]))
+
+
+def encoder_inputs(gen, b: int, cams):
+    """A VAE E step's images (256^2) and thumbs in [-1, 1] from ``gen``."""
+    import torch
+
+    from sdface_gan_tpu_torch.training.encoder_loop import EncoderInputs
+
+    return EncoderInputs(torch.rand((b, CLI_SIZE, CLI_SIZE, 3), generator=gen) * 2 - 1,
+                         torch.rand((b, RES, RES, 3), generator=gen) * 2 - 1, cams)
+
+
+def ddp(results: dict, smi: str) -> dict:
+    """Two gloo ranks sharing cuda:0 (``tests/torch_parallel_ranks.py``'s card
+    job), beside train_cli's wave once the card has ``DDP_FREE_GB`` free: each
+    case's step over the ranks against rank 0's one-rank step at the same
+    global batch (f32, TF32 off; train_parity's bars, the StyleGAN steps under
+    ``masked_parity``'s rule with the ranks' masks replayed), the parameters
+    after an Adam step bit-equal across the ranks; the sampler's gathered images
+    against the one-rank sampler (2e-3) with ``siren_field_mma_kernel<256>``
+    in rank 0's profile and no plain field; the ray-sharded probe's sdf
+    against the one-rank probe (1e-5) through ``siren_field_f32_kernel<256>``;
+    the steps' ms (the card shared) and the all-reduce's ms and bytes."""
+    import torch
+
+    from sdface_gan_tpu_torch.ops import siren_kernel as sk
+
+    import torch_parallel_ranks as ranks
+
+    t0 = time.perf_counter()
+    waited = 0.0
+    while torch.cuda.mem_get_info()[0] / 1e9 < DDP_FREE_GB and waited < DDP_WAIT_S:
+        time.sleep(1.0)
+        waited = time.perf_counter() - t0
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    res = ranks.spawn("card", DDP_WORLD, ddp_payload(), timeout=CLI_TIMEOUT_S, threads=2)
+    one = res[0]["one"]
+    cases, failed = {}, []
+    for name in DDP_CASES:
+        rk = [r["cases"][name] for r in res]
+        ref, flips, held = one["cases"][name], None, "own"
+        if name in DDP_MASKED:  # held with rank 0's own masks unless a unit flipped
+            replayed = res[0]["one_replayed"][name]
+            flips = replayed["flips"]
+            check(replayed["unreplayed"] == 0 and 0 < flips["units"]
+                  and flips["flipped"] <= 1e-5 * flips["units"],
+                  f"ddp {name}: every mask of the ranks replayed, {flips} flipped")
+            if flips["flipped"]:
+                ref, held = replayed, "replayed"
+        check(all(torch.equal(r["params"][k], rk[0]["params"][k]) for r in rk[1:]
+                  for k in rk[0]["params"]), f"ddp {name}: parameters bit-equal across ranks")
+        check(all(torch.equal(r["grads"][k], rk[0]["grads"][k]) for r in rk[1:]
+                  for k in rk[0]["grads"]), f"ddp {name}: the same reduced gradients")
+        metrics = {k: statistics.mean(r["metrics"][k] for r in rk) for k in ref["metrics"]}
+        loss_err = max(abs(metrics[k] - v) / max(abs(v), 1e-12)
+                       for k, v in ref["metrics"].items())
+        diffs = {k: ((rk[0]["grads"][k] - g).norm().item(), g.norm().item())
+                 for k, g in ref["grads"].items()}
+        errs = {k: d / (n + 1e-30) for k, (d, n) in diffs.items()}
+        worst = max(errs, key=errs.get)
+        if not (loss_err <= DDP_TOL[0] and errs[worst] <= DDP_TOL[1]):  # every case first
+            failed.append(f"ddp {name}: metrics rel {loss_err}, gradient {worst} {errs[worst]} "
+                          f"(||diff|| {diffs[worst][0]}, ||g|| {diffs[worst][1]})")
+        cases[name] = dict(held_with=held, leaky_relu_flips=flips,
+                           metrics_max_rel_err=loss_err, worst_param=worst,
+                           worst_grad_rel_err=errs[worst], grad_norm=diffs[worst][1],
+                           step_ms=[r["step_ms"] for r in rk], one_rank_step_ms=ref["step_ms"])
+        emit(phase="ddp_case", case=name, **cases[name])
+    check(not failed, "; ".join(failed))
+    img, img1 = res[0]["serving"]["images0"], one["serving"]["images0"]
+    sampler_err = (img - img1).abs().max().item()
+    check(all(torch.equal(r["serving"]["images0"], img) for r in res[1:]),
+          "ddp sampler: every rank holds the gathered batch")
+    check(tuple(img.shape) == (DDP_BATCH, 256, 256, 3) and bool(torch.isfinite(img).all())
+          and sampler_err <= DDP_SAMPLER_TOL,
+          f"ddp sampler: max abs {sampler_err} <= {DDP_SAMPLER_TOL}")
+    sdf, sdf1 = res[0]["serving"]["rays"]["sdf"], one["serving"]["rays"]["sdf"]
+    probe_err = (sdf - sdf1).abs().max().item()
+    check(tuple(sdf.shape) == (1,) + (SURFACE_RES,) * 3 + (1,) and probe_err <= DDP_PROBE_TOL,
+          f"ddp probe: max abs {probe_err} <= {DDP_PROBE_TOL}")
+    names = res[0]["serving"]["kernels"]
+    for dtype in (torch.bfloat16, torch.float32):
+        check(any(sk.kernel_name(dtype) in n for n in names),
+              f"ddp: {sk.kernel_name(dtype)} in rank 0's profile")
+    check(all(r["plain_field_calls"] == 0 for r in res), "ddp: no plain field on the card")
+    launches = {"sampler": sum(r["serving"]["launches0"]["siren_field"] for r in res),
+                "probe": sum(r["serving"]["rays_launches"]["siren_field"] for r in res)}
+    check(all(r["serving"]["launches0"]["siren_field"] > 0
+              and r["serving"]["rays_launches"]["siren_field"] > 0 for r in res),
+          "ddp: every rank launched the field kernel in the sampler and the probe")
+    rec = dict(world=DDP_WORLD, batch=DDP_BATCH, backend="gloo", device="cuda:0",
+               free_gb_at_start=free_gb, waited_s=waited, cases=cases,
+               sampler_max_abs_err=sampler_err, probe_max_abs_err=probe_err,
+               probe_points_per_rank=SURFACE_RES ** 3 // DDP_WORLD,
+               kernels=[n[:90] for n in names if "siren_field" in n],
+               launches=launches,
+               allreduce=[r["allreduce"] for r in res],
+               peak_gb_per_rank=[r["peak_gb"] for r in res],
+               card_shared_with="train_cli's wave and evaluate's untimed evals",
+               seconds=time.perf_counter() - t0)
+    results["ddp"] = rec
+    emit(phase="ddp", nvidia_smi=smi, **rec)
+    return rec
+
+
 def build_kernels() -> None:
     """Every CUDA source of the served paths, one nvcc each, started together;
     ptxas's registers and spills."""
@@ -4703,7 +4941,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "sdface_gan_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 3
-    sys.path.insert(0, HERE)
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]  # the port; the checks' shared helpers
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)  # inference by default; training enables it
@@ -4776,15 +5014,24 @@ def main() -> int:
                                                               "hash_kernel_device_ms",
                                                               "device_ms_total", "host_ms")}
                              for s, p in results["train_ngp"]["profile"].items()})
+            def beside_train_cli():
+                """evaluate's untimed evals here and the ddp ranks on a thread,
+                beside train_cli's wave (stage C's has no card memory to spare)"""
+                card = Background(lambda: ddp(results, smi))
+                out = evaluate_beside(td)
+                card.result()
+                return out
+
             first, evaluated = timed("train_cli", train_cli, results, smi, td, prepared,
-                                     lambda: evaluate_beside(td))
+                                     beside_train_cli)
             timed("evaluate", evaluate, results, smi, td, first, evaluated)
             # the script's wave of untimed work, run beside stage C's parity
             extra = {**train_cli_cut_jobs(td), **evaluate_files_jobs(), **bridge_jobs(td),
-                     **giraffe_jobs(td), **train_512_jobs()}
+                     **giraffe_jobs(td), **train_512_jobs(), **ddp_nccl_jobs(td)}
             wave = timed("train_stage_c", train_stage_c, results, smi, td, extra,
                          {"train_512_parity": train_512_parity})
             results["train_cli"]["flow"] = train_cli_flow(td, wave["cli_cut"])
+            results["ddp_nccl"] = ddp_nccl_check(td, wave["ddp_nccl"], smi)
             evaluate_files(results, wave["eval_files"])
             timed("bridge_and_images", bridge_and_images, results, smi, td, wave)
             timed("giraffe", giraffe, results, smi, td, wave)
@@ -4802,6 +5049,7 @@ def main() -> int:
     bf16, f32 = timing["bfloat16"], timing["float32"]
     gather, encode = ngp_timing["table_gather"], ngp_timing["hash_encode"]
     probe_shape = results["evaluate"]["checks"]["surface"]["field_at_probe_shape"]
+    rank_band = results["evaluate"]["checks"]["surface"]["field_at_rank_band"]
     ngp_eval = results["evaluate"]["eval"]["ngp"]["launches"]
     benched = results["bench"]["launches"]
     bridged = results["bridge_and_images"]["launches"]
@@ -4815,7 +5063,8 @@ def main() -> int:
              + results["evaluate"]["eval"]["no_dump"]["bfloat16"]["launches"]
              + benched["siren_field"] + bridged["siren_field"]
              + results["serve_512"]["launches"]["siren_field"]
-             + results["bench_512"]["launches"]["siren_field"], checked=True,
+             + results["bench_512"]["launches"]["siren_field"]
+             + results["ddp"]["launches"]["sampler"], checked=True,
              max_abs_err=checks[0]["bf16_max_abs_kernel_vs_plain"],
              f32_max_abs_err=checks[0]["f32_max_abs_err"],
              ms=bf16["ms"], plain_ms=bf16["plain_ms"], bound_ms=bf16["bound_ms"],
@@ -4827,12 +5076,14 @@ def main() -> int:
              launches=results["f32_launches"]["siren_field"]
              + results["evaluate"]["eval"]["dump"]["launches"]
              + results["evaluate"]["eval"]["no_dump"]["float32"]["launches"]
-             + bridged["siren_field_f32"], checked=True,
+             + bridged["siren_field_f32"] + results["ddp"]["launches"]["probe"], checked=True,
              max_abs_err=max(r["f32_max_abs_err"] for r in checks + f32_checks),
              ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
              bound_by=f32["bound_by"], library_ms=None,
              probe_shape={k: probe_shape[k] for k in ("batch", "points", "ms", "plain_ms",
-                                                      "bound_ms", "bound_by")}),
+                                                      "bound_ms", "bound_by")},
+             probe_rank_band={k: rank_band[k] for k in ("points", "ms", "plain_ms", "bound_ms",
+                                                        "bound_by")}),
         dict(name="table_gather", route="cuda",
              source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
              replaces="scripts/bench_packed_gather.py:128",

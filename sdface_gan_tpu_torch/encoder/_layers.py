@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from ..models.init import uniform
+from ..parallel.mesh import active, all_reduce_sum
 
 BN_EPS = 1e-5
 
@@ -44,7 +45,11 @@ class BatchStatNorm(nn.Module):
     ``_batch_norm``); an affine ``weight`` / ``bias``, no running buffers.
     Written out rather than ``F.batch_norm``, which refuses a batch of one
     (the reconstruction pass encodes one identity at a time; its fc
-    statistics are then those of one sample, as in the JAX encoder)."""
+    statistics are then those of one sample, as in the JAX encoder).
+    The statistics are sums over the batch divided by its size; inside a
+    data-parallel step they are the global batch's, as in JAX's global
+    program: each rank's sums, then those of the squared deviations, summed
+    over the ranks (differentiably)."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -54,8 +59,10 @@ class BatchStatNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dims = (0,) + tuple(range(2, x.ndim))
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mean = x.mean(dim=dims, keepdim=True)
-        var = ((x - mean) ** 2).mean(dim=dims, keepdim=True)
+        mesh = active()
+        n = x.numel() // x.shape[1] * (mesh.world if mesh else 1)
+        mean = all_reduce_sum(x.sum(dim=dims, keepdim=True)) / n
+        var = all_reduce_sum(((x - mean) ** 2).sum(dim=dims, keepdim=True)) / n
         return ((x - mean) * torch.rsqrt(var + BN_EPS) * self.weight.view(shape)
                 + self.bias.view(shape))
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.init import uniform
+from ..parallel.mesh import batch_draw
 from ._layers import BatchStatNorm, uniform_conv, uniform_linear
 
 
@@ -138,7 +139,7 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
     """z = mu + eps * std (reference ``training_utils.py:1016-1017``); ``eps``
     is given, or drawn N(0, 1) from ``generator`` on ``mu``'s device."""
     if eps is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device, dtype=mu.dtype)
+        eps = batch_draw(torch.randn, mu.shape, generator, mu.device, mu.dtype)
     return mu + torch.exp(0.5 * logvar) * eps
 
 

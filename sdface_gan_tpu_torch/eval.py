@@ -16,7 +16,11 @@ feeds each generated batch straight into the Inception on the card; only
 The SIREN field runs through the port's fused kernel (``siren_field_f32_kernel``
 with ``--g_dtype float32``, ``siren_field_mma_kernel`` with ``bfloat16``),
 the NGP field through ``hash_encode`` and ``table_gather``.  TF32 is off.
-One card: the JAX version's data-parallel sampling is not ported.
+Under the launcher (``python -m torch.distributed.run``) sampling is
+data-parallel, as the JAX version's mesh: each global batch (the world must
+divide ``--batch``) is drawn whole and split over the ranks, each rank
+renders and scores its rows, the images and Inception activations are
+gathered, and rank 0 dumps the PNGs and scores FID and KID once.
 Without weights (``--inception_weights``) the Inception is a random init,
 so its FID is not comparable with published ones.
 """
@@ -85,9 +89,20 @@ def sample_images(model, gcfg, z, cams, generator: Optional[torch.Generator] = N
 def main(argv=None) -> dict:
     """Run the protocol; returns what it measured (``n_images``,
     ``seconds``, ``seconds_first_batch``, and ``fid`` / ``kid_mean`` /
-    ``kid_std`` where scored)."""
+    ``kid_std`` where scored; rank 0's, over several ranks)."""
     args = parse_args(argv)
 
+    from .parallel import close, make_mesh
+    from .utils.device import resolve_device
+
+    mesh = make_mesh(resolve_device(args.device))
+    try:
+        return _evaluate(args, mesh)
+    finally:
+        close(mesh)
+
+
+def _evaluate(args, mesh) -> dict:
     import numpy as np
 
     from .config import load_config
@@ -97,11 +112,14 @@ def main(argv=None) -> dict:
     from .geometry import generate_camera_params
     from .models.generator import pack_generator_for_inference
     from .ops.siren_kernel import pack_siren_field
+    from .parallel import gather_rows, over, shard_batch
     from .utils.checkpoints import load_generator
-    from .utils.device import disable_tf32, resolve_device
+    from .utils.device import disable_tf32
     from .utils.images import to_uint8, write_png
 
-    device = resolve_device(args.device)
+    device = mesh.device
+    if args.batch % mesh.world:
+        raise ValueError(f"batch {args.batch} must divide the {mesh.world}-rank world")
     disable_tf32()
     cfg = load_config(args.config, default_config_path())
     expname = cfg["training"]["out_dir"].split("/")[1]
@@ -164,15 +182,23 @@ def main(argv=None) -> dict:
             with torch.inference_mode():
                 z = torch.randn((args.batch, gcfg.style_dim), generator=gen, device=device)
                 cams = generate_camera_params(res, gen, batch=args.batch, device=device)
-                imgs = sample_images(model, gcfg, z, cams, generator=gen,
-                                     field_pack=field_pack)[:b]
-                out = inc(imgs).cpu().numpy() if score_on_device else imgs
-            if not score_on_device:
-                if not args.no_dump:  # honor --no_dump on the --no_fid path too
+                z, cams = shard_batch((z, cams), mesh)
+                with over(mesh):
+                    imgs = sample_images(model, gcfg, z, cams, generator=gen,
+                                         field_pack=field_pack)
+                if mesh.distributed:  # each rank scores its rows; both are gathered
+                    out = (gather_rows(inc(imgs), mesh)[:b].cpu().numpy() if score_on_device
+                           else None)
+                    imgs = gather_rows(imgs, mesh)[:b]
+                else:
+                    imgs = imgs[:b]
+                    out = inc(imgs).cpu().numpy() if score_on_device else imgs
+            if not args.no_dump and (not score_on_device or mesh.distributed):
+                if mesh.is_main:  # honor --no_dump on the --no_fid path too
                     for i, img in enumerate(to_uint8(imgs.cpu().numpy())):
                         write_png(os.path.join(eval_dir, f"{n_done + i:07d}.png"), img)
-                elif device.type == "cuda":
-                    torch.cuda.synchronize(device)
+            elif not score_on_device and device.type == "cuda":
+                torch.cuda.synchronize(device)
             n_done += b
             stats["n_images"], stats["seconds"] = n_done, time.perf_counter() - t0
             if n_done == b:
@@ -194,8 +220,10 @@ def main(argv=None) -> dict:
         load_stats_npz,
     )
 
-    if args.no_dump:
+    if args.no_dump or mesh.distributed:
         fake_acts = np.concatenate(list(generated_batches(True)), axis=0)
+        if not mesh.is_main:
+            return stats
         print(f"scored {stats['n_images']} images in {stats['seconds']:.1f}s "
               f"({stats['seconds'] / max(stats['n_images'], 1):.3f} s/image, "
               f"generation + inception on the card, no image dump)")

@@ -14,6 +14,15 @@ d_opt, it, fid_best}, ``model_{it:07d}`` {g, d, g_ema, it}, ``model_best``
 {g, d, g_ema, it, fid_best} when the FID improves, and with ``--vae 1``
 ``encoder`` {e, e_opt}.  After a resume the draws restart from the seed, as
 JAX's key does.
+
+Over a data-parallel ``mesh`` (default: the launcher's world), as JAX's loop
+runs over its device mesh (``train_loop.py:136-169``): the modules and
+optimizer states are replicated from rank 0, every rank reads the same
+global batch and draws at the global batch (the one CPU generator, seeded
+alike) and takes its rows, and the steps reduce their gradients over the
+ranks.  Rank 0 alone writes checkpoints, grids and metrics (averaged over
+the ranks) and scores FID, then hands its generator state to the others
+(FID draws from it); the ``--exit-after`` cut is rank 0's, broadcast.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import torch
 
 from ..data.images import ImagesDataset, ImagesLoader
 from ..encoder.vae import VAEEncoder
+from ..parallel.mesh import Mesh, barrier, broadcast_generator, decide, replicate, shard_batch
+from ..training.loop import log_metrics, training_mesh
 from ..training.optim import encoder_optimizer, giraffe_optimizers
 from ..utils.checkpoints import CheckpointIO, GiraffeRunConfigs
 from ..utils.images import save_image_grid
@@ -135,17 +146,19 @@ def giraffe_models(configs: GiraffeRunConfigs, generator: torch.Generator, devic
     return g, d, copy.deepcopy(g), g_opt, d_opt, e, e_opt
 
 
-def train_giraffe(args: Any, cfg: Any, device: torch.device) -> None:
+def train_giraffe(args: Any, cfg: Any, device: torch.device,
+                  mesh: Optional[Mesh] = None) -> None:
     """Train GIRAFFE from a loaded yaml and the train entry's flags
     (``--seed``, ``--exit-after``, ``--vae`` and the model flags) on
-    ``device``."""
+    ``device``, over ``mesh`` (default: the launcher's world)."""
     configs = giraffe_run_configs(cfg, args)
     gcfg, hp = configs.generator, configs.hp
+    mesh = training_mesh(hp.batch_size, mesh, device)
     tr = cfg["training"]
     out_dir = tr.get("out_dir", "out/giraffe")
     print_every = tr.get("print_every", 10)
     loader = iter(images_loader(cfg, hp.batch_size, args.seed))  # no image: nothing written
-    logger = MetricsLogger(out_dir, "giraffe", print_every=print_every)
+    logger = MetricsLogger(out_dir, "giraffe", print_every=print_every) if mesh.is_main else None
 
     gen = torch.Generator().manual_seed(args.seed)
     g, d, g_ema, g_opt, d_opt, e, e_opt = giraffe_models(configs, gen, device,
@@ -166,47 +179,57 @@ def train_giraffe(args: Any, cfg: Any, device: torch.device) -> None:
         e.load_state_dict(est["e"])
         e_opt.load_state_dict(est["e_opt"])
         print("resumed VAE encoder", flush=True)
+    replicate([g, d, g_ema, g_opt, d_opt, e, e_opt], mesh)
 
     def save_model():
-        ckpt.save("model", g=g.state_dict(), d=d.state_dict(), g_ema=g_ema.state_dict(),
-                  g_opt=g_opt.state_dict(), d_opt=d_opt.state_dict(), it=it, fid_best=fid_best)
-        if e is not None:
-            ckpt.save("encoder", e=e.state_dict(), e_opt=e_opt.state_dict())
+        if mesh.is_main:
+            ckpt.save("model", g=g.state_dict(), d=d.state_dict(), g_ema=g_ema.state_dict(),
+                      g_opt=g_opt.state_dict(), d_opt=d_opt.state_dict(), it=it,
+                      fid_best=fid_best)
+            if e is not None:
+                ckpt.save("encoder", e=e.state_dict(), e_opt=e_opt.state_dict())
+        barrier(mesh)
 
     max_it = tr.get("max_it", 1000000)
     exit_after = getattr(args, "exit_after", -1)
     t0 = time.time()
     while it < max_it:
         it += 1
-        x_real = torch.from_numpy(next(loader)).to(device)
-        dm = giraffe_d_step(g, d, d_opt, gcfg, hp, x_real,
-                            sample_scene_draws(gen, gcfg, hp.batch_size, device))
-        gm = giraffe_g_step(g, d, g_opt, g_ema, gcfg, hp,
-                            sample_scene_draws(gen, gcfg, hp.batch_size, device))
+        x_real = shard_batch(torch.from_numpy(next(loader)).to(device), mesh)
+        dm = giraffe_d_step(g, d, d_opt, gcfg, hp, x_real, shard_batch(
+            sample_scene_draws(gen, gcfg, hp.batch_size, device), mesh), mesh)
+        gm = giraffe_g_step(g, d, g_opt, g_ema, gcfg, hp, shard_batch(
+            sample_scene_draws(gen, gcfg, hp.batch_size, device), mesh), mesh)
         if e is not None:
-            gm.update(giraffe_e_step(e, g, d, e_opt, gcfg, x_real,
-                                     sample_encoder_draws(gen, gcfg, hp.batch_size, device)))
+            gm.update(giraffe_e_step(e, g, d, e_opt, gcfg, x_real, shard_batch(
+                sample_encoder_draws(gen, gcfg, hp.batch_size, device), mesh), mesh))
 
         if it % print_every == 0:
-            logger.log(it, {**dm, **gm})
-        if it % tr.get("visualize_every", 1000) == 0:
+            log_metrics(logger, it, {**dm, **gm}, mesh)
+        if it % tr.get("visualize_every", 1000) == 0 and mesh.is_main:
             visualize(g_ema, gcfg, os.path.join(out_dir, f"vis_{it:07d}.png"))
         if it % tr.get("checkpoint_every", 500) == 0:
             save_model()
         if it % tr.get("backup_every", 1000000) == 0:
-            ckpt.save(f"model_{it:07d}", g=g.state_dict(), d=d.state_dict(),
-                      g_ema=g_ema.state_dict(), it=it)
+            if mesh.is_main:
+                ckpt.save(f"model_{it:07d}", g=g.state_dict(), d=d.state_dict(),
+                          g_ema=g_ema.state_dict(), it=it)
+            barrier(mesh)
         if it % tr.get("validate_every", 10000) == 0:
-            fid = evaluate_fid(g_ema, gcfg, tr.get("n_eval_images", 10000), hp.batch_size,
-                               cfg["data"].get("fid_file"), gen)
+            # rank 0 alone scores (under the group's timeout), then every rank
+            # takes its generator, which the FID draws advanced
+            fid = (evaluate_fid(g_ema, gcfg, tr.get("n_eval_images", 10000), hp.batch_size,
+                                cfg["data"].get("fid_file"), gen) if mesh.is_main else None)
             if fid is not None:
                 logger.log(it, {"fid_score": fid})
                 if fid < fid_best:
                     fid_best = fid
                     ckpt.save("model_best", g=g.state_dict(), d=d.state_dict(),
                               g_ema=g_ema.state_dict(), it=it, fid_best=fid_best)
-        if exit_after and exit_after > 0 and time.time() - t0 > exit_after:
+            broadcast_generator(gen, mesh)
+        if exit_after and exit_after > 0 and decide(time.time() - t0 > exit_after, mesh):
             save_model()
             print("time budget reached; checkpoint saved", flush=True)
             raise SystemExit(3)
-    logger.close()
+    if logger is not None:
+        logger.close()

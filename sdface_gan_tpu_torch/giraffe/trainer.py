@@ -13,6 +13,13 @@ gradients are taken with ``torch.autograd.grad`` over the module's own
 parameters, so no ``.grad`` of another module is filled.  On the card the
 hash decoders' table gradient (G step only) runs the hand-written kernel
 ``hash_encode_backward``; the D and E steps launch none.
+
+Over a data-parallel ``mesh`` each step takes the rank's rows of the reals
+and of the draws (made at the global batch), runs inside ``over(mesh)`` (the
+VAE's batch statistics then take the global batch) and reduces its
+gradients over the ranks: averaged for the D and G losses (batch means),
+summed for the E loss (a sum over the batch), as JAX's global program
+differentiates them.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..encoder.vae import VAEEncoder, VAEEncoderConfig, reparameterize
+from ..parallel.mesh import Mesh, all_reduce_grads, over
 from ..training.ema import accumulate
 from .bbox import Transforms, sample_transformations
 from .discriminator import DCDiscriminator
@@ -82,11 +90,12 @@ def frozen(*modules: nn.Module) -> Iterator[None]:
             p.requires_grad_(True)
 
 
-def update(opt: torch.optim.Optimizer, module: nn.Module, loss: torch.Tensor) -> None:
+def update(opt: torch.optim.Optimizer, module: nn.Module, loss: torch.Tensor,
+           mesh: Optional[Mesh] = None, op: str = "mean") -> None:
     """One step of ``opt`` on the gradient of ``loss`` over ``module``'s own
-    parameters."""
+    parameters, reduced over the ranks of ``mesh`` by ``op``."""
     params = [p for p in module.parameters() if p.requires_grad]
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+    for p, g in zip(params, all_reduce_grads(torch.autograd.grad(loss, params), mesh, op)):
         p.grad = g
     opt.step()
     for p in params:
@@ -201,25 +210,32 @@ def giraffe_e_loss(e: VAEEncoder, g: GiraffeGenerator, d: DCDiscriminator, cfg: 
 
 # ------------------------------------------------------------- the steps
 def giraffe_d_step(g, d, d_opt, cfg: GiraffeConfig, hp: GiraffeTrainHParams,
-                   x_real: torch.Tensor, draws: GiraffeDraws) -> Metrics:
-    loss, metrics = giraffe_d_loss(g, d, cfg, hp, x_real, draws)
-    update(d_opt, d, loss)
+                   x_real: torch.Tensor, draws: GiraffeDraws,
+                   mesh: Optional[Mesh] = None) -> Metrics:
+    with over(mesh):
+        loss, metrics = giraffe_d_loss(g, d, cfg, hp, x_real, draws)
+        update(d_opt, d, loss, mesh)
     return detached(metrics)
 
 
 def giraffe_g_step(g, d, g_opt, g_ema, cfg: GiraffeConfig, hp: GiraffeTrainHParams,
-                   draws: GiraffeDraws) -> Metrics:
+                   draws: GiraffeDraws, mesh: Optional[Mesh] = None) -> Metrics:
     """The G update, then ``g_ema <- beta * g_ema + (1 - beta) * g``."""
-    with frozen(d):
+    with frozen(d), over(mesh):
         loss, metrics = giraffe_g_loss(g, d, cfg, draws)
-        update(g_opt, g, loss)
+        update(g_opt, g, loss, mesh)
     accumulate(g_ema, g, hp.ema_beta)
     return detached(metrics)
 
 
 def giraffe_e_step(e, g, d, e_opt, cfg: GiraffeConfig, x_real: torch.Tensor,
-                   draws: EncoderDraws) -> Metrics:
-    with frozen(g, d):
+                   draws: EncoderDraws, mesh: Optional[Mesh] = None) -> Metrics:
+    """The E update.  Its metrics are sums over the batch: over a mesh each
+    rank's is scaled by the world, so that their mean over the ranks (the
+    loops' logging) is the global sum."""
+    with frozen(g, d), over(mesh):
         loss, metrics = giraffe_e_loss(e, g, d, cfg, x_real, draws)
-        update(e_opt, e, loss)
+        update(e_opt, e, loss, mesh, op="sum")
+    if mesh is not None and mesh.distributed:
+        metrics = {k: v * mesh.world for k, v in metrics.items()}
     return detached(metrics)

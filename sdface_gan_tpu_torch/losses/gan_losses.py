@@ -13,6 +13,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import batch_draw, global_mean
+
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
     """torch ``F.smooth_l1_loss`` (mean reduction), written out as the JAX one is."""
@@ -80,10 +82,12 @@ def g_path_regularize(
         img = img_fn(latents)
         if noise is None:
             h, w = img.shape[1], img.shape[2]
-            noise = torch.randn(img.shape, generator=generator, device=img.device,
-                                dtype=img.dtype) / math.sqrt(h * w)
+            noise = batch_draw(torch.randn, img.shape, generator, img.device,
+                               img.dtype) / math.sqrt(h * w)
         (grad,) = torch.autograd.grad(torch.sum(img * noise), latents, create_graph=True)
     path_lengths = torch.sqrt(torch.mean(torch.sum(grad**2, dim=2), dim=1))
-    path_mean = (mean_path_length + decay * (torch.mean(path_lengths) - mean_path_length)).detach()
+    # the mean over the global batch (inside a data-parallel step, every rank's)
+    batch_mean = global_mean(torch.mean(path_lengths))
+    path_mean = (mean_path_length + decay * (batch_mean - mean_path_length)).detach()
     penalty = torch.mean((path_lengths - path_mean) ** 2)
     return penalty, path_mean, path_lengths

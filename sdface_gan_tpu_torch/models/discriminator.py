@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.fused_act import fused_leaky_relu
 from ..ops.upfirdn2d import blur
+from ..parallel.mesh import active, all_gather_batch
 from .init import uniform
 from .stylegan2 import BLUR_KERNEL, EqualConv2d, EqualLinear, channel_table
 
@@ -197,7 +198,13 @@ class StyleDiscBlock(nn.Module):
 def minibatch_stddev(x: torch.Tensor, group_size: int = 4, feat: int = 1) -> torch.Tensor:
     """Append the group-averaged stddev channel to [B, C, H, W].  The group
     is the largest divisor of the batch up to ``group_size``, as in the JAX
-    package (any batch size works; group 1 gives a zero-ish channel)."""
+    package (any batch size works; group 1 gives a zero-ish channel).
+    Inside a data-parallel step the groups are strided over the global
+    batch, as in JAX's global program: the activations of every rank are
+    gathered (differentiably, for R1's double backward) and the rank keeps
+    its rows of the channel."""
+    mesh = active()
+    local, x = x, all_gather_batch(x)
     b, c, h, w = x.shape
     group = min(b, group_size)
     while b % group:
@@ -206,7 +213,9 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4, feat: int = 1) -> tor
     stddev = torch.sqrt(torch.var(g, dim=0, correction=0) + 1e-8)
     stddev = torch.mean(stddev, dim=(2, 3, 4))  # [b/group, feat]
     stddev = stddev.reshape(b // group, feat, 1, 1).repeat(group, 1, h, w)
-    return torch.cat([x, stddev], dim=1)
+    if mesh is not None:
+        stddev = stddev[mesh.rows(b)]
+    return torch.cat([local, stddev], dim=1)
 
 
 class StyleDiscriminator(nn.Module):

@@ -34,6 +34,7 @@ from ..ops.siren_kernel import (
     siren_field_fused_parts,
 )
 from ..ops.hash_encoder import HashGridSpec
+from ..parallel.mesh import batch_draw
 from ..utils.functional import call_with
 from .siren import (
     FCConfig,
@@ -209,13 +210,12 @@ def _sample_z_vals(
     if cfg.offset_sampling:
         upper = torch.cat([z_vals[..., 1:], far.expand(z_vals[..., :1].shape)], -1)
         lower = z_vals
-        t_rand = torch.rand((batch, res, res), generator=generator,
-                            device=near.device)[..., None]
+        t_rand = batch_draw(torch.rand, (batch, res, res), generator, near.device)[..., None]
     else:
         mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         upper = torch.cat([mids, z_vals[..., -1:]], -1)
         lower = torch.cat([z_vals[..., :1], mids], -1)
-        t_rand = torch.rand(z_vals.shape, generator=generator, device=near.device)
+        t_rand = batch_draw(torch.rand, z_vals.shape, generator, near.device)
     return lower + (upper - lower) * t_rand
 
 
@@ -265,8 +265,8 @@ def _integrate(
     else:
         noise = 0.0
         if cfg.raw_noise_std > 0.0 and generator is not None:
-            noise = cfg.raw_noise_std * torch.randn(
-                sdf_s.shape, generator=generator, device=sdf_s.device)
+            noise = cfg.raw_noise_std * batch_draw(torch.randn, sdf_s.shape, generator,
+                                                   sdf_s.device)
         alpha = 1.0 - torch.exp(-F.softplus(sdf_s + noise) * dists)
 
     trans = torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], -1)
@@ -336,8 +336,8 @@ def _subsampled_eikonal(
     z-normalization inside, as for the full eikonal term."""
     m, batch = cfg.eikonal_subsample, c2w.shape[0]
     if draws is None:
-        draws = (torch.rand((batch, m, 2), generator=generator, device=c2w.device),
-                 torch.rand((batch, m), generator=generator, device=c2w.device))
+        draws = (batch_draw(torch.rand, (batch, m, 2), generator, c2w.device),
+                 batch_draw(torch.rand, (batch, m), generator, c2w.device))
     pts_e = frustum_points(cfg.out_im_res, focal, c2w, near_b, far_b, *draws)
     scale = (2.0 / (far_b - near_b)).reshape(batch, 1, 1)
     views0 = torch.zeros_like(pts_e)[:, None, None]
@@ -446,7 +446,7 @@ def mlp_init_pass(
     if t_rand is None:
         if generator is None:
             raise ValueError("mlp_init_pass needs a generator or t_rand for the jitter")
-        t_rand = torch.rand(z_vals.shape, generator=generator, device=near.device)
+        t_rand = batch_draw(torch.rand, z_vals.shape, generator, near.device)
     z_vals = lower + (upper - lower) * t_rand
     pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z_vals[..., None]
     views = rays.viewdirs[..., None, :].expand(pts.shape)

@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops.fused_act import fused_leaky_relu
 from ..ops.upfirdn2d import blur, upsample2d
+from ..parallel.mesh import batch_draw
 from .init import mapping_linear_params, normal
 
 BLUR_KERNEL = (1, 3, 3, 1)
@@ -174,8 +175,7 @@ class StyledConv(nn.Module):
         out = self.conv(x, style)
         if noise is None and generator is not None:
             b, _, h, w = out.shape
-            noise = torch.randn((b, 1, h, w), generator=generator,
-                                device=out.device).to(out.dtype)
+            noise = batch_draw(torch.randn, (b, 1, h, w), generator, out.device).to(out.dtype)
         if noise is not None:
             out = self.noise(out, noise)
         return self.activate(out)

@@ -14,8 +14,11 @@ static view directions, forced background, no jitter.
 
 The SIREN field runs through the port's fused kernel in both passes (the
 surface probe is one call at B = 1, P = 128 * 128 * 128); NGP through its
-hash-grid kernels.  One card: the JAX version shards the probe's ray rows
-over a device mesh, which is not ported.
+hash-grid kernels.  Under the launcher the work is split over the ranks, as
+the JAX version's mesh splits it: the 8 sweep views by batch, the probe by
+its ray rows (``parallel.render_ray_sharded``: P = 128 * 128 / W * 128 per
+rank); the world must divide both 8 and ``--surface_res``, and rank 0
+writes the renders and meshes.
 """
 
 from __future__ import annotations
@@ -74,25 +77,40 @@ def render_views(model, cfg, z: torch.Tensor, cams, trunc, truncation: float,
 
 
 def probe_surface(surf_model, surf_cfg, z: torch.Tensor, cams, trunc, truncation: float,
-                  field_pack=None) -> torch.Tensor:
+                  field_pack=None, mesh=None) -> torch.Tensor:
     """The SDF volume [1, R, R, R, 1] of latent ``z`` [1, style_dim] from
-    camera ``cams``, style truncated toward ``trunc``'s renderer mean."""
+    camera ``cams``, style truncated toward ``trunc``'s renderer mean; over
+    ``mesh`` each rank renders a band of the ray rows, and every rank gets
+    the whole volume."""
     from .models.generator import map_style
-    from .models.renderer import render
+    from .parallel import render_ray_sharded
 
     with torch.inference_mode():
         style = map_style(surf_model, z)
         style = trunc[0] + truncation * (style - trunc[0])
-        out = render(surf_model.renderer, surf_cfg.renderer, cams.focal, cams.extrinsics,
-                     cams.near, cams.far, style, field_pack=field_pack)
+        out = render_ray_sharded(surf_model.renderer, surf_cfg.renderer, cams.focal,
+                                 cams.extrinsics, cams.near, cams.far, style, mesh,
+                                 field_pack=field_pack)
     return out.sdf
 
 
 def main(argv=None) -> dict:
     """Render and mesh; returns, per identity, the mesh's vertex and face
-    counts (None without a mesh)."""
+    counts (None without a mesh; rank 0's, over several ranks)."""
     args = parse_args(argv)
 
+    from .parallel import close, make_mesh
+    from .utils.device import resolve_device
+
+    world = make_mesh(resolve_device(args.device))
+    try:
+        return _mesh_identities(args, world)
+    finally:
+        close(world)
+
+
+def _mesh_identities(args, world) -> dict:
+    """Render and mesh every identity over the data-parallel ``world``."""
     from .config import load_config
     from .config.build import generator_config
     from .config.sdf_options import get_vol_render_opt, rendering_overrides, resolve_renderer_type
@@ -101,12 +119,16 @@ def main(argv=None) -> dict:
     from .geometry.mesh import align_volume, extract_mesh_with_marching_cubes
     from .models.generator import Generator, mean_latent, pack_generator_for_inference
     from .ops.siren_kernel import pack_siren_field
+    from .parallel import gather_rows, shard_batch
     from .training.loop import copy_matching
     from .utils.checkpoints import load_generator
-    from .utils.device import disable_tf32, resolve_device
+    from .utils.device import disable_tf32
     from .utils.images import to_uint8, write_png
 
-    device = resolve_device(args.device)
+    device = world.device
+    if 8 % world.world or args.surface_res % world.world:
+        raise ValueError(f"the {world.world}-rank world must divide the 8 sweep views and "
+                         f"--surface_res {args.surface_res}")
     disable_tf32()
     cfg = load_config(args.config, default_config_path())
     expname = cfg["training"]["out_dir"].split("/")[1]
@@ -142,12 +164,13 @@ def main(argv=None) -> dict:
     for ident in range(args.identities):
         z = torch.randn((1, gcfg.style_dim), generator=gen, device=device)
         cams = generate_camera_params(res, gen, batch=1, sweep=True, device=device)
-        rgb, thumb = render_views(model, gcfg, z.repeat(8, 1), cams, trunc,
-                                  args.truncation_ratio, view_pack)
-        for v, (img, th) in enumerate(zip(to_uint8(rgb.float().cpu().numpy()),
-                                          to_uint8(thumb.float().cpu().numpy()))):
-            write_png(os.path.join(render_dir, f"id{ident:03d}_view{v}.png"), img)
-            write_png(os.path.join(render_dir, f"id{ident:03d}_view{v}_thumb.png"), th)
+        views = render_views(model, gcfg, *shard_batch((z.repeat(8, 1), cams), world), trunc,
+                             args.truncation_ratio, view_pack)
+        rgb, thumb = (gather_rows(t, world).float().cpu().numpy() for t in views)
+        for v, (img, th) in enumerate(zip(to_uint8(rgb), to_uint8(thumb))):
+            if world.is_main:
+                write_png(os.path.join(render_dir, f"id{ident:03d}_view{v}.png"), img)
+                write_png(os.path.join(render_dir, f"id{ident:03d}_view{v}_thumb.png"), th)
 
         if args.no_surface_renderings:
             continue
@@ -155,7 +178,9 @@ def main(argv=None) -> dict:
         front = generate_camera_params(args.surface_res, batch=1,
                                        locations=torch.zeros((1, 2), device=device))
         sdf = probe_surface(surf_model, surf_cfg, z, front, trunc, args.truncation_ratio,
-                            surf_pack)  # [1, R, R, S, 1]
+                            surf_pack, world)  # [1, R, R, S, 1]
+        if not world.is_main:
+            continue
         s_min, s_max = float(sdf.min()), float(sdf.max())
         if s_min > 0 or s_max < 0:
             # marching cubes would still emit the frustum shell (all-negative)

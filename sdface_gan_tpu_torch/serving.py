@@ -17,8 +17,12 @@ Example:
 
 ``from_checkpoint`` serves a stored generator: the port's own checkpoints,
 or a JAX run's imported by ``python -m
-sdface_gan_tpu_torch.import_jax_checkpoints``.  Not ported yet: the JAX
-sampler's ``mesh`` (data parallelism).
+sdface_gan_tpu_torch.import_jax_checkpoints``.
+
+``mesh`` (:func:`..parallel.make_mesh`) serves one batch over the ranks, as
+the JAX sampler's mesh does: the weights are replicated from rank 0, the
+batch's z and cameras are drawn whole, each rank renders its rows through
+the fused field, and ``sample`` returns the gathered batch on every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from .models.generator import (
 )
 from .models.siren import plain_encode
 from .ops.siren_kernel import pack_siren_field
+from .parallel.mesh import Mesh, gather_rows, over, replicate, shard_batch
 from .utils.checkpoints import load_generator
 from .utils.convert import jax_params_to_state_dict
 
@@ -52,13 +57,19 @@ class SDFaceSampler:
         use_fused_kernel: bool = True,
         seed: int = 0,
         truncation_latent: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """Serve ``model`` on its own device and dtype.
 
         ``truncation_latent``: precomputed ``(renderer_mean, decoder_mean)``;
         when None it is computed with ``mean_latent`` from ``seed``.  An NGP
-        model gets its packed table here, in place.
+        model gets its packed table here, in place.  ``mesh``: the ranks
+        that share each batch (the world must divide ``batch``).
         """
+        if mesh is not None and batch % mesh.world:
+            raise ValueError(f"batch {batch} must divide the {mesh.world}-rank world")
+        replicate([model], mesh)
+        self.mesh = mesh
         cfg = model.cfg
         if use_fused_kernel and cfg.renderer.type in ("sdf", "ngp"):
             cfg = replace(cfg, renderer=replace(cfg.renderer, use_fused_kernel=True))
@@ -72,6 +83,7 @@ class SDFaceSampler:
             if truncation_latent is None:
                 gen = torch.Generator(device=self.device).manual_seed(seed)
                 truncation_latent = mean_latent(model, gen)
+            replicate([t for t in truncation_latent if t is not None], mesh)
             self._trunc = truncation_latent
             self._field_pack = (pack_siren_field(model.renderer.network)
                                 if cfg.renderer.use_fused_kernel and cfg.renderer.type == "sdf"
@@ -136,7 +148,8 @@ class SDFaceSampler:
     ) -> torch.Tensor:
         """A batch of images [batch, size, size, 3] in [-1, 1] on the
         model's device; a fixed viewpoint when azim/elev are given.  ``seed``
-        draws z (unless given), random cameras and the depth jitter."""
+        draws z (unless given), random cameras and the depth jitter, for the
+        whole batch; over a mesh each rank renders its rows."""
         with torch.inference_mode():
             gen = torch.Generator(device=self.device).manual_seed(seed)
             if z is None:
@@ -154,11 +167,12 @@ class SDFaceSampler:
                                               locations=loc.expand(self.batch, 2))
             else:
                 cams = generate_camera_params(res, gen, batch=self.batch, device=self.device)
-            with nullcontext() if self.use_fused_kernel else plain_encode():
+            z, cams = shard_batch((z, cams), self.mesh)
+            with nullcontext() if self.use_fused_kernel else plain_encode(), over(self.mesh):
                 out = generator_forward(
                     self.model, self.cfg, [z], cams.extrinsics, cams.focal, cams.near,
                     cams.far, generator=gen, truncation=self.truncation,
                     truncation_latent=self._trunc, randomize_noise=False,
                     field_pack=self._field_pack,
                 )
-            return out.rgb if out.rgb is not None else out.thumb_rgb
+            return gather_rows(out.rgb if out.rgb is not None else out.thumb_rgb, self.mesh)

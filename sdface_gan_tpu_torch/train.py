@@ -28,6 +28,16 @@ as it does from a JAX run imported by ``import_jax_checkpoints --sdf 0``.
 ``--exit-after`` seconds saves and exits with code 3.  Runs on ``--device
 cuda`` (the default; raises without a card) or ``--device cpu``, with TF32
 off so that f32 stays f32.
+
+Data parallelism: under the launcher every stage and GIRAFFE run over its
+ranks, rank r on ``cuda:<LOCAL_RANK>`` (NCCL), or on the CPU with
+``--device cpu`` (gloo); ``--batch`` (GIRAFFE: the yaml's) is the global
+batch, which the world must divide::
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m sdface_gan_tpu_torch.train --config <yaml> --sdf 1 --dataset_path <store>
+
+gan2d has no mesh in the JAX package and refuses a world above one.
 """
 
 from __future__ import annotations
@@ -74,28 +84,39 @@ def main(argv=None) -> None:
 
     from .config import load_config
     from .config.yaml_config import default_config_path
+    from .parallel import close, make_mesh
+    from .utils.device import resolve_device
 
     cfg = load_config(args.config, default_config_path())
-    if args.sdf == 1:
-        train_sdf(args, cfg)
-    else:
-        train_giraffe_family(args, cfg)
+    # the launcher's world first: each rank's device is its own card
+    mesh = make_mesh(resolve_device(args.device))
+    try:
+        if args.sdf == 1:
+            train_sdf(args, cfg, mesh)
+        else:
+            train_giraffe_family(args, cfg, mesh)
+    finally:
+        close(mesh)
 
 
-def train_giraffe_family(args, cfg) -> None:
-    """``--sdf 0``: gan2d when the yaml's ``method`` says so, else GIRAFFE."""
-    from .utils.device import disable_tf32, resolve_device
+def train_giraffe_family(args, cfg, mesh) -> None:
+    """``--sdf 0`` over ``mesh``: gan2d when the yaml's ``method`` says so,
+    else GIRAFFE."""
+    from .utils.device import disable_tf32
 
-    device = resolve_device(args.device)
+    device = mesh.device
     disable_tf32()
     if cfg.get("method", "giraffe") == "gan2d":
         from .gan2d.train_loop import train_gan2d
 
+        if mesh.world > 1:
+            raise ValueError(f"gan2d trains on one rank (no mesh in the JAX package); "
+                             f"the world has {mesh.world}")
         train_gan2d(args, cfg, device)
     else:
         from .giraffe.train_loop import train_giraffe
 
-        train_giraffe(args, cfg, device)
+        train_giraffe(args, cfg, device, mesh)
 
 
 def stage_configs(cfg, stage_a: bool, ngp: bool = False, fc: bool = False, wod: bool = False,
@@ -115,13 +136,14 @@ def stage_configs(cfg, stage_a: bool, ngp: bool = False, fc: bool = False, wod: 
     return generator_config(opt, stage_a=stage_a), vrd_cfg if stage_a else sd_cfg, train_hparams(opt)
 
 
-def train_sdf(args, cfg) -> None:
+def train_sdf(args, cfg, mesh) -> None:
+    """``--sdf 1`` over ``mesh``: stages A and B, then stage C if asked."""
     from .data import DataLoader, MultiResolutionDataset, resolve_record_dir
     from .training.loop import train_full_pipeline, train_volume_renderer
     from .utils.checkpoints import checkpoint_exists
-    from .utils.device import disable_tf32, resolve_device
+    from .utils.device import disable_tf32
 
-    device = resolve_device(args.device)
+    device = mesh.device
     disable_tf32()
 
     expname = cfg["training"]["out_dir"].split("/")[1]
@@ -140,14 +162,15 @@ def train_sdf(args, cfg) -> None:
     flags = dict(ngp=bool(args.ngp), fc=bool(args.fc), wod=bool(args.wod), batch=args.batch)
     schedule = dict(exit_after=exit_after, save_every=args.save_every,
                     sample_every=args.sample_every, log_every=args.log_every,
-                    seed=args.seed, device=device)
+                    seed=args.seed, device=device, mesh=mesh)
+    hosts = dict(host_id=mesh.rank, num_hosts=mesh.world)  # each rank reads its rows
 
     if need_a:
         gcfg, vrd_cfg, hp = stage_configs(cfg, True, **flags)
         ds = MultiResolutionDataset(data_path, resolution=img_size,
                                     nerf_resolution=gcfg.renderer.out_im_res)
         try:
-            with DataLoader(ds, batch_size=hp.batch, seed=args.seed) as loader:
+            with DataLoader(ds, batch_size=hp.batch, seed=args.seed, **hosts) as loader:
                 train_volume_renderer(loader, gcfg, vrd_cfg, hp, vr_dir,
                                       iters=args.iters or 200001,
                                       sphere_init_iters=args.sphere_init_iters, **schedule)
@@ -159,7 +182,7 @@ def train_sdf(args, cfg) -> None:
         ds = MultiResolutionDataset(data_path, resolution=img_size,
                                     nerf_resolution=gcfg.renderer.out_im_res)
         try:
-            with DataLoader(ds, batch_size=hp.batch, seed=args.seed) as loader:
+            with DataLoader(ds, batch_size=hp.batch, seed=args.seed, **hosts) as loader:
                 train_full_pipeline(loader, gcfg, sd_cfg, hp, out_base,
                                     vol_renderer_dir=vr_dir,
                                     init_from="sdf_init_models" if args.wod else "vol_renderer",
@@ -171,7 +194,7 @@ def train_sdf(args, cfg) -> None:
         from .training.encoder_loop import train_encoder_stage
 
         train_encoder_stage(args, cfg, out_base, iters=args.iters or 100000, device=device,
-                            exit_after=exit_after, save_every=args.save_every,
+                            mesh=mesh, exit_after=exit_after, save_every=args.save_every,
                             sample_every=args.sample_every, log_every=args.log_every)
 
 

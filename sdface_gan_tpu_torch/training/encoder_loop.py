@@ -25,6 +25,12 @@ neither of its gradient kernels).  :func:`encoder_loss` takes its inputs
 ``generator=None`` there is the deterministic forward (fixed depths,
 stored decoder noise).
 
+Over a data-parallel ``mesh`` (JAX ``encoder_loop.py:170-227``), as stages A
+and B run (``training/loop.py``): each rank takes its rows of the loader's
+global batch and of the cameras drawn at the global batch, the VAE's batch
+statistics and its reparameterisation noise take the global batch inside the
+step, and the gradients are averaged over the ranks; rank 0 writes.
+
 The renderer type comes from ``resolve_renderer_type`` (the yaml's
 ``rendering: type`` or ``--ngp``), as in the port's other entries; the JAX
 ``train_encoder_stage`` reads the bare ``--ngp`` flag (ROADMAP queue 3).
@@ -53,11 +59,12 @@ from ..encoder import (
 )
 from ..geometry.cameras import CameraParams, generate_camera_params
 from ..models.generator import GeneratorConfig, generator_forward, mean_latent
-from ..utils.checkpoints import latest_checkpoint_step, load_checkpoint, save_checkpoint
+from ..parallel.mesh import Mesh, decide, make_mesh, over, replicate, shard_batch
+from ..utils.checkpoints import latest_checkpoint_step, load_checkpoint
 from ..utils.device import resolve_device
 from ..utils.images import save_image_grid
 from ..utils.logging import MetricsLogger
-from .loop import _as_batch, _generator, _timed, derived_seed
+from .loop import _as_batch, _generator, _timed, derived_seed, log_metrics, save_on_main
 from .optim import encoder_optimizer
 from .steps import Metrics, _step
 
@@ -81,11 +88,16 @@ class EncoderInputs(NamedTuple):
 
 
 def sample_encoder_inputs(imgs: torch.Tensor, thumbs: torch.Tensor, res: int,
-                          generator: torch.Generator) -> EncoderInputs:
+                          generator: torch.Generator,
+                          mesh: Optional[Mesh] = None) -> EncoderInputs:
     """The step's cameras (the default rig, as the JAX loop draws them) from
-    ``generator``, which the forward then also draws from."""
-    cams = generate_camera_params(res, generator, batch=imgs.shape[0], device=generator.device)
-    return EncoderInputs(imgs, thumbs, cams, None, generator)
+    ``generator``, which the forward then also draws from.  Over a ``mesh``
+    the images are the rank's rows and the cameras are drawn at the global
+    batch, the rank keeping its rows."""
+    world = mesh.world if mesh is not None and mesh.distributed else 1
+    cams = generate_camera_params(res, generator, batch=imgs.shape[0] * world,
+                                  device=generator.device)
+    return EncoderInputs(imgs, thumbs, shard_batch(cams, mesh), None, generator)
 
 
 def encoder_loss(e: nn.Module, g_ema: nn.Module, gcfg: GeneratorConfig, ecfg: EncoderConfig,
@@ -126,11 +138,14 @@ def encoder_loss(e: nn.Module, g_ema: nn.Module, gcfg: GeneratorConfig, ecfg: En
 def encoder_step(e: nn.Module, g_ema: nn.Module, opt: torch.optim.Optimizer,
                  gcfg: GeneratorConfig, ecfg: EncoderConfig, loss_utils: LossUtils,
                  inputs: EncoderInputs,
-                 latent_avg: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> Metrics:
-    """One optimizer step of the encoder on :func:`encoder_loss`."""
-    loss, metrics = encoder_loss(e, g_ema, gcfg, ecfg, loss_utils, inputs,
-                                 latent_avg=latent_avg)
-    _step(opt, loss)
+                 latent_avg: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 mesh: Optional[Mesh] = None) -> Metrics:
+    """One optimizer step of the encoder on :func:`encoder_loss`, over the
+    ranks of ``mesh``."""
+    with over(mesh):
+        loss, metrics = encoder_loss(e, g_ema, gcfg, ecfg, loss_utils, inputs,
+                                     latent_avg=latent_avg)
+        _step(opt, loss, mesh)
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -179,13 +194,16 @@ def train_encoder(
     val_n_sample: int = 4,
     seed: int = 0,
     device: Union[str, torch.device] = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> nn.Module:
     """Train an inversion encoder against the frozen ``g_ema`` (a
     ``full_pipeline`` generator, frozen here in place).  ``loader`` yields
-    (imgs [B, S, S, 3], thumbs [B, r, r, 3]) in [-1, 1].  Each logged
-    iteration carries its E step's ``e_ms``.  Returns the encoder; writes
-    the final ``encoder`` artifact ``{e, g_ema}``."""
+    (imgs [B, S, S, 3], thumbs [B, r, r, 3]) in [-1, 1]: this rank's rows
+    of the global batch over ``mesh`` (default: the launcher's world).  Each
+    logged iteration carries its E step's ``e_ms``.  Returns the encoder;
+    writes the final ``encoder`` artifact ``{e, g_ema}``."""
     device = resolve_device(device)
+    mesh = mesh if mesh is not None else make_mesh(device)
     psp = isinstance(ecfg, PSPConfig)
     if psp and gcfg.full_pipeline and gcfg.decoder.style_dim != 512:
         raise ValueError(
@@ -193,7 +211,7 @@ def train_encoder(
             f"style_dim is {gcfg.decoder.style_dim}: pSp requires style_dim=256 "
             "generators (decoder style 512)")
     os.makedirs(out_dir, exist_ok=True)
-    logger = MetricsLogger(out_dir, "encoder", print_every=log_every)
+    logger = MetricsLogger(out_dir, "encoder", print_every=log_every) if mesh.is_main else None
     g_ema.requires_grad_(False)
     e = (e_init if e_init is not None else _encoder(ecfg, seed)).to(device)
     opt = encoder_optimizer(e.parameters(), vae=not psp)
@@ -206,13 +224,14 @@ def train_encoder(
         opt.load_state_dict(ck["e_opt"])
         start_iter = int(ck["step"]) + 1  # saved after step i: resume at i + 1
         print(f"resumed encoder at step {start_iter}")
+    replicate([e, opt, g_ema], mesh)
 
     loss_utils = loss_utils or LossUtils()
     data = iter(loader)
     # fixed eval identities: the first loader batch, saved once as the target strip
     first_imgs, _ = next(data)
     eval_imgs = _as_batch(first_imgs, device)[:val_n_sample]
-    if start_iter == 0 and sample_every:
+    if start_iter == 0 and sample_every and mesh.is_main:
         save_image_grid(eval_imgs.cpu().numpy(), os.path.join(out_dir, "eval.png"), nrow=1)
 
     res = gcfg.renderer.out_im_res
@@ -234,24 +253,27 @@ def train_encoder(
     for i in range(start_iter, iters):
         imgs, thumbs = next(data)
         inputs = sample_encoder_inputs(_as_batch(imgs, device), _as_batch(thumbs, device), res,
-                                       _generator(device, seed, "C", i))
+                                       _generator(device, seed, "C", i), mesh)
         m, e_ms = _timed(device, lambda: encoder_step(e, g_ema, opt, gcfg, ecfg, loss_utils,
-                                                      inputs, latent_avg=latent_avg))
+                                                      inputs, latent_avg=latent_avg, mesh=mesh))
         if i % log_every == 0:
-            logger.log(i, {**m, "e_ms": e_ms()})
-        if sample_every and i % sample_every == 0:
+            log_metrics(logger, i, {**m, "e_ms": e_ms()}, mesh)
+        if sample_every and i % sample_every == 0 and mesh.is_main:
             viz(i)
-        cut = exit_after is not None and time.time() - t_start > exit_after
+        cut = exit_after is not None and decide(time.time() - t_start > exit_after, mesh)
         if (save_every and i and i % save_every == 0) or cut:
-            save_checkpoint(out_dir, f"models_{i:07d}",
-                            {"e": e.state_dict(), "e_opt": opt.state_dict(), "step": i})
+            save_on_main(mesh, out_dir, f"models_{i:07d}", lambda: {
+                "e": e.state_dict(), "e_opt": opt.state_dict(), "step": i})
         if cut:
-            logger.close()
+            if logger is not None:
+                logger.close()
             print("time budget reached; checkpoint saved (exit code 3 contract)")
             raise SystemExit(3)
     # the matched pair: the encoder with its frozen generator
-    save_checkpoint(out_dir, "encoder", {"e": e.state_dict(), "g_ema": g_ema.state_dict()})
-    logger.close()
+    save_on_main(mesh, out_dir, "encoder", lambda: {"e": e.state_dict(),
+                                                    "g_ema": g_ema.state_dict()})
+    if logger is not None:
+        logger.close()
     return e
 
 
@@ -300,7 +322,8 @@ def encoder_config(gcfg: GeneratorConfig, img_size: int, psp: bool) -> EncoderCo
 
 
 def train_encoder_stage(args: Any, cfg: Any, out_base: str, iters: int = 100000,
-                        device: Union[str, torch.device] = "cuda", **kwargs) -> nn.Module:
+                        device: Union[str, torch.device] = "cuda",
+                        mesh: Optional[Mesh] = None, **kwargs) -> nn.Module:
     """Stage C as the train entry runs it: the generator config resolved as
     stage B's (the renderer type by ``resolve_renderer_type``), the frozen
     ``full_pipeline`` generator, the record-store loader, and
@@ -310,6 +333,7 @@ def train_encoder_stage(args: Any, cfg: Any, out_base: str, iters: int = 100000,
     from ..utils.checkpoints import load_generator
 
     device = resolve_device(device)
+    mesh = mesh if mesh is not None else make_mesh(device)
     img_size = cfg["data"].get("img_size", 256)
     psp = bool(getattr(args, "psp", 0))
     opt = stage_options(cfg, False, ngp=bool(getattr(args, "ngp", 0)),
@@ -330,12 +354,13 @@ def train_encoder_stage(args: Any, cfg: Any, out_base: str, iters: int = 100000,
     ds = MultiResolutionDataset(data_path, resolution=img_size,
                                 nerf_resolution=gcfg.renderer.out_im_res)
     try:
-        with DataLoader(ds, batch_size=args.batch, seed=getattr(args, "seed", 0)) as loader:
+        with DataLoader(ds, batch_size=args.batch, seed=getattr(args, "seed", 0),
+                        host_id=mesh.rank, num_hosts=mesh.world) as loader:
             # one directory per encoder type: a resume never loads a VAE into pSp
             return train_encoder(
                 loader, gcfg, g_ema, ecfg,
                 os.path.join(out_base, "encoder_psp" if psp else "encoder"),
                 loss_utils=load_perceptual_params(args, device), e_init=e_init, iters=iters,
-                seed=getattr(args, "seed", 0), device=device, **kwargs)
+                seed=getattr(args, "seed", 0), device=device, mesh=mesh, **kwargs)
     finally:
         ds.close()

@@ -20,6 +20,20 @@ tensors in [-1, 1].  Both loops run on ``device="cuda"`` unless the
 caller passes ``device="cpu"``, and raise without a card.  Each logged
 iteration carries the time of its D, G (and path) step, ``d_ms``,
 ``g_ms``, ``path_ms``: CUDA events on the card, the host clock on the CPU.
+
+Both loops run data-parallel over ``mesh`` (default: the launcher's world,
+:func:`..parallel.make_mesh`; the world of one without it), as JAX's run over
+its device mesh: every rank builds the same modules, which are then
+replicated from rank 0 (after construction, resume and sphere init); the
+loader yields the rank's rows (``DataLoader(host_id=rank, num_hosts=world)``);
+each step draws at the global batch and averages its gradients over the ranks
+(``training/steps.py``).  Rank 0 alone writes checkpoints, grids and
+metrics (averaged over the ranks), each write followed by a barrier; every
+rank loads on resume.  The ``exit_after`` cut is decided on rank 0's clock
+and broadcast, so that every rank saves the same step and exits 3.  The
+world must divide the global batch: the ranks are processes the launcher
+started, so JAX's single-process trim to a prefix of devices has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from ..models.discriminator import (
     VolumeRenderDiscriminator,
 )
 from ..models.generator import Generator, GeneratorConfig, generator_forward, mean_latent
+from ..parallel.mesh import Mesh, barrier, decide, make_mesh, mean_metrics, replicate
 from ..utils.checkpoints import (
     checkpoint_exists,
     latest_checkpoint_step,
@@ -93,6 +108,41 @@ def _timed(device: torch.device, fn: Callable):
         return start.elapsed_time(end)
 
     return out, elapsed
+
+
+def training_mesh(batch: int, mesh: Optional[Mesh], device: torch.device) -> Mesh:
+    """The data-parallel world of a stage: ``mesh``, or the launcher's
+    (JAX's ``_training_mesh``); the world must divide the global ``batch``."""
+    mesh = mesh if mesh is not None else make_mesh(device)
+    if batch % mesh.world:
+        raise ValueError(f"global batch {batch} must divide across the "
+                         f"{mesh.world}-rank world")
+    return mesh
+
+
+def rank_batch(x, device: torch.device, mesh: Mesh, batch: int) -> torch.Tensor:
+    """A loader batch as a tensor: this rank's ``batch // world`` rows."""
+    x = _as_batch(x, device)
+    if mesh.distributed and x.shape[0] != batch // mesh.world:
+        raise ValueError(f"the loader yielded {x.shape[0]} rows; rank {mesh.rank} takes "
+                         f"{batch // mesh.world} of the global batch {batch} "
+                         "(DataLoader(host_id=rank, num_hosts=world))")
+    return x
+
+
+def log_metrics(logger: Optional[MetricsLogger], step: int, metrics: dict,
+                mesh: Mesh) -> None:
+    """Every rank's metrics averaged; rank 0 (the one with a logger) writes."""
+    metrics = mean_metrics(metrics, mesh)
+    if logger is not None:
+        logger.log(step, metrics)
+
+
+def save_on_main(mesh: Mesh, out_dir: str, name: str, state_fn: Callable[[], dict]) -> None:
+    """Rank 0 writes ``state_fn()``; every rank waits until it is on disk."""
+    if mesh.is_main:
+        save_checkpoint(out_dir, name, state_fn())
+    barrier(mesh)
 
 
 def _frozen_copy(model: nn.Module) -> nn.Module:
@@ -163,12 +213,14 @@ def train_volume_renderer(
     seed: int = 0,
     exit_after: Optional[float] = None,
     device: Union[str, torch.device] = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Generator:
     """Stage A (reference ``train_vol_render``, ``training_utils.py:197-549``).
     Returns the EMA generator; writes ``vol_renderer`` on completion."""
     device = resolve_device(device)
+    mesh = training_mesh(hp.batch, mesh, device)
     os.makedirs(out_dir, exist_ok=True)
-    logger = MetricsLogger(out_dir, "vol_render", print_every=log_every)
+    logger = MetricsLogger(out_dir, "vol_render", print_every=log_every) if mesh.is_main else None
     g = Generator(gcfg, device=device, generator=torch.Generator().manual_seed(
         derived_seed(seed, "g")))
     d = VolumeRenderDiscriminator(dcfg, generator=torch.Generator().manual_seed(
@@ -196,9 +248,11 @@ def train_volume_renderer(
         print("loaded sphere-initialized model")
     else:
         g_ema = _frozen_copy(g)
+    replicate([g, d, g_ema, g_opt, d_opt], mesh)
 
     res = gcfg.renderer.out_im_res
     if gcfg.renderer.with_sdf and not no_sphere_init and not resumed:
+        # every rank runs the (replicated) warm-up; rank 0's result is kept
         # batch 3 and the main G optimizer (training_utils.py:287-327)
         init_hp = TrainHParams(batch=3, style_dim=hp.style_dim, camera=hp.camera)
         t0 = time.time()
@@ -206,11 +260,12 @@ def train_volume_renderer(
             inputs = sample_inputs(init_hp, res, init_hp.batch,
                                    _generator(device, seed, "sphere", i))
             m = sphere_init_step(g, g_opt, gcfg, init_hp, inputs)
-            if i % max(log_every, 100) == 0:
+            if i % max(log_every, 100) == 0 and logger is not None:
                 logger.log(i, m)
+        replicate([g], mesh)
         g_ema = _frozen_copy(g)
-        save_checkpoint(out_dir, "sdf_init_models", {"g": g.state_dict(),
-                                                     "g_ema": g_ema.state_dict()})
+        save_on_main(mesh, out_dir, "sdf_init_models",
+                     lambda: {"g": g.state_dict(), "g_ema": g_ema.state_dict()})
         print(f"sphere init done in {time.time() - t0:.0f}s")
         g_opt, _ = stage_a_optimizers(g, d, hp.a_d_reg_every)  # fresh G state
 
@@ -218,32 +273,37 @@ def train_volume_renderer(
     t_start = time.time()
     for i in range(start_iter, iters):
         _, thumbs = next(data)
-        real = _as_batch(thumbs, device)
-        d_in = sample_inputs(hp, res, hp.batch, _generator(device, seed, "A", i, "d"))
-        g_in = sample_inputs(hp, res, hp.batch, _generator(device, seed, "A", i, "g"))
+        real = rank_batch(thumbs, device, mesh, hp.batch)
+        d_in = sample_inputs(hp, res, hp.batch, _generator(device, seed, "A", i, "d"),
+                             mesh=mesh)
+        g_in = sample_inputs(hp, res, hp.batch, _generator(device, seed, "A", i, "g"),
+                             mesh=mesh)
         dm, d_ms = _timed(device, lambda: stage_a_d_step(
-            g, d, d_opt, gcfg, dcfg, hp, real, d_in, with_r1=i % hp.a_d_reg_every == 0))
+            g, d, d_opt, gcfg, dcfg, hp, real, d_in, with_r1=i % hp.a_d_reg_every == 0,
+            mesh=mesh))
         gm, g_ms = _timed(device, lambda: stage_a_g_step(
-            g, d, g_opt, g_ema, gcfg, dcfg, hp, g_in))
+            g, d, g_opt, g_ema, gcfg, dcfg, hp, g_in, mesh=mesh))
         if i % log_every == 0:
             extra = {"d_ms": d_ms(), "g_ms": g_ms()}
             if gcfg.renderer.with_sdf:  # the learned sharpness; its anneal is a health signal
                 extra["beta"] = g.renderer.sigmoid_beta.detach()[0]
-            logger.log(i, {**dm, **gm, **extra})
-        if sample_every and i % sample_every == 0:
+            log_metrics(logger, i, {**dm, **gm, **extra}, mesh)
+        if sample_every and i % sample_every == 0 and mesh.is_main:
             _sample_grid(g_ema, gcfg, hp, os.path.join(out_dir, f"samples_{i:07d}.png"))
-        cut = exit_after is not None and time.time() - t_start > exit_after
+        cut = exit_after is not None and decide(time.time() - t_start > exit_after, mesh)
         if (save_every and i and i % save_every == 0) or cut:
-            save_checkpoint(out_dir, f"models_{i:07d}",
-                            _stage_state(g, d, g_ema, g_opt, d_opt, i))
+            save_on_main(mesh, out_dir, f"models_{i:07d}",
+                         lambda: _stage_state(g, d, g_ema, g_opt, d_opt, i))
         if cut:
-            logger.close()
+            if logger is not None:
+                logger.close()
             print("time budget reached; checkpoint saved (exit code 3 contract)")
             raise SystemExit(3)
 
-    save_checkpoint(out_dir, "vol_renderer", {"g": g.state_dict(), "d": d.state_dict(),
-                                              "g_ema": g_ema.state_dict()})
-    logger.close()
+    save_on_main(mesh, out_dir, "vol_renderer", lambda: {
+        "g": g.state_dict(), "d": d.state_dict(), "g_ema": g_ema.state_dict()})
+    if logger is not None:
+        logger.close()
     return g_ema
 
 
@@ -262,13 +322,16 @@ def train_full_pipeline(
     seed: int = 0,
     exit_after: Optional[float] = None,
     device: Union[str, torch.device] = "cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Generator:
     """Stage B (reference ``train_full_pipeline``, ``training_utils.py:552-881``).
     ``gcfg`` should freeze the renderer, as the JAX resolution does.
     Returns the EMA generator; writes ``full_pipeline`` at the end."""
     device = resolve_device(device)
+    mesh = training_mesh(hp.batch, mesh, device)
     os.makedirs(out_dir, exist_ok=True)
-    logger = MetricsLogger(out_dir, "full_pipeline", print_every=log_every)
+    logger = (MetricsLogger(out_dir, "full_pipeline", print_every=log_every)
+              if mesh.is_main else None)
     g = Generator(gcfg, device=device, generator=torch.Generator().manual_seed(
         derived_seed(seed, "g")))
     d = StyleDiscriminator(dcfg, generator=torch.Generator().manual_seed(
@@ -300,6 +363,7 @@ def train_full_pipeline(
         print(f"initialized renderer from {init_from}")
         g_ema = _frozen_copy(g)
         mean_path_length = torch.zeros((), device=device)
+    replicate([g, d, g_ema, g_opt, d_opt, mean_path_length], mesh)
 
     res = gcfg.renderer.out_im_res
     n_latent = gcfg.decoder.n_latent
@@ -308,34 +372,40 @@ def train_full_pipeline(
     t_start = time.time()
     for i in range(start_iter, iters):
         imgs, _ = next(data)
-        real = _as_batch(imgs, device)
-        d_in = sample_inputs(hp, res, hp.batch, _generator(device, seed, "B", i, "d"), n_latent)
-        g_in = sample_inputs(hp, res, hp.batch, _generator(device, seed, "B", i, "g"), n_latent)
+        real = rank_batch(imgs, device, mesh, hp.batch)
+        d_in = sample_inputs(hp, res, hp.batch, _generator(device, seed, "B", i, "d"), n_latent,
+                             mesh)
+        g_in = sample_inputs(hp, res, hp.batch, _generator(device, seed, "B", i, "g"), n_latent,
+                             mesh)
         dm, d_ms = _timed(device, lambda: stage_b_d_step(
-            g, d, d_opt, gcfg, dcfg, hp, real, d_in, regularize=i % hp.d_reg_every == 0))
-        gm, g_ms = _timed(device, lambda: stage_b_g_step(g, d, g_opt, gcfg, dcfg, hp, g_in))
+            g, d, d_opt, gcfg, dcfg, hp, real, d_in, regularize=i % hp.d_reg_every == 0,
+            mesh=mesh))
+        gm, g_ms = _timed(device, lambda: stage_b_g_step(g, d, g_opt, gcfg, dcfg, hp, g_in,
+                                                         mesh=mesh))
         times = {"d_ms": d_ms, "g_ms": g_ms}
         if hp.g_reg_every > 0 and i % hp.g_reg_every == 0:
             p_in = sample_inputs(hp, res, path_batch,
-                                 _generator(device, seed, "B", i, "path"), n_latent)
+                                 _generator(device, seed, "B", i, "path"), n_latent, mesh)
             (mean_path_length, pm), times["path_ms"] = _timed(device, lambda: stage_b_path_step(
-                g, g_opt, gcfg, hp, p_in, mean_path_length))
+                g, g_opt, gcfg, hp, p_in, mean_path_length, mesh=mesh))
             gm = {**gm, **pm}
         accumulate(g_ema, g)
         if i % log_every == 0:
-            logger.log(i, {**dm, **gm, **{k: ms() for k, ms in times.items()}})
-        if sample_every and i % sample_every == 0:
+            log_metrics(logger, i, {**dm, **gm, **{k: ms() for k, ms in times.items()}}, mesh)
+        if sample_every and i % sample_every == 0 and mesh.is_main:
             _sample_grid(g_ema, gcfg, hp, os.path.join(out_dir, f"samples_{i:07d}.png"))
-        cut = exit_after is not None and time.time() - t_start > exit_after
+        cut = exit_after is not None and decide(time.time() - t_start > exit_after, mesh)
         if (save_every and i and i % save_every == 0) or cut:
-            save_checkpoint(out_dir, f"models_{i:07d}", _stage_state(
+            save_on_main(mesh, out_dir, f"models_{i:07d}", lambda: _stage_state(
                 g, d, g_ema, g_opt, d_opt, i, mean_path_length=mean_path_length))
         if cut:
-            logger.close()
+            if logger is not None:
+                logger.close()
             print("time budget reached; checkpoint saved (exit code 3 contract)")
             raise SystemExit(3)
 
-    save_checkpoint(out_dir, "full_pipeline", {"g": g.state_dict(), "d": d.state_dict(),
-                                               "g_ema": g_ema.state_dict()})
-    logger.close()
+    save_on_main(mesh, out_dir, "full_pipeline", lambda: {
+        "g": g.state_dict(), "d": d.state_dict(), "g_ema": g_ema.state_dict()})
+    if logger is not None:
+        logger.close()
     return g_ema

@@ -26,6 +26,14 @@ stage-A G step, fold the EMA.
 fake forward of the D steps included) and not with autocast: the cast is
 differentiable, so gradients, optimizer state and EMA stay f32.  Stage B
 does not fold the EMA in its G step: the loop does, after the path step.
+
+Over a data-parallel ``mesh`` (:mod:`..parallel`) each rank holds its rows
+of the global batch: :func:`sample_inputs` draws at the global batch and
+keeps the rank's rows, the step runs inside ``over(mesh)`` (the draws in the
+forward, the D's minibatch stddev and the path-length mean then take the
+global batch) and ``_step`` averages the gradients over the ranks, so that a
+W-rank step computes what one rank computes at the same global batch, as
+JAX's global program does.  ``mesh=None`` is the single-process step.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from ..models.generator import (
 )
 from ..models.renderer import render
 from ..models.stylegan2 import apply_decoder, make_decoder_latent
+from ..parallel.mesh import Mesh, all_reduce_grads, over, shard_batch
 from ..utils.functional import call_with
 from .ema import EMA_DECAY, accumulate
 
@@ -135,11 +144,13 @@ def sample_inputs(
     batch: int,
     generator: torch.Generator,
     n_latent: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> StepInputs:
     """Draw a step's inputs on the generator's device.  With ``n_latent``
     (stage B) also style mixing: with probability ``hp.mixing`` a second
     code and an injection index in [1, n_latent), else z itself and
-    ``n_latent`` (every layer takes z), drawn without a host sync."""
+    ``n_latent`` (every layer takes z), drawn without a host sync.  Over a
+    ``mesh``, ``batch`` is the global batch and the rank keeps its rows."""
     device = generator.device
     z = torch.randn((batch, hp.style_dim), generator=generator, device=device)
     z2 = idx = None
@@ -154,7 +165,7 @@ def sample_inputs(
     cams = generate_camera_params(res, generator, batch=batch, uniform=cam.uniform,
                                   azim_range=cam.azim, elev_range=cam.elev, fov_ang=cam.fov,
                                   dist_radius=cam.dist_radius, device=device)
-    return StepInputs(z, cams, z2, idx, generator)
+    return shard_batch(StepInputs(z, cams, z2, idx, generator), mesh)
 
 
 def _param_dtype(hp: TrainHParams) -> Optional[torch.dtype]:
@@ -173,13 +184,17 @@ def forward_cast(model: nn.Module, dtype: Optional[torch.dtype], fn: Callable, *
     return call_with(model, tensors, fn, *args, **kwargs)
 
 
-def _step(opt: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+def _step(opt: torch.optim.Optimizer, loss: torch.Tensor, mesh: Optional[Mesh] = None,
+          op: str = "mean") -> None:
     """One optimizer step on the gradients of ``loss`` with respect to the
-    optimizer's parameters alone (zeros for unused ones)."""
+    optimizer's parameters alone (zeros for unused ones), averaged over the
+    ranks of ``mesh`` (summed with ``op="sum"``, for a loss summed over
+    the batch)."""
     params = [p for group in opt.param_groups for p in group["params"]]
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    for p, g in zip(params, all_reduce_grads(grads, mesh, op)):
+        p.grad = g
     opt.step()
     opt.zero_grad(set_to_none=True)
 
@@ -244,9 +259,10 @@ def stage_a_d_loss(
 
 
 def stage_a_d_step(g, d, d_opt, gcfg, dcfg, hp, real_thumbs, inputs,
-                   with_r1: bool = True) -> Metrics:
-    loss, metrics = stage_a_d_loss(g, d, gcfg, dcfg, hp, real_thumbs, inputs, with_r1)
-    _step(d_opt, loss)
+                   with_r1: bool = True, mesh: Optional[Mesh] = None) -> Metrics:
+    with over(mesh):
+        loss, metrics = stage_a_d_loss(g, d, gcfg, dcfg, hp, real_thumbs, inputs, with_r1)
+        _step(d_opt, loss, mesh)
     return metrics
 
 
@@ -297,9 +313,10 @@ def stage_a_g_loss(
 
 
 def stage_a_g_step(g, d, g_opt, g_ema, gcfg, dcfg, hp, inputs,
-                   ema_decay: float = EMA_DECAY) -> Metrics:
-    loss, metrics = stage_a_g_loss(g, d, gcfg, dcfg, hp, inputs)
-    _step(g_opt, loss)
+                   ema_decay: float = EMA_DECAY, mesh: Optional[Mesh] = None) -> Metrics:
+    with over(mesh):
+        loss, metrics = stage_a_g_loss(g, d, gcfg, dcfg, hp, inputs)
+        _step(g_opt, loss, mesh)
     accumulate(g_ema, g, ema_decay)
     return metrics
 
@@ -338,9 +355,11 @@ def stage_b_d_loss(
     return loss, _detached(metrics)
 
 
-def stage_b_d_step(g, d, d_opt, gcfg, dcfg, hp, real_imgs, inputs, regularize) -> Metrics:
-    loss, metrics = stage_b_d_loss(g, d, gcfg, dcfg, hp, real_imgs, inputs, regularize)
-    _step(d_opt, loss)
+def stage_b_d_step(g, d, d_opt, gcfg, dcfg, hp, real_imgs, inputs, regularize,
+                   mesh: Optional[Mesh] = None) -> Metrics:
+    with over(mesh):
+        loss, metrics = stage_b_d_loss(g, d, gcfg, dcfg, hp, real_imgs, inputs, regularize)
+        _step(d_opt, loss, mesh)
     return metrics
 
 
@@ -361,9 +380,10 @@ def stage_b_g_loss(
     return g_gan + content_lambda * cont, _detached({"g": g_gan, "g_content": cont})
 
 
-def stage_b_g_step(g, d, g_opt, gcfg, dcfg, hp, inputs) -> Metrics:
-    loss, metrics = stage_b_g_loss(g, d, gcfg, dcfg, hp, inputs)
-    _step(g_opt, loss)
+def stage_b_g_step(g, d, g_opt, gcfg, dcfg, hp, inputs, mesh: Optional[Mesh] = None) -> Metrics:
+    with over(mesh):
+        loss, metrics = stage_b_g_loss(g, d, gcfg, dcfg, hp, inputs)
+        _step(g_opt, loss, mesh)
     return metrics
 
 
@@ -392,8 +412,10 @@ def stage_b_path_loss(
                                       "path_length": torch.mean(path_lengths)})
 
 
-def stage_b_path_step(g, g_opt, gcfg, hp, inputs, mean_path_length):
+def stage_b_path_step(g, g_opt, gcfg, hp, inputs, mean_path_length,
+                      mesh: Optional[Mesh] = None):
     """Returns ``(new_mean_path_length, metrics)``."""
-    loss, new_mean, metrics = stage_b_path_loss(g, gcfg, hp, inputs, mean_path_length)
-    _step(g_opt, loss)
+    with over(mesh):
+        loss, new_mean, metrics = stage_b_path_loss(g, gcfg, hp, inputs, mean_path_length)
+        _step(g_opt, loss, mesh)
     return new_mean, metrics

@@ -1042,3 +1042,56 @@ def test_giraffe_steps_on_the_card_match_the_cpu(cuda):
             assert abs(lc - lh) <= 1e-4 * abs(lh), (kind, lc, lh)
             for a, b in zip(gc, gh):
                 assert (a - b).norm() <= 1e-3 * b.norm() + 1e-6, kind
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: two gloo ranks sharing cuda:0 (NCCL needs a card per rank)
+# ---------------------------------------------------------------------------
+
+def _ddp_stage_b():
+    from sdface_gan_tpu_torch.geometry import generate_camera_params
+    from sdface_gan_tpu_torch.models.discriminator import StyleDiscConfig
+    from sdface_gan_tpu_torch.training.steps import StepInputs, TrainHParams
+
+    rcfg = RendererConfig(type="sdf", out_im_res=8, n_samples=4, style_dim=16, width=64,
+                          depth=2)  # the CUDA field takes widths 64..512
+    gcfg = GeneratorConfig(size=32, style_dim=16, full_pipeline=True, freeze_renderer=True,
+                           channel_multiplier=1, channel_base=32, renderer=rcfg)
+    gen = torch.Generator().manual_seed(3)
+    cams = generate_camera_params(8, gen, batch=8, device="cpu")
+    z = torch.randn((8, 16), generator=gen)
+    case = dict(kind="b_d", gcfg=gcfg, hp=TrainHParams(batch=8, style_dim=16),
+                dcfg=StyleDiscConfig(size=32, channel_multiplier=1, channel_base=16),
+                g=1, d=2, gen_seed=4, inputs=StepInputs(z, cams, z.flip(0), 3),
+                real=torch.rand((8, 32, 32, 3), generator=gen) * 2 - 1)
+    return gcfg, case
+
+
+def test_two_gloo_ranks_on_the_card_match_one_rank(cuda):
+    """A stage-B D step with R1 (the minibatch stddev gathered over the
+    ranks, a live generator's draws made for the whole batch) over two gloo
+    ranks on cuda:0, against the same step as one rank at global batch 8
+    (loss rel 1e-4, gradients 1e-3 of their norm, train_parity's bars), the
+    parameters bit-equal across the ranks; and the bf16 sampler at batch 8:
+    the gathered images within 2e-3 of one rank's, through the field kernel."""
+    import torch_parallel_ranks as ranks
+
+    gcfg, case = _ddp_stage_b()
+    payload = dict(device="cuda:0", cases={"b_d": case},
+                   samplers=[dict(gcfg=gcfg, g=1, batch=8, dtype="bfloat16",
+                                  sample=dict(seed=5), profile=True)])
+    res = [ranks._cpu(r) for r in ranks.spawn("cases", 2, payload)]
+    served = ranks.spawn("serving", 2, payload)
+    one = ranks.run_cases(None, payload)["b_d"]
+    two = [r["b_d"] for r in res]
+    assert all(torch.equal(two[1]["params"][k], two[0]["params"][k]) for k in two[0]["params"])
+    for k, v in one["metrics"].items():
+        got = (two[0]["metrics"][k] + two[1]["metrics"][k]) / 2
+        assert abs(got - v) <= 1e-4 * abs(v) + 1e-7, (k, got, v)
+    for k, g in one["grads"].items():
+        assert (two[0]["grads"][k] - g).norm() <= 1e-3 * g.norm() + 1e-7, k
+    model = Generator(gcfg, device="cuda", generator=torch.Generator().manual_seed(1))
+    images = SDFaceSampler(model.to(torch.bfloat16), batch=8).sample(seed=5).float().cpu()
+    assert (served[0]["images0"] - images).abs().max().item() <= 2e-3
+    assert torch.equal(served[0]["images0"], served[1]["images0"])
+    assert any(siren_kernel.kernel_name(torch.bfloat16) in k for k in served[0]["kernels"])
