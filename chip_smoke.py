@@ -243,12 +243,16 @@ any failure raises and exits non-zero with no ``ok`` line:
 13. bridge_and_images - inside train_cli's directory, after train_stage_c:
              every committed image of ``tests/fixtures/images/`` (JPEGs of
              178 x 218 in 4:2:0, 4:2:2, 4:4:4, grey and with restart
-             markers; palette, interlaced and 16-bit PNG; BMP) decoded by
+             markers; palette, interlaced and 16-bit PNG; BMP, also RLE8,
+             RLE4, bit-field and 16-bit; lossy, lossless, alpha and
+             extended WebP at 178 x 218, lossy WebP of libwebp's other
+             encoder settings, lossy and lossless WebP at 512^2) decoded by
              the port byte-equal to the PIL decode committed beside it, ms
-             per decode; 48 JPEGs through ``prepare_data --size 256``
-             (images/s); the committed JAX run (``tests/fixtures/jax_run/``)
-             imported: stage A's archive by ``python -m
-             sdface_gan_tpu_torch.import_jax_checkpoints`` from its yaml (in
+             per decode (medians by kind); 48 JPEGs and 48 WebPs through
+             ``prepare_data --size 256`` (images/s); the committed JAX run
+             (``tests/fixtures/jax_run/``) imported: stage A's archive by
+             ``python -m sdface_gan_tpu_torch.import_jax_checkpoints`` from
+             its yaml (in
              stage C's wave, after its 32^2 store), stage B's by
              ``import_jax_run``; its ``full_pipeline`` served by
              ``SDFaceSampler.from_checkpoint`` in f32 through the field kernel
@@ -391,6 +395,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import fnmatch
 import functools
 import json
 import os
@@ -2062,7 +2067,7 @@ def prepare(td: str) -> dict:
             f.write(encode_png(img))
     # the committed JPEG, BMP and palette / interlaced / 16-bit PNG files
     # too: stages A, B and C then train on a store holding decoded JPEGs
-    for name in image_fixtures():
+    for name in train_cli_fixtures():
         shutil.copy(os.path.join(IMAGE_FIXTURES, name), os.path.join(td, "imgs", name))
     runs = run_modules_together({
         "store": [("prepare_data", ["imgs", "--out", "store", "--size", str(CLI_SIZE),
@@ -2107,7 +2112,7 @@ def train_cli(results: dict, smi: str, td: str, prepared: dict, beside) -> tuple
     store_bytes = sum(os.path.getsize(os.path.join(store, n)) for n in os.listdir(store))
     ds = MultiResolutionDataset(store, CLI_SIZE, CLI_THUMB)
     records = len(ds)
-    fixtures = image_fixtures()
+    fixtures = train_cli_fixtures()
     check(records == CLI_IMAGES + len(fixtures), f"{records} records in the store")
     # prepare_data's seconds were taken beside the kernels' build
     rec_store = dict(records=records, fixture_files=len(fixtures), store_bytes=store_bytes,
@@ -2630,6 +2635,17 @@ JAX_FIXTURE = os.path.join(HERE, "tests", "fixtures", "jax_run")
 JAX_IMAGE_TOL = 2e-3  # serve_compare's card-vs-CPU bar, added to IMAGE_TOL's (rtol 2e-3, atol 2e-4)
 DECODE_REPEATS = 20
 JPEG_PREPARE_COPIES = 8  # the JPEG fixtures, this many times over, through prepare_data
+WEBP_PREPARE_COPIES = 12  # the 178 x 218 WebP fixtures, this many times over, the same way
+# ms per decode reported by kind: the fixtures' name patterns of each
+DECODE_KINDS = {"jpeg_178x218": "head_*.jpg", "webp_lossy_178x218": "webp_lossy.webp",
+                "webp_lossy_vp8x_178x218": "webp_[ae]*.webp",  # alpha, extended
+                "webp_lossless_178x218": "webp_lossless.webp",
+                "webp_lossy_512": "webp_lossy_512.webp",
+                "webp_lossless_512": "webp_lossless_512.webp",
+                "webp_lossy_encoder_settings_128x96": "webp_[nops]*.webp",
+                "bmp_kinds_48x64": "bmp_*.bmp"}
+WEBP_PREPARE_FILES = ("webp_lossy.webp", "webp_lossless.webp", "webp_alpha.webp",
+                      "webp_extended.webp")
 BRIDGE_BATCH, BRIDGE_RESUME_ITERS = 2, 2
 
 
@@ -2637,6 +2653,13 @@ def image_fixtures() -> list:
     """The committed image files (each with its PIL decode ``<name>.npy``)."""
     return sorted(n for n in os.listdir(IMAGE_FIXTURES)
                   if not n.endswith((".npy", ".py")))
+
+
+def train_cli_fixtures() -> list:
+    """The committed image files train_cli's store holds beside its
+    procedural images: the ``head*`` JPEG, PNG and BMP heads (the WebP and
+    BMP-kind fixtures are decoded and timed by bridge_and_images only)."""
+    return [n for n in image_fixtures() if n.startswith("head")]
 
 
 def decode_fixtures() -> dict:
@@ -2743,9 +2766,12 @@ def bridge_and_images(results: dict, smi: str, td: str, cli: dict) -> None:
 
     t_phase = time.perf_counter()
     decoded = decode_fixtures()
-    jpeg_ms = [r["ms"] for n, r in decoded.items() if n.endswith(".jpg")]
+    decode_ms = {kind: statistics.median(r["ms"] for n, r in decoded.items()
+                                         if fnmatch.fnmatch(n, pattern))
+                 for kind, pattern in DECODE_KINDS.items()}
     emit(phase="bridge_decode", nvidia_smi=smi, files=decoded,
-         jpeg_178x218_decode_ms_median=statistics.median(jpeg_ms))
+         jpeg_178x218_decode_ms_median=decode_ms["jpeg_178x218"],
+         decode_ms_median_by_kind=decode_ms)
 
     jpegs = os.path.join(td, "jpegs")
     os.makedirs(jpegs)
@@ -2762,6 +2788,22 @@ def bridge_and_images(results: dict, smi: str, td: str, cli: dict) -> None:
     rec_prepare = dict(jpegs=n_jpeg, size=CLI_SIZE, seconds=prep["seconds"],
                        images_per_s=n_jpeg / prep["seconds"])
     emit(phase="bridge_prepare_jpeg", nvidia_smi=smi, **rec_prepare)
+    webps = os.path.join(td, "webps")
+    os.makedirs(webps)
+    for k in range(WEBP_PREPARE_COPIES):
+        for name in WEBP_PREPARE_FILES:
+            shutil.copy(os.path.join(IMAGE_FIXTURES, name), os.path.join(webps, f"{k}_{name}"))
+    n_webp = len(os.listdir(webps))
+    prep = run_module("prepare_data", ["webps", "--out", "webp_store", "--size", str(CLI_SIZE),
+                                       "--n_worker", "8"], td)
+    ds = MultiResolutionDataset(os.path.join(td, "webp_store"), CLI_SIZE, CLI_THUMB)
+    check(len(ds) == n_webp, "prepare_data stored every WebP")
+    check(ds.__getitem__(1, np.random.default_rng(0))[0].shape == (CLI_SIZE, CLI_SIZE, 3),
+          "a WebP record reads back at the store's size")
+    ds.close()
+    rec_prepare_webp = dict(webps=n_webp, size=CLI_SIZE, seconds=prep["seconds"],
+                            images_per_s=n_webp / prep["seconds"])
+    emit(phase="bridge_prepare_webp", nvidia_smi=smi, **rec_prepare_webp)
 
     # the committed JAX run, imported (stage A's archive by the CLI, in the wave)
     samples, size, configs = jax_fixture_configs()
@@ -2867,8 +2909,9 @@ def bridge_and_images(results: dict, smi: str, td: str, cli: dict) -> None:
     del b, state
 
     rec = dict(decode={n: r["ms"] for n, r in decoded.items()},
-               jpeg_178x218_decode_ms_median=statistics.median(jpeg_ms),
-               prepare_jpeg=rec_prepare, import_cli_s=import_s,
+               jpeg_178x218_decode_ms_median=decode_ms["jpeg_178x218"],
+               decode_ms_median_by_kind=decode_ms, prepare_jpeg=rec_prepare,
+               prepare_webp=rec_prepare_webp, import_cli_s=import_s,
                import_stage_b_s=import_stage_b_s, serve_jax=serve, stage_b_resume=resume,
                train_entry_s=entry_s, cli_beside="stage C's wave",
                stage_c_e_ms=[r["e_ms"] for r in c_rows],
@@ -2891,7 +2934,7 @@ GIRAFFE_FIXTURE = os.path.join(HERE, "tests", "fixtures", "jax_giraffe_run")
 GIRAFFE_FIXTURE_FLAGS = ["--i_embed", "1", "--log2_hashmap_size", "10", "--finest_res", "64"]
 GIRAFFE_FIXTURE_KW = {k[2:]: int(v) for k, v in zip(GIRAFFE_FIXTURE_FLAGS[::2],
                                                      GIRAFFE_FIXTURE_FLAGS[1::2])}
-GIRAFFE_IMAGES = "tests/fixtures/images/head*[gp]"  # the committed image files
+GIRAFFE_IMAGES = "tests/fixtures/images/head*[gp]"  # the head image files (not webp_*, bmp_*)
 # The surface model: ffhq_256's seeded plain generator with its density
 # scaled so that the mesh CLIs' level (0.005) cuts object 0's box (a seeded
 # density peaks near alpha 0.002 at 64^3, the fixture's is flat).

@@ -54,7 +54,7 @@ def main() -> int:
         for i, img in enumerate(cs.procedural_images(cs.CLI_IMAGES, cs.CLI_HW, seed=11)):
             with open(os.path.join(td, "imgs", f"{i:05d}.png"), "wb") as f:
                 f.write(encode_png(img))
-        for name in cs.image_fixtures():
+        for name in cs.train_cli_fixtures():
             shutil.copy(os.path.join(cs.IMAGE_FIXTURES, name), os.path.join(td, "imgs", name))
         cs.run_module("prepare_data", ["imgs", "--out", "store", "--size", str(cs.CLI_SIZE),
                                        "--n_worker", "8"], td)

@@ -1,34 +1,36 @@
 """The port's image decoder: the format is chosen by the file's magic
 bytes, not by its name, as PIL's ``Image.open`` chooses it.
 
-PNG (``png.py``), baseline JPEG (``jpeg.py``) and uncompressed BMP
-(``bmp.py``) decode to [H, W, 3] uint8 RGB, byte for byte what the JAX
-package's ``Image.open(...).convert("RGB")`` gives with PIL 12 and its
-libjpeg-turbo.  WebP, the other JPEG kinds (progressive, arithmetic-coded,
-lossless, 12-bit, CMYK, YCCK) and compressed BMP raise ``ValueError``
-naming ROADMAP.md; so does a file of no image format the port knows.
+PNG (``png.py``), baseline JPEG (``jpeg.py``), still WebP, lossy and
+lossless (``webp.py``), and BMP (``bmp.py``: uncompressed, RLE8, RLE4,
+bit-field and 16-bit) decode to [H, W, 3] uint8 RGB, byte for byte what the
+JAX package's ``Image.open(...).convert("RGB")`` gives with PIL 12, its
+libjpeg-turbo and its libwebp.  Animated WebP and the other JPEG kinds
+(progressive, arithmetic-coded, lossless, 12-bit, CMYK, YCCK) raise
+``ValueError`` naming ROADMAP.md; the BMP kinds PIL refuses too (JPEG- or
+PNG-compressed, unusual bit fields) raise saying so; so does a file of no
+image format the port knows.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from . import bmp, jpeg, png
+from . import bmp, jpeg, png, webp
 
 
 def image_kind(data: bytes) -> str:
-    """``"png"``, ``"jpeg"`` or ``"bmp"`` by the magic bytes."""
+    """``"png"``, ``"jpeg"``, ``"webp"`` or ``"bmp"`` by the magic bytes."""
     if data.startswith(png.SIGNATURE):
         return "png"
     if data.startswith(jpeg.SIGNATURE):
         return "jpeg"
+    if webp.is_webp(data):
+        return "webp"
     if data.startswith(bmp.SIGNATURE):
         return "bmp"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise ValueError("WebP is not read by the port (it reads PNG, baseline JPEG and "
-                         "uncompressed BMP; WebP is a gap listed in ROADMAP.md, queue 1 item 4)")
-    raise ValueError("not an image the port reads (PNG, baseline JPEG or uncompressed BMP, "
-                     "known by their first bytes)")
+    raise ValueError("not an image the port reads (PNG, baseline JPEG, WebP or BMP, known by "
+                     "their first bytes)")
 
 
 def check_image(data: bytes) -> None:
@@ -39,6 +41,8 @@ def check_image(data: bytes) -> None:
         png.read_header(data)
     elif kind == "jpeg":
         jpeg.jpeg_size(data)
+    elif kind == "webp":
+        webp.webp_size(data)
     else:
         bmp.Header(data)
 
@@ -50,4 +54,6 @@ def decode_image(data: bytes) -> np.ndarray:
         return png.decode_png(data)
     if kind == "jpeg":
         return jpeg.decode_jpeg(data)
+    if kind == "webp":
+        return webp.decode_webp(data)
     return bmp.decode_bmp(data)

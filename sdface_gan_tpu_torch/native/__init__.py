@@ -1,6 +1,6 @@
 """Host-side native code of the port, loaded with ctypes: the record store,
-the PNG unfilter loop, the JPEG decoder, marching cubes and the mesh
-rasterizer.
+the PNG unfilter loop, the JPEG and WebP decoders, the RLE loop of BMP,
+marching cubes and the mesh rasterizer.
 
 Port of ``sdface_gan_tpu/native/__init__.py`` (``RecordWriter``,
 ``RecordReader``, ``marching_cubes``, ``raster_mesh``) over the port's own
@@ -9,7 +9,9 @@ copies of ``recordstore.cpp``, ``marching_cubes.cpp`` (with
 JAX package's: a store written by either package is read by the other.
 ``png_unfilter.cpp`` holds the serial part of the port's PNG decoder
 (``data/png.py``), ``jpeg_decode.cpp`` the baseline JPEG decoder
-(``data/jpeg.py``).
+(``data/jpeg.py``), ``webp_decode.cpp`` the WebP decoder (``data/webp.py``)
+and ``bmp_rle.cpp`` the run-length loop of the BMP decoder
+(``data/bmp.py``).
 
 The sources are compiled on first use with one ``g++`` into one shared
 library in ``.torch_ext_build/`` at the repository root (listed in
@@ -32,8 +34,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
-_SOURCES = ("recordstore.cpp", "png_unfilter.cpp", "jpeg_decode.cpp", "marching_cubes.cpp",
-            "rasterizer.cpp")
+_SOURCES = ("recordstore.cpp", "png_unfilter.cpp", "jpeg_decode.cpp", "webp_decode.cpp",
+            "bmp_rle.cpp", "marching_cubes.cpp", "rasterizer.cpp")
 _HEADERS = ("mc_tables.h",)
 BUILD_DIR = _DIR.parents[1] / ".torch_ext_build"
 # -march=native as the JAX package builds its copy: the rasterizer's
@@ -113,11 +115,16 @@ def lib() -> ctypes.CDLL:
             L.png_unfilter.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_int64]
-            L.jpeg_decode.restype = ctypes.c_int
-            L.jpeg_decode.argtypes = [
-                ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-                ctypes.c_char_p, ctypes.c_int64]
+            for decoder in (L.jpeg_decode, L.webp_decode):
+                decoder.restype = ctypes.c_int
+                decoder.argtypes = [
+                    ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                    ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+                    ctypes.c_char_p, ctypes.c_int64]
+            L.bmp_rle_decode.restype = ctypes.c_int64
+            L.bmp_rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                                         ctypes.c_void_p]
             L.mc_run.restype = ctypes.c_void_p
             L.mc_run.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                                  ctypes.c_int64, ctypes.c_float]

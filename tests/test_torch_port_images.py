@@ -3,9 +3,10 @@
 PIL writes (or, where PIL writes no such file, the functions here write)
 the bytes; ``PIL.Image.open(...).convert("RGB")`` and the port's
 ``data.decode.decode_image`` read them; the two must be equal byte for
-byte.  PIL 12 with libjpeg-turbo is the reference the JAX package reads
-images with.  Kinds the port does not read raise ``ValueError`` naming
-ROADMAP.md.  The committed fixtures (``tests/fixtures/images/``) are held
+byte.  PIL 12 with libjpeg-turbo and libwebp is the reference the JAX
+package reads images with.  Kinds the port does not read raise
+``ValueError`` naming ROADMAP.md, or saying that PIL does not read them
+either.  The committed fixtures (``tests/fixtures/images/``) are held
 against the PIL decodes committed beside them, as the card's machine,
 which has no PIL, holds them.
 """
@@ -27,6 +28,19 @@ from sdface_gan_tpu_torch.data.decode import check_image, decode_image
 from sdface_gan_tpu_torch.native import RecordReader
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures" / "images"
+# committed fixtures of the WebP and BMP kinds (make_image_fixtures.py);
+# the files libwebp's advanced encoder wrote, with the header field each holds
+WEBP_ENCODER_FIXTURES = {"webp_simple_filter.webp": ("simple", 1),
+                         "webp_partitions4.webp": ("partitions", 4),
+                         "webp_partitions8.webp": ("partitions", 8),
+                         "webp_one_segment.webp": ("segments", 0),
+                         "webp_sharpness7.webp": ("sharpness", 7),
+                         "webp_no_filter.webp": ("level", 0)}
+WEBP_FIXTURES = ["webp_lossy.webp", "webp_lossless.webp", "webp_alpha.webp",
+                 "webp_extended.webp", "webp_lossy_512.webp", "webp_lossless_512.webp",
+                 *WEBP_ENCODER_FIXTURES]
+BMP_FIXTURES = ["bmp_rle8.bmp", "bmp_rle4.bmp", "bmp_bitfields565.bmp", "bmp_rgb555.bmp",
+                "bmp_bitfields_alpha.bmp"]
 
 
 def _pil(data: bytes) -> np.ndarray:
@@ -116,6 +130,25 @@ def png_samples(rng, h: int, w: int, ctype: int, depth: int):
     return s, plte
 
 
+def _bmp_file(w: int, h: int, bits: int, compression: int, pixels: bytes,
+              palette: np.ndarray = None, masks=None, header: int = 40) -> bytes:
+    """A BMP with a ``header``-byte DIB header: bit-field ``masks`` inside a
+    header of 52 bytes or more (the alpha mask from 56), after a 40-byte
+    one; a negative ``h`` is top-down."""
+    dib = struct.pack("<IiiHHIIiiII", header, w, h, 1, bits, compression, len(pixels), 2835,
+                      2835, 0 if palette is None else len(palette), 0)
+    extra = b""
+    if masks is not None and header == 40:
+        extra = struct.pack("<III", *masks[:3])
+    elif header > 40:
+        dib += struct.pack("<IIII", *(tuple(masks or ()) + (0, 0, 0, 0))[:4])[:header - 40]
+        dib = dib.ljust(header, b"\0")
+    pal = b"" if palette is None else b"".join(bytes([p[2], p[1], p[0], 0]) for p in palette)
+    body = dib + extra + pal + pixels
+    return (b"BM" + struct.pack("<IHHI", 14 + len(body), 0, 0, 14 + len(dib) + len(extra)
+                                + len(pal)) + body)
+
+
 def bmp_bytes(values: np.ndarray, bits: int, palette: np.ndarray = None,
               top_down: bool = False) -> bytes:
     """An uncompressed (BI_RGB) BMP with a 40-byte header: ``values`` are
@@ -131,11 +164,134 @@ def bmp_bytes(values: np.ndarray, bits: int, palette: np.ndarray = None,
         else:
             b = _packed_rows(r[None, :, None], bits).tobytes()
         rows.append(b + bytes(stride - len(b)))
-    pal = b"" if palette is None else b"".join(bytes([p[2], p[1], p[0], 0]) for p in palette)
-    dib = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bits, 0, stride * h,
-                      2835, 2835, 0 if palette is None else len(palette), 0)
-    body = dib + pal + b"".join(rows)
-    return b"BM" + struct.pack("<IHHI", 14 + len(body), 0, 0, 14 + len(dib) + len(pal)) + body
+    return _bmp_file(w, -h if top_down else h, bits, 0, b"".join(rows), palette)
+
+
+def rle_commands(index: np.ndarray, rle4: bool, odd_runs: bool = False) -> bytes:
+    """Run-length commands for rows of palette indices [h, w], first row
+    first: encoded runs of equal pixels, absolute runs of 3 or more
+    others (RLE4: of even length unless ``odd_runs``, whose runs of 4k + 3
+    PIL reads short by one pixel), an end of line after each row and an
+    end of bitmap."""
+    out = bytearray()
+    for row in index:
+        x, w = 0, len(row)
+        while x < w:
+            n = 1
+            while x + n < w and n < 255 and row[x + n] == row[x]:
+                n += 1
+            if n >= 2 or w - x < 3:
+                out += bytes([n, int(row[x]) * 17 if rle4 else int(row[x])])
+                x += n
+                continue
+            n = 3
+            while x + n < w and n < 254 and row[x + n] != row[x + n - 1]:
+                n += 1
+            if rle4 and n % 2 and not (odd_runs and n % 4 == 3):
+                n -= 1
+            if n < 3:
+                out += bytes([1, int(row[x]) * 17 if rle4 else int(row[x])])
+                x += 1
+                continue
+            vals = [int(v) for v in row[x:x + n]]
+            data = (bytes(vals) if not rle4 else
+                    bytes((vals[i] << 4) | (vals[i + 1] if i + 1 < n else 0)
+                          for i in range(0, n, 2)))
+            out += bytes([0, n]) + data + bytes(len(data) % 2)
+            x += n
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def bmp_rle_bytes(index: np.ndarray, rle4: bool, palette: np.ndarray, commands: bytes = None,
+                  top_down: bool = False, bits: int = None) -> bytes:
+    """An RLE8 / RLE4 BMP of palette indices [h, w] (bottom-up unless
+    ``top_down``), encoded by :func:`rle_commands` or given as ``commands``."""
+    h, w = index.shape
+    if commands is None:
+        commands = rle_commands(index if top_down else index[::-1], rle4)
+    return _bmp_file(w, -h if top_down else h, bits or (4 if rle4 else 8), 2 if rle4 else 1,
+                     commands, palette)
+
+
+def bmp_bitfield_bytes(rgb: np.ndarray, bits: int, masks, header: int = 40,
+                       compression: int = 3) -> bytes:
+    """A bit-field (or, with ``compression`` 0, plain) 16-, 24- or 32-bit BMP
+    of RGB [h, w, 3]; each channel is placed under its mask (a 32-bit alpha
+    channel gets 7)."""
+    h, w = rgb.shape[:2]
+    v = np.zeros((h, w), np.uint64)
+    chans = [rgb[..., c].astype(np.uint64) for c in range(3)] + [np.full((h, w), 7, np.uint64)]
+    for m, c in zip(tuple(masks) + (0,) * (4 - len(masks)), chans):
+        if m:
+            shift = (m & -m).bit_length() - 1
+            width = bin(m).count("1")
+            v |= ((c >> np.uint64(8 - width)) if width < 8 else c) << np.uint64(shift)
+    stride = (bits * w + 31) // 32 * 4
+    raw = v.astype("<u4").view(np.uint8).reshape(h, w, 4)[..., :bits // 8].reshape(h, -1)
+    rows = b"".join(r.tobytes().ljust(stride, b"\0") for r in raw[::-1])
+    return _bmp_file(w, h, bits, compression, rows, masks=masks if compression else None,
+                     header=header)
+
+
+class _BoolReader:
+    """RFC 6386's boolean decoder, enough to read a VP8 frame header."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos, self.value, self.bits, self.range = data, 0, 0, -8, 254
+        self._load()
+
+    def _load(self):
+        byte = self.data[self.pos] if self.pos < len(self.data) else 0
+        self.pos += 1
+        self.value, self.bits = (self.value << 8) | byte, self.bits + 8
+
+    def bit(self, prob: int) -> int:
+        if self.bits < 0:
+            self._load()
+        split = (self.range * prob) >> 8
+        if (self.value >> self.bits) > split:
+            rng, self.value, b = self.range - split, self.value - ((split + 1) << self.bits), 1
+        else:
+            rng, b = split + 1, 0
+        shift = 8 - rng.bit_length()
+        self.range, self.bits = (rng << shift) - 1, self.bits - shift
+        return b
+
+    def value_of(self, n: int, signed: bool = False) -> int:
+        v = 0
+        for i in range(n - 1, -1, -1):
+            v |= self.bit(128) << i
+        return -v if signed and self.bit(128) else v
+
+
+def vp8_header_fields(data: bytes) -> dict:
+    """A lossy WebP's segment count (0: segmentation off), loop filter
+    (simple, level, sharpness) and token partitions, from its first
+    partition."""
+    at = data.index(b"VP8 ") + 8
+    part0 = int.from_bytes(data[at:at + 3], "little") >> 5
+    br = _BoolReader(data[at + 10:at + 10 + part0])
+    br.value_of(2)  # colour space, clamping
+    segments = 0
+    if br.value_of(1):
+        segments, update_map = 4, br.value_of(1)
+        if br.value_of(1):
+            br.value_of(1)
+            for bits in (7,) * 4 + (6,) * 4:
+                if br.value_of(1):
+                    br.value_of(bits, signed=True)
+        if update_map:
+            for _ in range(3):
+                if br.value_of(1):
+                    br.value_of(8)
+    simple, level, sharpness = br.value_of(1), br.value_of(6), br.value_of(3)
+    if br.value_of(1) and br.value_of(1):
+        for _ in range(8):
+            if br.value_of(1):
+                br.value_of(6, signed=True)
+    return dict(segments=segments, simple=simple, level=level, sharpness=sharpness,
+                partitions=1 << br.value_of(2))
 
 
 def adobe_rgb(jpeg: bytes) -> bytes:
@@ -155,6 +311,12 @@ def _jpeg(img: np.ndarray, tmp_path=None, **kw) -> bytes:
     path = tmp_path / "x.jpg"  # optimize=True needs a real file at large sizes
     Image.fromarray(img).save(path, "JPEG", **kw)
     return path.read_bytes()
+
+
+def _webp(img, **kw) -> bytes:
+    buf = io.BytesIO()
+    (img if isinstance(img, Image.Image) else Image.fromarray(img)).save(buf, "WEBP", **kw)
+    return buf.getvalue()
 
 
 # ------------------------------------------------------------------- JPEG
@@ -200,24 +362,24 @@ def _sof_patched(data: bytes, sof: int = None, precision: int = None) -> bytes:
     return bytes(out)
 
 
+def animated_webp(n_frames: int = 2) -> bytes:
+    frames = [Image.fromarray(_smooth(16, 16, seed=i)) for i in range(n_frames)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], duration=50)
+    return buf.getvalue()
+
+
 def test_refused_kinds_raise_naming_roadmap():
     img = _smooth(16, 16)
     baseline = _jpeg(img, quality=90)
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, "JPEG", progressive=True)
-    webp = io.BytesIO()
-    Image.fromarray(img).save(webp, "WEBP")
     cmyk = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(cmyk, "JPEG")
-    rle = bytearray(bmp_bytes(np.zeros((4, 4), np.int64), 8, np.zeros((2, 3), np.int64)))
-    rle[30:34] = struct.pack("<I", 1)  # BI_RLE8
-    rgb16 = bytearray(bmp_bytes(np.zeros((4, 4, 3), np.int64), 24))
-    rgb16[28:30] = struct.pack("<H", 16)
-    cases = {"progressive": buf.getvalue(), "WebP": webp.getvalue(), "CMYK": cmyk.getvalue(),
-             "arithmetic": _sof_patched(baseline, sof=0xC9),
+    cases = {"progressive": buf.getvalue(), "animated WebP": animated_webp(),
+             "CMYK": cmyk.getvalue(), "arithmetic": _sof_patched(baseline, sof=0xC9),
              "lossless": _sof_patched(baseline, sof=0xC3),
-             "12-bit": _sof_patched(baseline, precision=12), "RLE8": bytes(rle),
-             "16-bit BMP": bytes(rgb16)}
+             "12-bit": _sof_patched(baseline, precision=12)}
     for what, data in cases.items():
         for fn in (decode_image, check_image):
             with pytest.raises(ValueError, match="ROADMAP") as e:
@@ -241,6 +403,193 @@ def test_truncated_and_corrupt_files_raise():
     bmp = bmp_bytes(np.zeros((6, 5, 3), np.int64), 24)
     with pytest.raises(ValueError, match="truncated"):
         decode_image(bmp[:-10])
+
+
+# ------------------------------------------------------------------- WebP
+WEBP_SIZES = ((1, 1), (7, 9), (17, 33), (218, 178))
+
+
+def _two_images(size, seed):
+    """A smooth image and uniform noise: few and many coefficients."""
+    return (_smooth(*size, seed=seed),
+            np.random.default_rng(seed).integers(0, 256, (*size, 3), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("method", [0, 4, 6])
+@pytest.mark.parametrize("quality", [0, 50, 80, 100])
+def test_webp_lossy_matches_pil(quality, method):
+    """Lossy VP8 at four qualities and three methods, at sizes that are not
+    multiples of 16 (or of 2): the upsampler's edges, the 4x4 blocks'
+    top-right pixels, the loop filter's order and per-segment levels; and
+    at 512^2."""
+    for size in WEBP_SIZES + ((512, 512),):
+        for img in _two_images(size, quality + method):
+            data = _webp(img, quality=quality, method=method)
+            assert data[12:16] == b"VP8 "
+            np.testing.assert_array_equal(decode_image(data), _pil(data), err_msg=f"{size}")
+
+
+def _alpha(size, seed):
+    """Real alpha: transparent top half, noise below."""
+    a = np.random.default_rng(seed).integers(0, 256, size, dtype=np.uint8)
+    a[:size[0] // 2] = 0
+    return a
+
+
+@pytest.mark.parametrize("case", ["grey", "rgba", "rgba_alpha_q50", "exif", "icc", "512"])
+def test_webp_lossy_variants_match_pil(case):
+    """``L`` images, RGBA with real alpha (``VP8X`` + ``ALPH``, also at
+    ``alpha_quality=50``), ``EXIF`` and ``ICCP`` chunks, and a smooth 512^2
+    image at PIL's default settings."""
+    sizes = ((512, 512),) if case == "512" else WEBP_SIZES
+    for size in sizes:
+        img = _smooth(*size, seed=11)
+        if case == "grey":
+            data = _webp(img[..., 1], quality=70)
+        elif case.startswith("rgba"):
+            aq = 50 if case.endswith("q50") else 100
+            data = _webp(np.dstack([img, _alpha(size, 3)]), quality=80, alpha_quality=aq)
+            assert data[12:16] == b"VP8X" and b"ALPH" in data
+        elif case == "exif":
+            data = _webp(img, quality=70, exif=b"Exif\0\0II*\0\x08\0\0\0\0\0")
+            assert b"EXIF" in data
+        elif case == "icc":
+            data = _webp(img, quality=70, icc_profile=bytes(range(131)))
+            assert b"ICCP" in data
+        else:
+            data = _webp(img, quality=80)
+        np.testing.assert_array_equal(decode_image(data), _pil(data), err_msg=f"{size}")
+
+
+@pytest.mark.parametrize("quality", [0, 100])
+@pytest.mark.parametrize("method", [0, 6])
+def test_webp_lossless_matches_pil(method, quality):
+    """Lossless VP8L at the fastest and slowest settings: the predictor
+    (its top row and left column), cross-colour and subtract-green
+    transforms, the colour cache, meta prefix codes and back-references,
+    up to 512^2."""
+    for size in WEBP_SIZES + ((64, 200), (512, 512)):
+        for img in _two_images(size, 7 * method + quality):
+            data = _webp(img, lossless=True, method=method, quality=quality)
+            assert data[12:16] == b"VP8L"
+            np.testing.assert_array_equal(decode_image(data), _pil(data), err_msg=f"{size}")
+
+
+@pytest.mark.parametrize("case", ["colors2", "colors3", "colors11", "colors200", "rgba",
+                                  "exact", "grey"])
+def test_webp_lossless_variants_match_pil(case):
+    """Colour-indexed images of 2, <= 4, <= 16 and <= 256 colours (pixel
+    bundling of 8, 4, 2 and 1 per pixel, at widths the bundles do not
+    divide), RGBA, ``exact=True`` (the RGB under transparent pixels kept)
+    and grey."""
+    rng = np.random.default_rng(len(case))
+    for size in WEBP_SIZES + ((21, 43),):
+        img = _smooth(*size, seed=5)
+        if case.startswith("colors"):
+            n = int(case[6:])
+            pal = rng.integers(0, 256, (n, 3), dtype=np.uint8)
+            bands = (np.add.outer(np.arange(size[0]), np.arange(size[1])) // 3) % n
+            img = pal[np.where(rng.random(size) < 0.2, rng.integers(0, n, size), bands)]
+            kw = {}
+        elif case in ("rgba", "exact"):
+            img = np.dstack([img, _alpha(size, 4)])
+            kw = {"exact": case == "exact"}
+        else:
+            img, kw = img[..., 0], {}
+        data = _webp(img, lossless=True, **kw)
+        np.testing.assert_array_equal(decode_image(data), _pil(data), err_msg=f"{size}")
+
+
+def test_webp_encoder_settings_pil_cannot_set_are_held_by_fixtures():
+    """The simple loop filter, 4 and 8 token partitions, one segment,
+    sharpness 7 and no filter come from libwebp's advanced encoder, which
+    PIL's save cannot reach: committed fixtures hold them (their headers
+    are checked here), with PIL's decodes beside them."""
+    for name, (field, value) in WEBP_ENCODER_FIXTURES.items():
+        data = (FIXTURES / name).read_bytes()
+        assert vp8_header_fields(data)[field] == value, name
+        np.testing.assert_array_equal(decode_image(data), _pil(data), err_msg=name)
+
+
+def test_webp_alpha_is_not_decoded():
+    """The port checks an ``ALPH`` chunk's header but does not decode it:
+    the RGB does not depend on it.  So a file whose compressed alpha alone
+    is corrupt is read by the port, with the RGB of the intact file, where
+    PIL (libwebp) refuses it (ROADMAP.md, queue 3's deliberate differences)."""
+    rgb = _smooth(40, 40)
+    alpha = (np.mgrid[:40, :40][1] * 6).astype(np.uint8)
+    good = _webp(np.dstack([rgb, alpha]), quality=80)
+    at = good.index(b"ALPH")
+    n = struct.unpack("<I", good[at + 4:at + 8])[0]
+    assert good[at + 8] & 3 == 1  # lossless-compressed alpha
+    bad = good[:at + 9] + b"\xff" * (n - 1) + good[at + 8 + n:]
+    with pytest.raises(OSError):
+        _pil(bad)
+    np.testing.assert_array_equal(decode_image(bad), _pil(good))
+    broken_header = bytearray(good)
+    broken_header[at + 8] |= 0xC0  # reserved bits set
+    with pytest.raises(ValueError, match="corrupt"):
+        check_image(bytes(broken_header))
+
+
+@pytest.mark.parametrize("kind", ["lossy", "lossless", "palette"])
+def test_webp_flipped_bytes_match_pil_or_raise(kind):
+    """Random bytes past the frame header overwritten (seeded): wherever
+    PIL still decodes the file, the port gives the same bytes, and where
+    the port raises, so does PIL (the decoders read the chunk's pad byte as
+    libwebp's demuxer hands it over)."""
+    img = _smooth(24, 40, seed=4)
+    if kind == "palette":
+        img = (img // 64 * 64).astype(np.uint8)
+    data = _webp(img, quality=70) if kind == "lossy" else _webp(img, lossless=True)
+    rng = np.random.default_rng(len(kind))
+    both = 0
+    for _ in range(150):
+        bad = bytearray(data)
+        for at in rng.integers(30, len(bad), rng.integers(1, 4)):
+            bad[at] = rng.integers(0, 256)
+        try:
+            want = _pil(bytes(bad))
+        except (ValueError, OSError, SyntaxError):
+            want = None
+        try:
+            got = decode_image(bytes(bad))
+        except ValueError as e:
+            assert want is None and "ROADMAP" not in str(e), str(e)
+            continue
+        if want is not None:
+            np.testing.assert_array_equal(got, want)
+            both += 1
+    assert both >= 10
+
+
+def test_webp_truncated_and_corrupt_files_raise():
+    """Cut files (also with their RIFF and chunk sizes cut to match, so the
+    bitstreams themselves end early) and broken headers raise ``ValueError``
+    ("truncated" / "corrupt"), not ROADMAP."""
+    img = _smooth(40, 50, seed=2)
+    for data in (_webp(img, quality=80), _webp(img, lossless=True)):
+        assert decode_image(data).shape == (40, 50, 3)
+        cuts = [data[:n] for n in (12, 20, 30, len(data) // 2, len(data) - 1)]
+        for n in (40, len(data) // 3, len(data) - 8):
+            cut = bytearray(data[:n])
+            cut[4:8] = struct.pack("<I", n - 8)
+            cut[16:20] = struct.pack("<I", n - 20)
+            cuts.append(bytes(cut))
+        for bad in cuts:
+            for fn in (decode_image, check_image) if len(bad) < 30 else (decode_image,):
+                with pytest.raises(ValueError, match="truncated|corrupt") as e:
+                    fn(bad)
+                assert "ROADMAP" not in str(e.value)
+    lossy = bytearray(_webp(img, quality=80))
+    lossy[23:26] = b"\0\0\0"  # the VP8 start code
+    lossless = bytearray(_webp(img, lossless=True))
+    lossless[20] = 0x2e  # the VP8L signature
+    extended = bytearray(_webp(np.dstack([img, _alpha((40, 50), 1)]), quality=80))
+    extended[24:27] = struct.pack("<I", 60)[:3]  # the canvas width
+    for bad in (lossy, lossless, extended):
+        with pytest.raises(ValueError, match="corrupt"):
+            decode_image(bytes(bad))
 
 
 # -------------------------------------------------------------------- PNG
@@ -290,6 +639,104 @@ def test_pil_written_bmp_matches_pil(mode):
     np.testing.assert_array_equal(decode_image(buf.getvalue()), _pil(buf.getvalue()))
 
 
+def _palette_image(rng, h: int, w: int, n: int) -> np.ndarray:
+    """Indices with runs (stripes) broken by noise: encoded and absolute
+    runs both."""
+    stripes = (np.arange(w)[None, :] // 5 + np.arange(h)[:, None] // 3) % n
+    return np.where(rng.random((h, w)) < 0.3, rng.integers(0, n, (h, w)), stripes)
+
+
+@pytest.mark.parametrize("top_down", [False, True])
+@pytest.mark.parametrize("rle4", [False, True])
+def test_bmp_rle_matches_pil(rle4, top_down):
+    """RLE8 and RLE4 files from :func:`rle_commands` (end of line after
+    each row, end of bitmap), also with odd RLE4 absolute runs, which PIL
+    reads short; a palette shorter than the indices reach; grey palettes."""
+    rng = np.random.default_rng(2 * rle4 + top_down)
+    n = 16 if rle4 else 256
+    for h, w in ((1, 1), (3, 5), (9, 17), (20, 13), (7, 300)):
+        idx = _palette_image(rng, h, w, n)
+        for pal in (rng.integers(0, 256, (n - 3, 3)), np.repeat(np.arange(n)[:, None], 3, 1)):
+            data = bmp_rle_bytes(idx, rle4, pal, top_down=top_down)
+            np.testing.assert_array_equal(decode_image(data), _pil(data), err_msg=f"{h}x{w}")
+        rows = idx if top_down else idx[::-1]
+        data = bmp_rle_bytes(idx, rle4, pal, rle_commands(rows, rle4, odd_runs=True), top_down)
+        np.testing.assert_array_equal(decode_image(data), _pil(data), err_msg=f"odd {h}x{w}")
+
+
+@pytest.mark.parametrize("rle4", [False, True])
+def test_bmp_rle_escapes_match_pil(rle4):
+    """Hand-written command streams: runs cut at the row's end, end of
+    line on a full row, delta escapes (PIL skips two bytes before reading
+    the pair), absolute runs at odd file positions, end of bitmap before
+    the last row (PIL raises, so does the port), and random streams
+    (whatever PIL gives, the port gives; where PIL fails, the port
+    raises)."""
+    pal = np.random.default_rng(9).integers(0, 256, (16, 3))
+    v = 0x3A if rle4 else 7
+    streams = [
+        bytes([200, v, 0, 0, 3, v, 0, 0, 0, 1]),                          # run cut at width
+        bytes([5, v, 0, 0, 0, 0, 2, v, 0, 0, 0, 1]),                      # EOL on a full row
+        bytes([0, 2, 9, 9, 2, 1, 1, v, 0, 0, 5, v, 0, 0, 0, 1]),          # delta
+        bytes([1, v, 0, 3, 1, 2, 3, 0, 0, 5, v, 0, 0, 0, 1]),             # absolute at odd pos
+        bytes([0, 4, 0x12, 0x34, 0x56, 0x78, 1, v, 0, 0, 5, v, 0, 1]),    # absolute, even
+        bytes([5, v, 0, 0, 0, 1]),                                        # ends early
+        bytes([0, 5, 0x12, 0x34, 0x56, 0, 0, 0, 5, v, 0, 0, 5, v, 0, 1]),  # odd RLE4 run
+    ]
+    rng = np.random.default_rng(int(rle4))
+    for _ in range(150):
+        cmds = bytearray()
+        for _ in range(rng.integers(1, 12)):
+            k = rng.integers(0, 5)
+            if k == 0:
+                cmds += bytes([rng.integers(1, 9), rng.integers(0, 256)])
+            elif k == 1:
+                cmds += b"\0\0"
+            elif k == 2:
+                cmds += bytes([0, 2, *rng.integers(0, 4, 4)])
+            else:
+                n = int(rng.integers(3, 12))
+                cmds += bytes([0, n, *rng.integers(0, 256, n)])
+        streams.append(bytes(cmds + b"\0\1"))
+    passed = 0
+    for cmds in streams:
+        data = bmp_rle_bytes(np.zeros((3, 5), np.int64), rle4, pal, cmds)
+        try:
+            want = _pil(data)
+        except (ValueError, OSError):
+            with pytest.raises(ValueError, match="truncated"):
+                decode_image(data)
+            continue
+        np.testing.assert_array_equal(decode_image(data), want, err_msg=cmds.hex())
+        passed += 1
+    assert passed >= 60
+
+
+BITFIELD_MASKS = {"565": (0xF800, 0x7E0, 0x1F), "555": (0x7C00, 0x3E0, 0x1F),
+                  "bgr24": (0xFF0000, 0xFF00, 0xFF), "bgrx": (0xFF0000, 0xFF00, 0xFF, 0),
+                  "xbgr": (0xFF000000, 0xFF0000, 0xFF00, 0),
+                  "bgxr": (0xFF000000, 0xFF00, 0xFF, 0),
+                  "abgr": (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+                  "rgba": (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+                  "bgra": (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                  "bgar": (0xFF000000, 0xFF00, 0xFF, 0xFF0000), "zero": (0, 0, 0, 0)}
+# an alpha mask is read from a header of 56 bytes or more
+BITFIELD_CASES = [(layout, header) for layout, m in BITFIELD_MASKS.items()
+                  for header in (40, 56, 108, 124) if header > 40 or len(m) == 3 or not m[3]]
+
+
+@pytest.mark.parametrize("layout,header", BITFIELD_CASES)
+def test_bmp_bitfields_match_pil(layout, header):
+    """``BI_BITFIELDS`` with every mask set PIL knows, the masks after a
+    40-byte header or inside a larger one."""
+    masks = BITFIELD_MASKS[layout]
+    bits = 16 if len(masks) == 3 and masks[0] < 0x10000 else 24 if len(masks) == 3 else 32
+    rng = np.random.default_rng(bits)
+    for h, w in ((1, 1), (3, 5), (9, 17)):
+        data = bmp_bitfield_bytes(rng.integers(0, 256, (h, w, 3)), bits, masks, header)
+        np.testing.assert_array_equal(decode_image(data), _pil(data), err_msg=f"{h}x{w}")
+
+
 # --------------------------------------------------------------- fixtures
 def _fixture_names():
     return sorted(p.name for p in FIXTURES.iterdir() if p.suffix != ".npy"
@@ -301,6 +748,7 @@ def test_committed_fixtures_decode_to_their_pil_decodes():
     committed beside it (the card's machine checks against the latter)."""
     names = _fixture_names()
     assert sum(n.endswith(".jpg") for n in names) >= 6 and len(names) >= 10
+    assert set(WEBP_FIXTURES + BMP_FIXTURES) <= set(names)
     for name in names:
         data = (FIXTURES / name).read_bytes()
         want = np.load(FIXTURES / (name + ".npy"))
@@ -318,36 +766,41 @@ def _mixed_folder(d: Path) -> None:
     s, plte = png_samples(np.random.default_rng(5), 33, 28, 3, 4)
     (d / "04.png").write_bytes(png_bytes(s, 3, 4, 1, plte))
     (d / "05.jpeg").write_bytes(_jpeg(_smooth(31, 31, seed=6)[..., 0], quality=70))
+    (d / "06.webp").write_bytes(_webp(_smooth(29, 35, seed=7), quality=75))
+    (d / "07.webp").write_bytes(_webp(_smooth(33, 27, seed=8), lossless=True))
 
 
 def test_prepare_on_jpeg_bmp_and_png_writes_the_jax_store(tmp_path):
-    """The port's ``prepare_data`` on a folder of JPEG, BMP and palette /
-    interlaced PNG files: every record decodes to the JAX ``prepare_data``'s
-    (which opens the files with PIL)."""
+    """The port's ``prepare_data`` on a folder of JPEG, BMP, palette /
+    interlaced PNG and lossy / lossless WebP files: every record decodes to
+    the JAX ``prepare_data``'s (which opens the files with PIL)."""
     d = tmp_path / "imgs"
     _mixed_folder(d)
-    assert j_prepare(str(d), str(tmp_path / "jax"), sizes=(16, 24), n_workers=1) == 6
-    assert prepare_data(str(d), str(tmp_path / "port"), sizes=(16, 24), n_workers=2) == 6
+    assert j_prepare(str(d), str(tmp_path / "jax"), sizes=(16, 24), n_workers=1) == 8
+    assert prepare_data(str(d), str(tmp_path / "port"), sizes=(16, 24), n_workers=2) == 8
     with JReader(str(tmp_path / "jax")) as ref, RecordReader(str(tmp_path / "port")) as ours:
         keys = list(ref.keys())
-        assert list(ours.keys()) == keys and len(keys) == 13
+        assert list(ours.keys()) == keys and len(keys) == 17
         for k in keys[:-1]:
             np.testing.assert_array_equal(png.decode_png(ours.get(k)), _pil(ref.get(k)),
                                           err_msg=k)
 
 
 def test_prepare_refuses_webp_before_writing(tmp_path):
+    """An animated WebP among still ones stops ``prepare_data`` before it
+    writes anything."""
     d = tmp_path / "imgs"
     _mixed_folder(d)
-    Image.fromarray(_smooth(20, 20)).save(d / "06.webp", "WEBP")
-    with pytest.raises(ValueError, match="06.webp: WebP .*ROADMAP"):
+    (d / "08.webp").write_bytes(animated_webp())
+    with pytest.raises(ValueError, match="08.webp: animated WebP .*ROADMAP"):
         prepare_data(str(d), str(tmp_path / "out"), sizes=(16,), n_workers=1)
     assert not (tmp_path / "out").exists()
 
 
 def test_calc_fid_stats_reads_a_jpeg_folder_as_pil_decodes_it(tmp_path, monkeypatch):
-    """``calc_fid_stats`` on JPEG, BMP and PNG files gives the statistics of
-    the same images stored as PIL's decodes (random Inception weights)."""
+    """``calc_fid_stats`` on JPEG, BMP, PNG and WebP files gives the
+    statistics of the same images stored as PIL's decodes (random Inception
+    weights)."""
     import torch
 
     from sdface_gan_tpu_torch import calc_fid_stats as calc_cli
@@ -364,8 +817,60 @@ def test_calc_fid_stats_reads_a_jpeg_folder_as_pil_decodes_it(tmp_path, monkeypa
     monkeypatch.chdir(tmp_path)
     args = ["--img_size", "24", "--batch", "4", "--inception_weights", "inception.pth",
             "--device", "cpu"]
-    assert calc_cli.main(["imgs", "--out", "a.npz", *args]) == 6
-    assert calc_cli.main(["decoded", "--out", "b.npz", *args]) == 6
+    assert calc_cli.main(["imgs", "--out", "a.npz", *args]) == 8
+    assert calc_cli.main(["decoded", "--out", "b.npz", *args]) == 8
     with np.load("a.npz") as a, np.load("b.npz") as b:
         np.testing.assert_array_equal(a["mu"], b["mu"])
         np.testing.assert_array_equal(a["sigma"], b["sigma"])
+
+
+def test_bmp_16_bit_and_grey_palettes_match_pil():
+    """16-bit ``BI_RGB`` (5-5-5, the top bit ignored) over every value, and
+    palettes PIL reads as grey: entry i grey i (``L``: an index past the
+    entries is still grey), two entries black and white (``1``: read bit by
+    bit whatever the depth)."""
+    values = np.arange(65536).reshape(256, 256)
+    rows = b"".join(r.astype("<u2").tobytes() for r in values[::-1])
+    data = _bmp_file(256, 256, 16, 0, rows)
+    np.testing.assert_array_equal(decode_image(data), _pil(data))
+    rng = np.random.default_rng(0)
+    for bits, pal in ((8, np.repeat(np.arange(16)[:, None], 3, 1)),
+                      (8, np.array([[0, 0, 0], [255, 255, 255]])),
+                      (4, np.array([[0, 0, 0], [255, 255, 255]])),
+                      (1, np.array([[0, 0, 0], [255, 255, 255]])),
+                      (4, np.repeat(np.arange(16)[:, None], 3, 1))):
+        for h, w in ((3, 1), (5, 3), (9, 17)):
+            data = bmp_bytes(rng.integers(0, 1 << bits, (h, w)), bits, pal)
+            try:
+                want = _pil(data)
+            except (ValueError, OSError):
+                with pytest.raises(ValueError, match="nor by PIL"):
+                    decode_image(data)
+                continue
+            np.testing.assert_array_equal(decode_image(data), want, err_msg=f"{bits} {h}x{w}")
+
+
+def test_bmp_kinds_pil_refuses_raise_saying_so():
+    """JPEG- and PNG-compressed and alpha bit-field bitmaps, masks PIL does
+    not know, RLE over a black-and-white palette and 2-bit pixels: PIL
+    refuses each, and the port raises saying so (no ROADMAP gap)."""
+    rgb = np.zeros((4, 4, 3), np.int64)
+    bw = np.array([[0, 0, 0], [255, 255, 255]])
+    jpeg = bytearray(bmp_bytes(rgb, 24))
+    jpeg[30:34] = struct.pack("<I", 4)
+    png_kind = bytearray(bmp_bytes(rgb, 24))
+    png_kind[30:34] = struct.pack("<I", 5)
+    two_bit = bytearray(bmp_bytes(np.zeros((4, 4), np.int64), 4, bw[[0, 1, 1, 0]]))
+    two_bit[28:30] = struct.pack("<H", 2)
+    cases = {"JPEG": bytes(jpeg), "PNG": bytes(png_kind),
+             "alpha bit-field": bmp_bitfield_bytes(rgb, 32, (0xFF0000, 0xFF00, 0xFF, 0), 56, 6),
+             "bit-field masks": bmp_bitfield_bytes(rgb, 16, (0xF000, 0xF00, 0xF0)),
+             "black-and-white": bmp_rle_bytes(np.zeros((4, 4), np.int64), False, bw),
+             "2-bit": bytes(two_bit)}
+    for what, data in cases.items():
+        with pytest.raises((ValueError, OSError)):
+            _pil(data)
+        for fn in (decode_image, check_image):
+            with pytest.raises(ValueError, match="nor by PIL") as e:
+                fn(data)
+            assert what in str(e.value) and "ROADMAP" not in str(e.value), str(e.value)

@@ -314,13 +314,15 @@ class _Draws:
         return self.retry
 
 
-LSUN_FILES = sorted(n for n in os.listdir(IMAGES) if n.endswith((".jpg", ".png", ".bmp")))
+LSUN_FILES = sorted(n for n in os.listdir(IMAGES)
+                    if n.endswith((".jpg", ".png", ".bmp", ".webp")))
 MISSING = 3  # no record under this index: the dataset retries
 
 
 @pytest.fixture(scope="module")
 def lsun_store(tmp_path_factory):
-    """The committed JPEG, PNG and BMP fixtures under zero-padded keys, one
+    """The committed JPEG, PNG, BMP and WebP fixtures (LSUN's archives hold
+    WebP) under zero-padded keys, one
     index left out; a second store keyed ``lsun-<3 digits>`` without a
     ``length`` record."""
     root = tmp_path_factory.mktemp("lsun")
@@ -341,7 +343,8 @@ def lsun_store(tmp_path_factory):
 @pytest.mark.parametrize("flip", [0.1, 0.9])
 def test_lsun_class_matches_jax_on_every_image_kind(lsun_store, flip, tanh):
     """Every committed image kind centre-cropped to its shorter side (the
-    178 x 218 JPEGs and the 64 x 48 PNGs and BMP) and LANCZOS-resized to
+    178 x 218 JPEGs and WebPs, the 64 x 48 PNGs and BMPs, the 128 x 96 and
+    512^2 WebPs) and LANCZOS-resized to
     48^2; flipped when the draw is above 0.5; [0, 1] or [-1, 1]."""
     ours = LSUNClass(lsun_store["keyed"], size=48, use_tanh_range=tanh)
     ref = j_dataset.LSUNClass(lsun_store["keyed"], size=48, use_tanh_range=tanh)
