@@ -243,10 +243,13 @@ any failure raises and exits non-zero with no ``ok`` line:
 13. bridge_and_images - inside train_cli's directory, after train_stage_c:
              every committed image of ``tests/fixtures/images/`` (JPEGs of
              178 x 218 in 4:2:0, 4:2:2, 4:4:4, grey and with restart
-             markers; palette, interlaced and 16-bit PNG; BMP, also RLE8,
-             RLE4, bit-field and 16-bit; lossy, lossless, alpha and
-             extended WebP at 178 x 218, lossy WebP of libwebp's other
-             encoder settings, lossy and lossless WebP at 512^2) decoded by
+             markers, progressive (one block-smoothed), arithmetic-coded,
+             lossless, CMYK, YCCK and sampled h1v2, h4v1, h4v2 and chroma
+             above luma; palette, interlaced and 16-bit PNG; BMP, also
+             RLE8, RLE4, bit-field and 16-bit; lossy, lossless, alpha,
+             extended and animated WebP at 178 x 218, lossy WebP of
+             libwebp's other encoder settings, lossy and lossless WebP at
+             512^2) decoded by
              the port byte-equal to the PIL decode committed beside it, ms
              per decode (medians by kind); 48 JPEGs and 48 WebPs through
              ``prepare_data --size 256`` (images/s); the committed JAX run
@@ -2637,9 +2640,18 @@ DECODE_REPEATS = 20
 JPEG_PREPARE_COPIES = 8  # the JPEG fixtures, this many times over, through prepare_data
 WEBP_PREPARE_COPIES = 12  # the 178 x 218 WebP fixtures, this many times over, the same way
 # ms per decode reported by kind: the fixtures' name patterns of each
-DECODE_KINDS = {"jpeg_178x218": "head_*.jpg", "webp_lossy_178x218": "webp_lossy.webp",
-                "webp_lossy_vp8x_178x218": "webp_[ae]*.webp",  # alpha, extended
+DECODE_KINDS = {"jpeg_178x218": "head_*.jpg",
+                "jpeg_progressive_178x218": "jpeg_progressive_[4r]*.jpg",  # 4:2:0, restarts
+                "jpeg_progressive_smoothed_178x218": "jpeg_progressive_smoothed.jpg",
+                "jpeg_arith_178x218": "jpeg_arith*.jpg",  # sequential, progressive
+                "jpeg_lossless_178x218": "jpeg_lossless_*.jpg",
+                "jpeg_cmyk_178x218": "jpeg_cmyk*.jpg",  # PIL's, jpeg_writer.c's
+                "jpeg_ycck_178x218": "jpeg_ycck.jpg",
+                "jpeg_samplings_178x218": "jpeg_[hc][1-4h]*.jpg",  # h1v2, h4v1, h4v2, chroma above
+                "webp_lossy_178x218": "webp_lossy.webp",
+                "webp_lossy_vp8x_178x218": "webp_[ae][lx]*.webp",  # alpha, extended
                 "webp_lossless_178x218": "webp_lossless.webp",
+                "webp_animated_178x218": "webp_anim_*.webp",
                 "webp_lossy_512": "webp_lossy_512.webp",
                 "webp_lossless_512": "webp_lossless_512.webp",
                 "webp_lossy_encoder_settings_128x96": "webp_[nops]*.webp",
@@ -2777,7 +2789,7 @@ def bridge_and_images(results: dict, smi: str, td: str, cli: dict) -> None:
     os.makedirs(jpegs)
     for k in range(JPEG_PREPARE_COPIES):
         for name in image_fixtures():
-            if name.endswith(".jpg"):
+            if fnmatch.fnmatch(name, DECODE_KINDS["jpeg_178x218"]):  # the baseline heads
                 shutil.copy(os.path.join(IMAGE_FIXTURES, name), os.path.join(jpegs, f"{k}_{name}"))
     n_jpeg = len(os.listdir(jpegs))
     prep = run_module("prepare_data", ["jpegs", "--out", "jpeg_store", "--size", str(CLI_SIZE),

@@ -5,10 +5,9 @@ repository's ``calc_fid_stats.py``, with the same flags plus ``--device``.
 
 Writes the ``fid_file`` that ``eval`` reads (``mu``, ``sigma`` and the
 ``img_size`` the images were resized to, LANCZOS as PIL does).  The port
-reads PNG, baseline JPEG, still WebP and BMP as PIL decodes them; a
-directory holding another file (animated WebP, another JPEG kind, or a
-``.npy`` array, which the JAX CLI cannot open either) raises before any
-work.
+reads PNG, JPEG, WebP and BMP as PIL decodes them; a directory holding
+another file (a kind PIL refuses too, or a ``.npy`` array, which the JAX
+CLI cannot open either) raises before any work.
 """
 
 from __future__ import annotations

@@ -1,15 +1,16 @@
 """The port's image decoder: the format is chosen by the file's magic
 bytes, not by its name, as PIL's ``Image.open`` chooses it.
 
-PNG (``png.py``), baseline JPEG (``jpeg.py``), still WebP, lossy and
-lossless (``webp.py``), and BMP (``bmp.py``: uncompressed, RLE8, RLE4,
+PNG (``png.py``), JPEG (``jpeg.py``: sequential, progressive,
+arithmetic-coded and lossless; grey, YCbCr, RGB, CMYK and YCCK; every whole
+sampling ratio), WebP (``webp.py``: lossy and lossless, still and the first
+frame of an animation) and BMP (``bmp.py``: uncompressed, RLE8, RLE4,
 bit-field and 16-bit) decode to [H, W, 3] uint8 RGB, byte for byte what the
 JAX package's ``Image.open(...).convert("RGB")`` gives with PIL 12, its
-libjpeg-turbo and its libwebp.  Animated WebP and the other JPEG kinds
-(progressive, arithmetic-coded, lossless, 12-bit, CMYK, YCCK) raise
-``ValueError`` naming ROADMAP.md; the BMP kinds PIL refuses too (JPEG- or
-PNG-compressed, unusual bit fields) raise saying so; so does a file of no
-image format the port knows.
+libjpeg-turbo and its libwebp.  The kinds PIL refuses too (12- and 16-bit,
+hierarchical or lossless arithmetic-coded JPEG, fractional samplings;
+JPEG- or PNG-compressed BMP, unusual bit fields) raise ``ValueError``
+saying so, as does a file of no image format the port knows.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ def image_kind(data: bytes) -> str:
         return "webp"
     if data.startswith(bmp.SIGNATURE):
         return "bmp"
-    raise ValueError("not an image the port reads (PNG, baseline JPEG, WebP or BMP, known by "
-                     "their first bytes)")
+    raise ValueError("not an image the port reads (PNG, JPEG, WebP or BMP, known by their "
+                     "first bytes)")
 
 
 def check_image(data: bytes) -> None:

@@ -1,14 +1,21 @@
-"""Baseline JPEG decoding without PIL, through the port's native decoder
+"""JPEG decoding without PIL, through the port's native decoder
 (``native/jpeg_decode.cpp``).
 
 What the JAX package gets from ``Image.open(path).convert("RGB")`` with
-PIL's libjpeg-turbo, byte for byte: the ISLOW integer IDCT, the fancy
-h2v1 / h2v2 upsamplers and libjpeg's YCbCr -> RGB tables.  Baseline (and
-extended) sequential Huffman files at 8 bits with 1 or 3 components,
-sampled 4:4:4, 4:2:2 or 4:2:0, with or without restart markers, are read;
-progressive, lossless, arithmetic-coded, 12-bit, CMYK and YCCK files and
-other samplings raise ``ValueError`` naming ROADMAP.md, as do truncated or
-corrupt ones.
+PIL's libjpeg-turbo, byte for byte, for every kind PIL reads: sequential
+(baseline and extended) and progressive Huffman files (with libjpeg's
+block smoothing where the scans leave coefficients unrefined),
+arithmetic-coded sequential and progressive files, lossless Huffman files
+(predictors 1-7, any point transform), at 8 bits with 1 (grey), 3 (YCbCr
+or RGB) or 4 (CMYK or YCCK, then PIL's CMYK -> RGB) components, sampled 1
+to 4 times per direction in any whole ratio, with or without restart
+markers.  libjpeg's ISLOW integer IDCT, upsamplers and colour tables give
+the bytes.
+
+The kinds PIL refuses too (12- and 16-bit, hierarchical, lossless
+arithmetic-coded, 2 or more than 4 components, fractional sampling ratios,
+a height left to a DNL marker) raise ``ValueError`` saying so; truncated
+or corrupt files raise naming the fault.
 """
 
 from __future__ import annotations
@@ -32,8 +39,8 @@ def _run(data: bytes, out) -> tuple:
                            0 if out is None else out.nbytes, ctypes.byref(h), ctypes.byref(w),
                            err, len(err))
     if rc == _UNSUPPORTED:
-        raise ValueError(f"{err.value.decode()} is not read by the port (it reads baseline "
-                         "JPEG; the other kinds are a gap listed in ROADMAP.md, queue 1 item 4)")
+        raise ValueError(f"{err.value.decode()} is not read by the port, nor by PIL, which the "
+                         "JAX package reads images with")
     if rc == _CORRUPT:
         raise ValueError(f"corrupt or truncated JPEG: {err.value.decode()}")
     return rc, h.value, w.value

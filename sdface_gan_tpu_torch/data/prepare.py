@@ -8,9 +8,9 @@ Each image's shorter side is resized to every requested size with LANCZOS
 ``length`` record.  Resizing fans out over a process pool; the single
 writer appends in order.  A folder is listed as the JAX package lists it
 (PNG, JPEG, WebP, BMP, by extension); each file is decoded by its content
-(``decode.py``: PNG, baseline JPEG, still WebP, BMP, as PIL decodes them),
-and a folder holding a file the port does not read (animated WebP, the
-other JPEG kinds) raises before anything is written.  ``.npy`` arrays
+(``decode.py``: PNG, JPEG, WebP, BMP, as PIL decodes them), and a folder
+holding a file the port does not read (a kind PIL refuses too, or a
+corrupt one) raises before anything is written.  ``.npy`` arrays
 ([H, W] or [H, W, 3 or 4] uint8) are listed and read only on request
 (``npy=True``): the JAX package skips them.
 """
@@ -34,8 +34,8 @@ IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")  # the JAX package's lis
 
 def check_readable(path: str, npy: bool = False) -> None:
     """Raise ``ValueError`` unless the port reads ``path``: an image whose
-    header :func:`check_image` accepts (PNG, baseline JPEG, still WebP,
-    BMP, by content), or a ``.npy`` array when ``npy`` asks for it
+    header :func:`check_image` accepts (PNG, JPEG, WebP, BMP, by
+    content), or a ``.npy`` array when ``npy`` asks for it
     (``prepare_data`` only)."""
     if os.path.splitext(path)[1].lower() == ".npy":
         if npy:
@@ -52,7 +52,7 @@ def check_readable(path: str, npy: bool = False) -> None:
 
 
 def load_image(path: str) -> np.ndarray:
-    """An image file (PNG, baseline JPEG, still WebP or BMP) -> [H, W, 3] uint8 RGB."""
+    """An image file (PNG, JPEG, WebP or BMP) -> [H, W, 3] uint8 RGB."""
     if os.path.splitext(path)[1].lower() == ".npy":
         check_readable(path)  # raises: arrays are read only by prepare_data, on request
     with open(path, "rb") as f:

@@ -4,11 +4,12 @@
 What the JAX package gets from ``Image.open(path).convert("RGB")`` with
 PIL's libwebp, byte for byte: lossy VP8 key frames (libwebp's loop
 filters, its "fancy" chroma upsampler and fixed-point YUV -> RGB) and
-lossless VP8L images, in the simple ``VP8 `` / ``VP8L`` files and the
-extended ``VP8X`` ones holding one still image.  An ``ALPH`` chunk's
-header is checked but its alpha is not decoded: the RGB does not depend on
-it.  Animated files raise ``ValueError`` naming ROADMAP.md, as do truncated
-or corrupt ones (naming no ROADMAP item).
+lossless VP8L images, in the simple ``VP8 `` / ``VP8L`` files, the
+extended ``VP8X`` ones holding one still image, and animated files, of
+which PIL gives the first frame on the canvas (zero outside the frame).
+An ``ALPH`` chunk's header is checked but its alpha is not decoded: the
+RGB does not depend on it.  Truncated or corrupt files raise
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 from ..native import lib
 
 SIGNATURE = (b"RIFF", b"WEBP")  # bytes 0-3 and 8-11; the RIFF size lies between
-_CORRUPT, _UNSUPPORTED = -1, -2
+_CORRUPT = -1
 
 
 def _run(data: bytes, out) -> tuple:
@@ -31,9 +32,6 @@ def _run(data: bytes, out) -> tuple:
     rc = lib().webp_decode(data, len(data), None if out is None else out.ctypes.data,
                            0 if out is None else out.nbytes, ctypes.byref(h), ctypes.byref(w),
                            err, len(err))
-    if rc == _UNSUPPORTED:
-        raise ValueError(f"{err.value.decode()} is not read by the port (it reads still WebP "
-                         "images; animated WebP is a gap listed in ROADMAP.md, queue 1 item 4)")
     if rc == _CORRUPT:
         raise ValueError(f"corrupt or truncated WebP: {err.value.decode()}")
     return rc, h.value, w.value
@@ -45,8 +43,9 @@ def is_webp(data: bytes) -> bool:
 
 
 def webp_size(data: bytes) -> tuple:
-    """(height, width) of WebP bytes from the container and the frame
-    header; an animated, truncated or corrupt file raises ``ValueError``."""
+    """(height, width) of WebP bytes (an animation's canvas) from the
+    container and the frame headers; a truncated or corrupt file raises
+    ``ValueError``."""
     _, h, w = _run(data, None)
     return h, w
 

@@ -3,12 +3,12 @@ batches of [n, H, W, 3] float32 in [-1, 1].
 
 The JAX package's scoring entries read directories with PIL
 (``convert("RGB")``, then ``resize(LANCZOS)``); the port decodes PNG,
-baseline JPEG, still WebP and BMP with its own decoders, byte for byte as
-PIL does (``data/decode.py``), and resizes with its PIL-exact LANCZOS
+JPEG, WebP and BMP with its own decoders, byte for byte as PIL does
+(``data/decode.py``), and resizes with its PIL-exact LANCZOS
 (``data/resample.py``).  A directory is checked whole before any work
-starts: a file the port cannot decode (animated WebP, the other JPEG
-kinds) raises there, naming the gap, and so does a ``.npy`` file (PIL,
-which the JAX package opens every file with, reads none).
+starts: a file the port cannot decode (a kind PIL refuses too, or a
+corrupt one) raises there, and so does a ``.npy`` file (PIL, which the JAX
+package opens every file with, reads none).
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ copies of ``recordstore.cpp``, ``marching_cubes.cpp`` (with
 ``mc_tables.h``) and ``rasterizer.cpp``.  The store's on-disk format is the
 JAX package's: a store written by either package is read by the other.
 ``png_unfilter.cpp`` holds the serial part of the port's PNG decoder
-(``data/png.py``), ``jpeg_decode.cpp`` the baseline JPEG decoder
-(``data/jpeg.py``), ``webp_decode.cpp`` the WebP decoder (``data/webp.py``)
+(``data/png.py``), ``jpeg_decode.cpp`` the JPEG decoder (``data/jpeg.py``;
+its progressive, arithmetic and lossless scans in ``jpeg_progressive.cpp``,
+``jpeg_arith.cpp`` and ``jpeg_lossless.cpp``, what they share in
+``jpeg_common.h``), ``webp_decode.cpp`` the WebP decoder (``data/webp.py``)
 and ``bmp_rle.cpp`` the run-length loop of the BMP decoder
 (``data/bmp.py``).
 
@@ -34,9 +36,10 @@ from typing import Optional, Tuple
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
-_SOURCES = ("recordstore.cpp", "png_unfilter.cpp", "jpeg_decode.cpp", "webp_decode.cpp",
-            "bmp_rle.cpp", "marching_cubes.cpp", "rasterizer.cpp")
-_HEADERS = ("mc_tables.h",)
+_SOURCES = ("recordstore.cpp", "png_unfilter.cpp", "jpeg_decode.cpp", "jpeg_progressive.cpp",
+            "jpeg_arith.cpp", "jpeg_lossless.cpp", "webp_decode.cpp", "bmp_rle.cpp",
+            "marching_cubes.cpp", "rasterizer.cpp")
+_HEADERS = ("mc_tables.h", "jpeg_common.h")
 BUILD_DIR = _DIR.parents[1] / ".torch_ext_build"
 # -march=native as the JAX package builds its copy: the rasterizer's
 # barycentric products then contract to the same FMAs

@@ -1,15 +1,19 @@
-// WebP decoding, byte for byte as libwebp 1.6 decodes a still image into
-// RGBA with its default options (what PIL's Image.open(...).convert("RGB")
+// WebP decoding, byte for byte as libwebp 1.6 decodes a file into RGBA
+// with its default options (what PIL's Image.open(...).convert("RGB")
 // gives: PIL reads WebP through libwebp's animation decoder, which decodes
 // a still image's one frame with WebPDecode into an RGBA canvas).  Integer
 // arithmetic only, so every compiler gives the same bytes.
 //
-// Container (RIFF): the simple formats "VP8 " and "VP8L", and the extended
-// format "VP8X" holding one still image.  ICCP, EXIF, XMP and unknown
+// Container (RIFF): the simple formats "VP8 " and "VP8L", the extended
+// format "VP8X" holding one still image, and animated VP8X files (ANIM,
+// ANMF), checked as libwebp's demuxer checks them: every frame has an
+// image chunk (ALPH only before VP8) and lies inside the canvas.  Of an
+// animation the first frame is decoded, as the animation decoder does for
+// PIL: a key frame, decoded into a zero-filled canvas at its offset and
+// never blended, so the RGB outside it is 0.  ICCP, EXIF, XMP and unknown
 // chunks are skipped; an ALPH chunk's header is checked but its alpha is
-// not decoded, since the RGB does not depend on it.  The VP8X canvas must
-// equal the frame.  Animated files (the VP8X animation flag, ANIM or ANMF
-// chunks) return WEBP_UNSUPPORTED.
+// not decoded, since the RGB does not depend on it.  A still image's VP8X
+// canvas must equal the frame.
 //
 // Lossy VP8 key frames (RFC 6386): the boolean decoder, segmentation,
 // quantizer and loop-filter deltas, 1-8 token partitions, dequantization
@@ -31,10 +35,10 @@
 //                   char* err, int64_t err_size)
 //
 // Parses the file; returns WEBP_OK after writing height x width x 3 RGB
-// bytes to ``out`` when ``out_size`` holds them, WEBP_NEED_BUFFER with the
-// size set when it does not (call again with a buffer; only the headers
-// are read then), or an error code with a message in ``err``: truncated or
-// corrupt data WEBP_CORRUPT, an animated file WEBP_UNSUPPORTED.
+// bytes (the canvas) to ``out`` when ``out_size`` holds them,
+// WEBP_NEED_BUFFER with the size set when it does not (call again with a
+// buffer; only the headers are read then), or WEBP_CORRUPT with a message
+// in ``err`` for truncated or corrupt data.
 
 #include <algorithm>
 #include <cstdint>
@@ -46,12 +50,9 @@
 
 namespace {
 
-enum { WEBP_OK = 0, WEBP_NEED_BUFFER = 1, WEBP_CORRUPT = -1, WEBP_UNSUPPORTED = -2 };
+enum { WEBP_OK = 0, WEBP_NEED_BUFFER = 1, WEBP_CORRUPT = -1 };
 
 struct Corrupt : std::runtime_error {
-  using std::runtime_error::runtime_error;
-};
-struct Unsupported : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
 
@@ -1818,16 +1819,74 @@ class Vp8lDecoder {
 };
 
 // ============================================================ container
-struct Image {
+// A frame's bitstream: the payload of a "VP8 " or "VP8L" chunk.
+struct Bitstream {
   const uint8_t* data = nullptr;
   size_t size = 0;        // the payload with its pad byte, as libwebp's demuxer passes it
   size_t chunk_size = 0;  // the payload's declared size
   bool lossless = false;
-  bool extended = false;
-  int canvas_w = 0, canvas_h = 0;
-  const uint8_t* alpha = nullptr;
+  const uint8_t* alpha = nullptr;  // the ALPH payload before a lossy bitstream
   size_t alpha_size = 0;
 };
+
+// The image PIL decodes: a still image (the canvas), or the first frame of
+// an animation at its offset on the canvas.
+struct Image {
+  Bitstream frame;
+  bool extended = false, animated = false;
+  int canvas_w = 0, canvas_h = 0;
+  int x = 0, y = 0;  // the frame's offset on an animation's canvas
+};
+
+constexpr uint8_t kAnimationFlag = 0x02, kValidFlags = 0x3E;  // alpha, animation, EXIF, ICCP, XMP
+constexpr uint64_t kMaxImageArea = uint64_t(1) << 32;
+
+// The frame header the demuxer checks (WebPGetFeatures): its size.
+void bitstream_size(const Bitstream& b, int* w, int* h) {
+  if (b.lossless) {
+    Vp8lDecoder dec(b.data, b.size);
+    *w = dec.width();
+    *h = dec.height();
+  } else {
+    Vp8Decoder dec(b.data, b.size, b.chunk_size);
+    *w = dec.width();
+    *h = dec.height();
+  }
+}
+
+// An ANMF frame's chunks from ``pos`` to ``end``: ALPH (lossy only), then
+// the bitstream, then chunks that are skipped (not another image).
+Bitstream parse_frame(const uint8_t* d, size_t pos, size_t end) {
+  Bitstream b;
+  while (pos < end) {
+    if (end - pos < 8) throw Corrupt("ANMF frame truncated");
+    const uint8_t* tag = d + pos;
+    const uint32_t csize = le32(d + pos + 4);
+    const size_t padded = size_t(csize) + (csize & 1);
+    if (padded > end - pos - 8) throw Corrupt("chunk overruns its ANMF frame");
+    const uint8_t* payload = d + pos + 8;
+    const bool image = !memcmp(tag, "VP8 ", 4) || !memcmp(tag, "VP8L", 4);
+    if (b.data) {
+      if (image || !memcmp(tag, "ALPH", 4) || !memcmp(tag, "ANMF", 4) || !memcmp(tag, "VP8X", 4))
+        throw Corrupt("a second image in an ANMF frame");
+    } else if (!memcmp(tag, "ALPH", 4)) {
+      if (b.alpha) throw Corrupt("two ALPH chunks in an ANMF frame");
+      b.alpha = payload;
+      b.alpha_size = csize;
+    } else if (image) {
+      b.data = payload;
+      b.size = padded;
+      b.chunk_size = csize;
+      b.lossless = tag[3] == 'L';
+      if (b.lossless && b.alpha) throw Corrupt("ALPH chunk before a VP8L image");
+    } else {
+      throw Corrupt("ANMF frame without an image chunk first");
+    }
+    pos += 8 + padded;
+  }
+  if (!b.data) throw Corrupt("ANMF frame without an image chunk");
+  return b;
+}
 
 Image parse_container(const uint8_t* d, size_t n) {
   if (n < 12 || memcmp(d, "RIFF", 4) != 0 || memcmp(d + 8, "WEBP", 4) != 0)
@@ -1837,48 +1896,85 @@ Image parse_container(const uint8_t* d, size_t n) {
   if (riff_size > n - 8) throw Corrupt("file truncated (shorter than its RIFF size)");
   const size_t end = 8 + size_t(riff_size);
   Image img;
+  Bitstream& still = img.frame;
+  bool anim_seen = false, have_frame = false;
   size_t pos = 12;
   for (bool first = true;; first = false) {
+    if (img.animated && pos == end) break;
     if (end - pos < 8) throw Corrupt("file truncated before its image chunk");
     const uint8_t* tag = d + pos;
     const uint32_t csize = le32(d + pos + 4);
     if (csize > end - pos - 8) throw Corrupt("chunk truncated");
     const uint8_t* payload = d + pos + 8;
+    const size_t padded = size_t(csize) + (csize & 1);
     if (!memcmp(tag, "VP8 ", 4) || !memcmp(tag, "VP8L", 4)) {
-      img.data = payload;
-      img.chunk_size = csize;
-      img.size = std::min<size_t>(size_t(csize) + (csize & 1), end - pos - 8);
-      img.lossless = tag[3] == 'L';
-      if (img.lossless && img.alpha) throw Corrupt("ALPH chunk before a VP8L image");
+      if (img.animated) throw Corrupt("an image chunk outside ANMF in an animated WebP");
+      still.data = payload;
+      still.chunk_size = csize;
+      still.size = std::min<size_t>(padded, end - pos - 8);
+      still.lossless = tag[3] == 'L';
+      if (still.lossless && still.alpha) throw Corrupt("ALPH chunk before a VP8L image");
       return img;
     }
     if (first && !memcmp(tag, "VP8X", 4)) {
       if (csize < 10) throw Corrupt("VP8X chunk too small");
-      if (payload[0] & 0x02) throw Unsupported("animated WebP");
+      if (payload[0] & ~kValidFlags) throw Corrupt("VP8X flags invalid");
       img.extended = true;
+      img.animated = payload[0] & kAnimationFlag;
       img.canvas_w = int(le24(payload + 4)) + 1;
       img.canvas_h = int(le24(payload + 7)) + 1;
-    } else if (!memcmp(tag, "ANIM", 4) || !memcmp(tag, "ANMF", 4)) {
-      throw Unsupported("animated WebP");
+      if (uint64_t(img.canvas_w) * uint64_t(img.canvas_h) >= kMaxImageArea)
+        throw Corrupt("VP8X canvas too large");
     } else if (!img.extended) {
       throw Corrupt("simple WebP file without VP8 or VP8L chunk first");
-    } else if (!memcmp(tag, "ALPH", 4) && !img.alpha) {
-      img.alpha = payload;
-      img.alpha_size = csize;
+    } else if (!memcmp(tag, "ANIM", 4) || !memcmp(tag, "ANMF", 4)) {
+      if (!img.animated) throw Corrupt("ANIM or ANMF chunk without the VP8X animation flag");
+      if (padded > end - pos - 8) throw Corrupt("chunk truncated");
+      if (tag[1] == 'N' && tag[2] == 'I') {
+        if (padded < 6) throw Corrupt("ANIM chunk too small");
+        anim_seen = true;
+      } else {
+        // ANMF: x / 2, y / 2, width - 1, height - 1 (24 bits each), duration, flags
+        if (!anim_seen) throw Corrupt("ANMF chunk before ANIM");
+        if (padded < 16) throw Corrupt("ANMF chunk too small");
+        const int x = 2 * int(le24(payload)), y = 2 * int(le24(payload + 3));
+        if (uint64_t(le24(payload + 6) + 1) * uint64_t(le24(payload + 9) + 1) >= kMaxImageArea)
+          throw Corrupt("ANMF frame too large");
+        const Bitstream frame = parse_frame(d, pos + 8 + 16, pos + 8 + padded);
+        int w, h;  // the bitstream's size, which the demuxer takes over the ANMF's
+        bitstream_size(frame, &w, &h);
+        if (x + w > img.canvas_w || y + h > img.canvas_h)
+          throw Corrupt("ANMF frame outside the canvas");
+        if (!have_frame) {
+          have_frame = true;
+          still = frame;
+          img.x = x;
+          img.y = y;
+        }
+      }
+    } else if (img.animated && !memcmp(tag, "ALPH", 4)) {
+      throw Corrupt("an image chunk outside ANMF in an animated WebP");
+    } else if (!memcmp(tag, "VP8X", 4)) {
+      throw Corrupt("a second VP8X chunk");
+    } else if (!memcmp(tag, "ALPH", 4) && !still.alpha) {
+      still.alpha = payload;
+      still.alpha_size = csize;
     }  // ICCP, EXIF, XMP and unknown chunks are skipped
-    pos += 8 + size_t(csize) + (csize & 1);
+    pos += 8 + padded;
     if (pos > end) throw Corrupt("file truncated before its image chunk");
   }
+  if (!have_frame) throw Corrupt("animated WebP without frames");
+  return img;
 }
 
 // The header of an ALPH chunk (its alpha is not decoded: the RGB does not
 // depend on it).
-void check_alpha(const Image& img, int w, int h) {
-  if (img.alpha_size < 1) throw Corrupt("ALPH chunk empty");
-  const int b = img.alpha[0];
-  const int method = b & 3, pre = (b >> 4) & 3, reserved = (b >> 6) & 3;
+void check_alpha(const Bitstream& b, int w, int h) {
+  if (b.alpha_size < 1) throw Corrupt("ALPH chunk empty");
+  const int v = b.alpha[0];
+  const int method = v & 3, pre = (v >> 4) & 3, reserved = (v >> 6) & 3;
   if (method > 1 || pre > 1 || reserved != 0) throw Corrupt("ALPH header invalid");
-  if (method == 0 && img.alpha_size - 1 < size_t(w) * h) throw Corrupt("ALPH data truncated");
+  if (method == 0 && b.alpha_size - 1 < size_t(w) * h) throw Corrupt("ALPH data truncated");
 }
 
 void set_error(char* err, int64_t err_size, const char* msg) {
@@ -1892,26 +1988,35 @@ extern "C" int webp_decode(const uint8_t* data, int64_t size, uint8_t* out, int6
   try {
     if (size < 0) throw Corrupt("negative size");
     const Image img = parse_container(data, size_t(size));
+    const Bitstream& b = img.frame;
     auto finish = [&](auto& dec) {
-      *height = dec.height();
-      *width = dec.width();
-      if (img.extended && (dec.width() != img.canvas_w || dec.height() != img.canvas_h))
+      const int w = dec.width(), h = dec.height();
+      if (img.extended && !img.animated && (w != img.canvas_w || h != img.canvas_h))
         throw Corrupt("VP8X canvas size differs from the image's");
-      if (img.alpha && !img.lossless) check_alpha(img, dec.width(), dec.height());
-      if (out == nullptr || out_size < int64_t(dec.height()) * dec.width() * 3)
-        return WEBP_NEED_BUFFER;
-      dec.decode(out);
+      if (b.alpha && !b.lossless) check_alpha(b, w, h);
+      *height = img.extended ? img.canvas_h : h;
+      *width = img.extended ? img.canvas_w : w;
+      if (out == nullptr || out_size < int64_t(*height) * *width * 3) return WEBP_NEED_BUFFER;
+      if (!img.animated) {
+        dec.decode(out);
+        return WEBP_OK;
+      }
+      // libwebp's animation decoder: frame 1 is a key frame, decoded into a
+      // zero-filled canvas at its offset, never blended
+      std::vector<uint8_t> frame(size_t(w) * h * 3);
+      dec.decode(frame.data());
+      memset(out, 0, size_t(*height) * *width * 3);
+      for (int y = 0; y < h; ++y)
+        memcpy(out + (size_t(img.y + y) * *width + img.x) * 3, &frame[size_t(y) * w * 3],
+               size_t(w) * 3);
       return WEBP_OK;
     };
-    if (img.lossless) {
-      Vp8lDecoder dec(img.data, img.size);
+    if (b.lossless) {
+      Vp8lDecoder dec(b.data, b.size);
       return finish(dec);
     }
-    Vp8Decoder dec(img.data, img.size, img.chunk_size);
+    Vp8Decoder dec(b.data, b.size, b.chunk_size);
     return finish(dec);
-  } catch (const Unsupported& e) {
-    set_error(err, err_size, e.what());
-    return WEBP_UNSUPPORTED;
   } catch (const Corrupt& e) {
     set_error(err, err_size, e.what());
     return WEBP_CORRUPT;

@@ -1,6 +1,6 @@
 """Dataset preparation CLI of the port, with the flags of the repository's
-``prepare_data.py``, plus ``--npy``: an image folder (PNG, baseline JPEG,
-still WebP, BMP, read as PIL reads them; ``.npy`` arrays too with
+``prepare_data.py``, plus ``--npy``: an image folder (PNG, JPEG, WebP,
+BMP, read as PIL reads them; ``.npy`` arrays too with
 ``--npy``) -> a multi-resolution record store keyed
 ``{size}-{idx:05d}``.
 

@@ -18,7 +18,18 @@ cannot reach (the simple loop filter, 4 and 8 token partitions, one
 segment, sharpness 7, no loop filter), written by the libwebp that PIL
 bundles through its advanced API (ctypes, here only); at 512^2, a lossy
 and a lossless WebP of a head with a little noise, for the decoders'
-timing.  Beside each file
+timing; at 178 x 218, the JPEG kinds: PIL's progressive (4:2:0 with
+optimised tables, with restart markers) and CMYK files, and, from
+``../jpeg_writer.c`` (built here with gcc against libjpeg's headers and linked
+to PIL's bundled libjpeg-turbo, skipped without them), arithmetic-coded
+sequential and progressive files with restart markers and DAC
+conditioning, lossless files (predictor 1; predictor 7 with point
+transform 2 over 4:2:0), CMYK and YCCK, samplings h1v2, h4v1, h4v2 and
+chroma above luma, and a progressive file whose scans leave AC bits
+unrefined (libjpeg block-smooths it); then animated WebPs assembled by hand
+from PIL-written stills (a full-canvas lossy first frame, a lossless first
+frame smaller than the canvas at an offset, a first frame with ALPH asking
+for alpha-blending) and one from PIL's ``save_all``.  Beside each file
 ``<name>.npy`` holds ``Image.open(<name>).convert("RGB")``:
 ``chip_smoke.py`` holds the port's decoders against it on the card's
 machine, which has no PIL.
@@ -29,6 +40,7 @@ import glob
 import io
 import os
 import sys
+import tempfile
 
 import numpy as np
 from PIL import Image
@@ -139,11 +151,13 @@ def main() -> int:
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from test_torch_port_images import (
         WEBP_ENCODER_FIXTURES,
+        animated_webp_bytes,
         bmp_bitfield_bytes,
         bmp_rle_bytes,
         png_bytes,
         vp8_header_fields,
     )
+    from test_torch_port_images_jpeg import SCAN_SCRIPTS, build_jpeg_writer, write_jpeg
 
     faces = [h[:, 20:198] for h in heads(6, 218, seed=0)]  # 218 high, 178 wide
     small = heads(3, 64, seed=1)
@@ -208,6 +222,67 @@ def main() -> int:
                                                  compression=0)
     files["bmp_bitfields_alpha.bmp"] = bmp_bitfield_bytes(
         bmp_src, 32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000), header=124)
+    # JPEG kinds PIL writes: progressive (4:2:0 with optimised tables; with
+    # restart markers) and CMYK
+    jpeg_faces = [h[:, 20:198] for h in heads(4, 218, seed=6)]
+    for name, img, kw in (("jpeg_progressive_420_optimized.jpg", jpeg_faces[0],
+                           dict(quality=90, subsampling=2, progressive=True, optimize=True)),
+                          ("jpeg_progressive_restart.jpg", jpeg_faces[1],
+                           dict(quality=85, subsampling=2, progressive=True,
+                                restart_marker_blocks=5)),
+                          ("jpeg_cmyk_pil.jpg", Image.fromarray(jpeg_faces[2]).convert("CMYK"),
+                           dict(quality=90))):
+        path = os.path.join(HERE, name)
+        (img if isinstance(img, Image.Image) else Image.fromarray(img)).save(path, "JPEG", **kw)
+        files[name] = open(path, "rb").read()
+    # the kinds PIL's save cannot write, from jpeg_writer.c over PIL's
+    # bundled libjpeg-turbo (without gcc or the library the committed files stay)
+    with tempfile.TemporaryDirectory() as build:
+        exe = build_jpeg_writer(build)
+        if exe is None:
+            print("jpeg_writer.c not built (no gcc, libjpeg headers or PIL's libjpeg-turbo): "
+                  "the committed jpeg_* writer fixtures are kept")
+        else:
+            face = jpeg_faces[3]
+            yy, xx = np.mgrid[:218, :178]
+            cmyk = np.dstack([255 - face, (40 + 60 * np.sin(xx / 23.0) * np.cos(yy / 31.0)
+                                           + 60).astype(np.uint8)])
+            for name, img, kw in (
+                    ("jpeg_arith.jpg", face, dict(arith=1, restart=5, dac="1,3,8")),
+                    ("jpeg_arith_progressive.jpg", face,
+                     dict(arith=1, progressive=1, restart=7, dac="2,4,12")),
+                    ("jpeg_lossless_p1.jpg", face, dict(lossless="1,0")),
+                    ("jpeg_lossless_p7_pt2_420.jpg", face,
+                     dict(lossless="7,2", sampling="2x2,1x1,1x1")),
+                    ("jpeg_cmyk.jpg", cmyk, dict(space="cmyk")),
+                    ("jpeg_ycck.jpg", cmyk, dict(space="ycck", sampling="2x2,1x1,1x1,2x2")),
+                    ("jpeg_h1v2.jpg", face, dict(sampling="1x2,1x1,1x1")),
+                    ("jpeg_h4v1.jpg", face, dict(sampling="4x1,1x1,1x1")),
+                    ("jpeg_h4v2.jpg", face, dict(sampling="4x2,1x1,1x1")),
+                    ("jpeg_chroma_above_luma.jpg", face, dict(sampling="1x1,2x2,2x2")),
+                    ("jpeg_progressive_smoothed.jpg", face,
+                     dict(scans=SCAN_SCRIPTS["ac_unrefined"], sampling="2x2,1x1,1x1"))):
+                files[name] = write_jpeg(exe, img, quality=85, **kw)
+
+    # animated WebP: frame 1 on its canvas (PIL's animation decoder)
+    anim_faces = [h[:, 20:198] for h in heads(3, 218, seed=7)]
+    lossy_full = _webp(anim_faces[0], quality=80)
+    lossless_part = _webp(anim_faces[1][30:180, 20:140], lossless=True)  # 120 x 150
+    yy, xx = np.mgrid[:160, :140]
+    ring = np.clip(255 - np.hypot(yy - 80, xx - 70) * 3, 0, 255).astype(np.uint8)
+    alpha_part = _webp(np.dstack([anim_faces[2][20:180, 10:150], ring]), quality=80)
+    assert b"ALPH" in alpha_part
+    files["webp_anim_lossy.webp"] = animated_webp_bytes(
+        (178, 218), [(lossy_full, 0, 0, 0), (lossless_part, 20, 34, 0)])
+    files["webp_anim_lossless_offset.webp"] = animated_webp_bytes(
+        (178, 218), [(lossless_part, 20, 34, 0), (lossy_full, 0, 0, 2)])
+    files["webp_anim_alpha.webp"] = animated_webp_bytes(  # alpha-blending asked of frame 1
+        (178, 218), [(alpha_part, 10, 20, 1), (lossy_full, 0, 0, 0)], alpha=True)
+    buf = io.BytesIO()
+    frames = [Image.fromarray(f) for f in anim_faces]
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], duration=60, quality=80)
+    files["webp_anim_pil.webp"] = buf.getvalue()
+
     for name, data in files.items():
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)

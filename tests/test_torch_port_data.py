@@ -362,8 +362,9 @@ def test_prepare_matches_the_jax_prepare(tmp_path):
 
 def test_prepare_reads_npy_and_refuses_other_formats_before_writing(tmp_path):
     """``.npy`` input is stored only on request (``npy=True``) and then gives
-    the PNG's records; a JPEG is read (as PIL decodes it), a progressive
-    JPEG raises before anything is written."""
+    the PNG's records; a JPEG is read (as PIL decodes it), a progressive one
+    too, and a 12-bit JPEG, which PIL refuses too, raises before anything is
+    written."""
     d = _image_dir(tmp_path, [(30, 44)])
     arr = np.asarray(Image.open(d / "000.png"))
     npy = tmp_path / "npy"
@@ -382,9 +383,19 @@ def test_prepare_reads_npy_and_refuses_other_formats_before_writing(tmp_path):
         np.testing.assert_array_equal(png.decode_png(a.get("16-00001")),
                                       _pil_rgb(b.get("16-00001")))
     Image.fromarray(arr).save(d / "002.jpg", progressive=True)
-    with pytest.raises(ValueError, match="002.jpg: progressive JPEG .*ROADMAP"):
-        prepare_data(str(d), str(tmp_path / "progressive"), sizes=(16,), n_workers=1)
-    assert not os.path.exists(tmp_path / "progressive")
+    assert prepare_data(str(d), str(tmp_path / "progressive"), sizes=(16,), n_workers=1) == 3
+    assert j_prepare(str(d), str(tmp_path / "progressive_jax"), sizes=(16,), n_workers=1) == 3
+    with RecordReader(str(tmp_path / "progressive")) as a, \
+            JReader(str(tmp_path / "progressive_jax")) as b:
+        np.testing.assert_array_equal(png.decode_png(a.get("16-00002")),
+                                      _pil_rgb(b.get("16-00002")))
+    twelve_bit = bytearray((d / "001.jpg").read_bytes())
+    twelve_bit[twelve_bit.index(b"\xff\xc0") + 4] = 12  # the frame's precision
+    (d / "003.jpg").write_bytes(bytes(twelve_bit))
+    with pytest.raises(ValueError, match="003.jpg: 12-bit JPEG is not read by the port, nor by "
+                                         "PIL"):
+        prepare_data(str(d), str(tmp_path / "twelve_bit"), sizes=(16,), n_workers=1)
+    assert not os.path.exists(tmp_path / "twelve_bit")
 
 
 def _mixed_dir(tmp_path):

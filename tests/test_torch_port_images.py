@@ -38,7 +38,8 @@ WEBP_ENCODER_FIXTURES = {"webp_simple_filter.webp": ("simple", 1),
                          "webp_no_filter.webp": ("level", 0)}
 WEBP_FIXTURES = ["webp_lossy.webp", "webp_lossless.webp", "webp_alpha.webp",
                  "webp_extended.webp", "webp_lossy_512.webp", "webp_lossless_512.webp",
-                 *WEBP_ENCODER_FIXTURES]
+                 "webp_anim_lossy.webp", "webp_anim_lossless_offset.webp",
+                 "webp_anim_alpha.webp", "webp_anim_pil.webp", *WEBP_ENCODER_FIXTURES]
 BMP_FIXTURES = ["bmp_rle8.bmp", "bmp_rle4.bmp", "bmp_bitfields565.bmp", "bmp_rgb555.bmp",
                 "bmp_bitfields_alpha.bmp"]
 
@@ -369,22 +370,52 @@ def animated_webp(n_frames: int = 2) -> bytes:
     return buf.getvalue()
 
 
+def _riff_chunk(tag: bytes, payload: bytes) -> bytes:
+    return tag + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def animated_webp_bytes(canvas, frames, alpha: bool = False) -> bytes:
+    """An animated WebP assembled by hand (PIL's save writes no such
+    layout): a ``canvas`` of (width, height) and ``frames`` of (a still
+    WebP whose image chunks the frame takes, x, y, ANMF flags), x and y
+    even.  The flags' bit 1 asks for no blending, bit 0 for disposal."""
+    le24 = lambda v: struct.pack("<I", v)[:3]  # noqa: E731
+    body = _riff_chunk(b"VP8X", bytes([0x02 | (0x10 if alpha else 0), 0, 0, 0])
+                       + le24(canvas[0] - 1) + le24(canvas[1] - 1))
+    body += _riff_chunk(b"ANIM", struct.pack("<IH", 0xFF204080, 0))
+    for still, x, y, flags in frames:
+        chunks = still[12:]
+        if chunks[:4] == b"VP8X":  # the ALPH and VP8 chunks of an extended file
+            chunks = chunks[18:]
+        w, h = Image.open(io.BytesIO(still)).size
+        body += _riff_chunk(b"ANMF", le24(x // 2) + le24(y // 2) + le24(w - 1) + le24(h - 1)
+                            + le24(80) + bytes([flags]) + chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
 def test_refused_kinds_raise_naming_roadmap():
+    """The kinds that raised naming ROADMAP.md's item 4 (progressive,
+    arithmetic-coded, lossless and CMYK JPEG, animated WebP) are now read as
+    PIL reads them, so no file names a ROADMAP gap any more: what the port
+    still refuses, PIL refuses too, and the message says so (a 12-bit JPEG
+    here; the other kinds in ``test_torch_port_images_jpeg.py``)."""
     img = _smooth(16, 16)
     baseline = _jpeg(img, quality=90)
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, "JPEG", progressive=True)
     cmyk = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(cmyk, "JPEG")
-    cases = {"progressive": buf.getvalue(), "animated WebP": animated_webp(),
-             "CMYK": cmyk.getvalue(), "arithmetic": _sof_patched(baseline, sof=0xC9),
-             "lossless": _sof_patched(baseline, sof=0xC3),
-             "12-bit": _sof_patched(baseline, precision=12)}
-    for what, data in cases.items():
-        for fn in (decode_image, check_image):
-            with pytest.raises(ValueError, match="ROADMAP") as e:
-                fn(data)
-            assert what.split()[0] in str(e.value), (what, str(e.value))
+    for data in (buf.getvalue(), animated_webp(), cmyk.getvalue()):
+        check_image(data)
+        np.testing.assert_array_equal(decode_image(data), _pil(data))
+    twelve_bit = _sof_patched(baseline, precision=12)
+    with pytest.raises(OSError):  # PIL: "cannot handle 12-bit layers"
+        _pil(twelve_bit)
+    for fn in (decode_image, check_image):
+        with pytest.raises(ValueError, match="12-bit JPEG is not read by the port, nor by PIL") \
+                as e:
+            fn(twelve_bit)
+        assert "ROADMAP" not in str(e.value)
 
 
 def test_truncated_and_corrupt_files_raise():
@@ -592,6 +623,83 @@ def test_webp_truncated_and_corrupt_files_raise():
             decode_image(bytes(bad))
 
 
+@pytest.mark.parametrize("case", ["lossy_full", "lossless_offset", "alpha_blend", "corner",
+                                  "anmf_size_differs", "later_frame_corrupt", "pil_lossy",
+                                  "pil_lossless", "pil_rgba"])
+def test_animated_webp_first_frame_matches_pil(case):
+    """Animated files, built by hand or by PIL's ``save_all``: the port
+    gives PIL's first frame on its canvas (zero outside the frame, never
+    blended, whatever the frame asks), ``check_image`` reads the canvas
+    size, and a corrupt bitstream in a later frame (whose header alone the
+    demuxer checks) does not stop either."""
+    a, b = _smooth(40, 50, seed=1), _smooth(24, 30, seed=2)
+    lossy, lossless = _webp(a, quality=80), _webp(b, lossless=True)
+    with_alpha = _webp(np.dstack([b, _alpha((24, 30), 3)]), quality=80)
+    if case.startswith("pil"):
+        frames = [Image.fromarray(_smooth(33, 41, seed=i)) for i in range(3)]
+        if case == "pil_rgba":
+            frames = [f.convert("RGBA") for f in frames]
+        buf = io.BytesIO()
+        frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], duration=40,
+                       lossless=case == "pil_lossless")
+        data = buf.getvalue()
+    elif case == "later_frame_corrupt":
+        bad = bytearray(lossy)
+        bad[40:70] = b"\xff" * 30
+        data = animated_webp_bytes((64, 48), [(lossless, 10, 6, 0), (bytes(bad), 0, 0, 0)])
+    elif case == "anmf_size_differs":  # the demuxer takes the bitstream's size over the ANMF's
+        data = bytearray(animated_webp_bytes((64, 48), [(lossless, 10, 6, 0)]))
+        at = data.index(b"ANMF") + 14
+        data[at:at + 6] = struct.pack("<I", 62)[:3] * 2
+        data = bytes(data)
+    else:
+        frames = {"lossy_full": [(lossy, 0, 0, 0), (lossless, 10, 6, 0)],
+                  "lossless_offset": [(lossless, 10, 6, 0), (lossy, 0, 0, 1)],
+                  "alpha_blend": [(with_alpha, 4, 8, 0), (lossless, 0, 0, 2)],
+                  "corner": [(lossless, 34, 24, 3)]}[case]
+        data = animated_webp_bytes((50, 40) if case == "lossy_full" else (64, 48), frames,
+                                   alpha=case == "alpha_blend")
+    want = _pil(data)
+    assert check_image(data) is None
+    np.testing.assert_array_equal(decode_image(data), want)
+
+
+def test_animated_webp_corrupt_files_raise():
+    """What libwebp's demuxer refuses, PIL refuses and the port raises
+    ("corrupt"): a frame outside the canvas (the first or a later one),
+    ALPH before a VP8L frame, a frame without an image, ANMF before ANIM,
+    ANMF without the animation flag, no frame at all, a cut file."""
+    still = _webp(_smooth(24, 30, seed=2), quality=80)
+    lossless = _webp(_smooth(24, 30), lossless=True)
+    good = animated_webp_bytes((64, 48), [(lossless, 10, 6, 0), (still, 0, 0, 0)])
+    no_flag = bytearray(good)
+    no_flag[20] = 0
+    alph = _riff_chunk(b"ALPH", bytes([0]) + bytes(24 * 30))
+    bodies = {"outside": animated_webp_bytes((64, 48), [(lossless, 40, 6, 0)]),
+              "later outside": animated_webp_bytes((64, 48), [(lossless, 0, 0, 0),
+                                                              (still, 40, 30, 0)]),
+              "no flag": bytes(no_flag), "cut": good[:len(good) - 30]}
+    vp8x_anim = good[:good.index(b"ANMF")]
+    anmf = good[good.index(b"ANMF"):]
+    first = anmf[:8 + struct.unpack("<I", anmf[4:8])[0]]
+    bare = lossless[12:]
+    header16 = first[8:24]
+
+    def riff(body):
+        return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+    bodies["ALPH and VP8L"] = riff(vp8x_anim[12:] + _riff_chunk(b"ANMF", header16 + alph + bare))
+    bodies["no image"] = riff(vp8x_anim[12:] + _riff_chunk(b"ANMF", header16 + alph))
+    bodies["ANMF before ANIM"] = riff(vp8x_anim[12:30] + first)
+    bodies["no frame"] = riff(vp8x_anim[12:])
+    for what, data in bodies.items():
+        with pytest.raises(OSError):
+            _pil(data)
+        with pytest.raises(ValueError, match="corrupt or truncated WebP") as e:
+            decode_image(data)
+        assert "ROADMAP" not in str(e.value), what
+
+
 # -------------------------------------------------------------------- PNG
 @pytest.mark.parametrize("interlace", [0, 1])
 @pytest.mark.parametrize("ctype,depth", PNG_KINDS)
@@ -768,39 +876,55 @@ def _mixed_folder(d: Path) -> None:
     (d / "05.jpeg").write_bytes(_jpeg(_smooth(31, 31, seed=6)[..., 0], quality=70))
     (d / "06.webp").write_bytes(_webp(_smooth(29, 35, seed=7), quality=75))
     (d / "07.webp").write_bytes(_webp(_smooth(33, 27, seed=8), lossless=True))
+    (d / "08.jpg").write_bytes(_jpeg(_smooth(35, 29, seed=9), quality=85, progressive=True))
+    Image.fromarray(_smooth(30, 34, seed=10)).convert("CMYK").save(d / "09.jpg", quality=85)
+    (d / "10.webp").write_bytes(animated_webp_bytes(
+        (34, 30), [(_webp(_smooth(20, 16, seed=11), lossless=True), 6, 4, 0),
+                   (_webp(_smooth(30, 34, seed=12), quality=70), 0, 0, 0)]))
 
 
 def test_prepare_on_jpeg_bmp_and_png_writes_the_jax_store(tmp_path):
-    """The port's ``prepare_data`` on a folder of JPEG, BMP, palette /
-    interlaced PNG and lossy / lossless WebP files: every record decodes to
-    the JAX ``prepare_data``'s (which opens the files with PIL)."""
+    """The port's ``prepare_data`` on a folder of JPEG (baseline,
+    progressive, CMYK), BMP, palette / interlaced PNG and lossy / lossless /
+    animated WebP files: every record decodes to the JAX ``prepare_data``'s
+    (which opens the files with PIL)."""
     d = tmp_path / "imgs"
     _mixed_folder(d)
-    assert j_prepare(str(d), str(tmp_path / "jax"), sizes=(16, 24), n_workers=1) == 8
-    assert prepare_data(str(d), str(tmp_path / "port"), sizes=(16, 24), n_workers=2) == 8
+    assert j_prepare(str(d), str(tmp_path / "jax"), sizes=(16, 24), n_workers=1) == 11
+    assert prepare_data(str(d), str(tmp_path / "port"), sizes=(16, 24), n_workers=2) == 11
     with JReader(str(tmp_path / "jax")) as ref, RecordReader(str(tmp_path / "port")) as ours:
         keys = list(ref.keys())
-        assert list(ours.keys()) == keys and len(keys) == 17
+        assert list(ours.keys()) == keys and len(keys) == 23
         for k in keys[:-1]:
             np.testing.assert_array_equal(png.decode_png(ours.get(k)), _pil(ref.get(k)),
                                           err_msg=k)
 
 
 def test_prepare_refuses_webp_before_writing(tmp_path):
-    """An animated WebP among still ones stops ``prepare_data`` before it
-    writes anything."""
-    d = tmp_path / "imgs"
-    _mixed_folder(d)
-    (d / "08.webp").write_bytes(animated_webp())
-    with pytest.raises(ValueError, match="08.webp: animated WebP .*ROADMAP"):
-        prepare_data(str(d), str(tmp_path / "out"), sizes=(16,), n_workers=1)
-    assert not (tmp_path / "out").exists()
+    """A file PIL refuses too among readable ones stops ``prepare_data``
+    before it writes anything: an animated WebP whose second frame lies
+    outside its canvas, and a 12-bit JPEG."""
+    still = _webp(_smooth(16, 16), quality=80)
+    outside = animated_webp_bytes((24, 24), [(still, 0, 0, 0), (still, 12, 0, 0)])
+    with pytest.raises(OSError):
+        _pil(outside)
+    twelve_bit = _sof_patched(_jpeg(_smooth(16, 16), quality=90), precision=12)
+    for name, data, message in (("08.webp", outside, "corrupt or truncated WebP: ANMF frame "
+                                                     "outside the canvas"),
+                                ("08.jpg", twelve_bit, "12-bit JPEG is not read by the port, "
+                                                       "nor by PIL")):
+        d = tmp_path / name.replace(".", "_")
+        _mixed_folder(d)
+        (d / name).write_bytes(data)
+        with pytest.raises(ValueError, match=f"{name}: {message}"):
+            prepare_data(str(d), str(tmp_path / "out"), sizes=(16,), n_workers=1)
+        assert not (tmp_path / "out").exists()
 
 
 def test_calc_fid_stats_reads_a_jpeg_folder_as_pil_decodes_it(tmp_path, monkeypatch):
-    """``calc_fid_stats`` on JPEG, BMP, PNG and WebP files gives the
-    statistics of the same images stored as PIL's decodes (random Inception
-    weights)."""
+    """``calc_fid_stats`` on JPEG (baseline, progressive, CMYK), BMP, PNG and
+    WebP (still, animated) files gives the statistics of the same images
+    stored as PIL's decodes (random Inception weights)."""
     import torch
 
     from sdface_gan_tpu_torch import calc_fid_stats as calc_cli
@@ -817,8 +941,8 @@ def test_calc_fid_stats_reads_a_jpeg_folder_as_pil_decodes_it(tmp_path, monkeypa
     monkeypatch.chdir(tmp_path)
     args = ["--img_size", "24", "--batch", "4", "--inception_weights", "inception.pth",
             "--device", "cpu"]
-    assert calc_cli.main(["imgs", "--out", "a.npz", *args]) == 8
-    assert calc_cli.main(["decoded", "--out", "b.npz", *args]) == 8
+    assert calc_cli.main(["imgs", "--out", "a.npz", *args]) == 11
+    assert calc_cli.main(["decoded", "--out", "b.npz", *args]) == 11
     with np.load("a.npz") as a, np.load("b.npz") as b:
         np.testing.assert_array_equal(a["mu"], b["mu"])
         np.testing.assert_array_equal(a["sigma"], b["sigma"])
