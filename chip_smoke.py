@@ -43,8 +43,11 @@ any failure raises and exits non-zero with no ``ok`` line:
                (|d| <= 8e-3 |ref| + 1e-6); the packed encode through both
                kernels against the plain unpacked encode, f32, <= 1e-5;
              * hash_encode_backward (K1: d x and d table, and d x alone) and
-               hash_encode_double_backward (K2: d table and d g) on the tuned,
-               the upstream and a tiny (T = 2^7) grid, f32 and bf16 tables,
+               hash_encode_double_backward (K2: d table and d g; and in the
+               jvp eikonal's roles, d g alone without g, the encode's
+               tangent, and d table alone, the tangent's table gradient) on
+               the tuned, the upstream and a tiny (T = 2^7) grid, f32 and
+               bf16 tables,
                2^17 uniform, out-of-box, cell-face and box-face points,
                the points that put a warp's lanes on one row (every point
                in one cell of level 0, rays of 24 sorted samples, warps
@@ -96,13 +99,16 @@ any failure raises and exits non-zero with no ``ok`` line:
              on the points of a real request; K1 and K2 at the NGP stage-A G
              step's shapes ((t) the render's table gradient and the
              subsampled eikonal, (u) the full eikonal's first pass, table
-             gradient, both, and K2), beside one index_add_ of the table
-             gradient's pairs; sampler images/s of both
+             gradient, both, and K2; and under eikonal_mode="jvp", K2 as
+             the encode's tangent and as the tangent's table gradient),
+             beside one index_add_ of the table gradient's pairs; sampler
+             images/s of both
              generators, and the f32 SIREN request's profiled device ms and
              images/s; beside the card's name and power limit.
 7. train    - the SIREN training path (``sdface_gan_tpu_torch.training``),
              which runs no kernel (the fused field has no backward):
-             train_parity: a stage-A G step (eikonal), a stage-A D step
+             train_parity: a stage-A G step (eikonal, reverse mode, and
+             again in forward mode, eikonal_mode="jvp"), a stage-A D step
              (R1), a stage-B regularized D step and a path step, loss and
              every parameter gradient on the card against the CPU, same
              weights and inputs, f32 (batch 2, 16^2 thumbs, depth 3, width
@@ -126,8 +132,10 @@ any failure raises and exits non-zero with no ``ok`` line:
              profiled, the G step's top device operations.  Every loss is
              finite and siren_field never launches (counts and profiler).
    train_ngp - the NGP generator: train_ngp_parity, one stage-A G step
-             under the full eikonal with remat and one under the subsampled
-             eikonal, and one D step with R1, card against CPU as
+             under the full eikonal with remat, one under the subsampled
+             eikonal and one under the full eikonal in forward mode with
+             remat (K2 as the tangent and its table gradient), and one D
+             step with R1, card against CPU as
              train_parity (the hash table's gradient included, every logged
              loss finite, g_smooth among them); stage A at batch 8, nothing
              cut, under (t) ffhq_256_sdf_ngp_tpu (bf16 G, 4096 eikonal
@@ -136,7 +144,11 @@ any failure raises and exits non-zero with no ``ok`` line:
              step medians, peak memory, the launches of hash_encode, K1 and
              K2 (each must launch) and no plain encode on the card; a warm G
              and D step of each counted and profiled (each hash kernel's
-             device ms per step); stage B under (t), 3 iterations.
+             device ms per step), and (u)'s G step again under
+             eikonal_mode="jvp", timed, its peak memory, counted (K2 as the
+             tangent, hash_encode_jvp, and as its table gradient) and
+             profiled (K2 by name, no plain encode on the card); stage B
+             under (t), 3 iterations.
 8. train_cli - training from the command line, as a user runs it: 16
              procedural 320 x 288 PNG images and the committed image
              fixtures (JPEG, BMP, palette / interlaced / 16-bit PNG) through ``python -m
@@ -332,8 +344,9 @@ any failure raises and exits non-zero with no ``ok`` line:
              under the bf16 contract.
 17. bench_512 - ``python -m sdface_gan_tpu_torch.bench_serving_512`` (batch
              4, 8, 16, 32) and ``... .bench_train_512`` (the D step with R1,
-             the G step and the path step at batch 2, 4, 8) at their
-             defaults, one after the other, alone on the card: every batch
+             the G step and the path step at batch 2, 4, 8; 3 timed calls
+             per step kind, ``--iters 3``, where its default is 10) at their
+             default batches, one after the other, alone on the card: every batch
              ``fits_hbm`` with its peak GB, finite values, the card named,
              the field kernel once per timed serving call; images/s, ms per
              batch, the step ms and ``it_per_s_combined``.
@@ -386,8 +399,12 @@ any failure raises and exits non-zero with no ``ok`` line:
              through the host, the wave shares the card).  evaluate times the
              f32 kernel alone at a rank's band (``field_at_rank_band``).
 20. the ``kernels`` line (launches of every phase's counted runs: the
-             bench processes and the ddp ranks report theirs), then the
-             nvidia-smi line, then the ``ok`` line.
+             bench processes and the ddp ranks report theirs; K2 in the
+             forward-mode eikonal's roles counted from (u)'s jvp G step:
+             as the encode's tangent its own row, ``hash_encode_jvp``, and
+             as the tangent's table gradient in K2's row, its time there
+             as ``jvp_table_gradient``), then the nvidia-smi line, then the
+             ``ok`` line.
 TF32 is off throughout, so every f32 reference really is f32: this process
 turns it off, and the train entry turns it off in its own (train_cli checks
 the line it prints).
@@ -719,9 +736,11 @@ def _rel_err(got, want) -> float:
 def hold_encode_grads(case: str, spec, x, dtypes, seed: int, bound: float = NGP_BOUND) -> list:
     """K1 (``hash_encode_backward``: d x and d table, together and d x
     alone as the eikonal's first pass asks) and K2
-    (``hash_encode_double_backward``: d table and d g) against their plain
-    versions on the points ``x`` in the box of half-width ``bound``, random
-    table, cotangent g and v, one record per table dtype."""
+    (``hash_encode_double_backward``: d table and d g together; then in the
+    forward-mode eikonal's roles, d g alone without g, the encode's tangent
+    along v, and d table alone, the tangent's table gradient) against their
+    plain versions on the points ``x`` in the box of half-width ``bound``,
+    random table, cotangent g and v, one record per table dtype."""
     import torch
 
     from sdface_gan_tpu_torch.ops import hash_encoder as hg
@@ -738,13 +757,19 @@ def hold_encode_grads(case: str, spec, x, dtypes, seed: int, bound: float = NGP_
         dx, dtable = hg.hash_encode_backward(x, table, g, spec, bound)
         dx_alone, _ = hg.hash_encode_backward(x, table, g, spec, bound, need_table=False)
         dd_table, dd_g = hg.hash_encode_double_backward(x, table, g, v, spec, bound)
+        # K2's forward-mode roles: d g alone without g (the encode's tangent
+        # along v), and d table alone (the tangent's table gradient for g)
+        _, jvp = hg.hash_encode_double_backward(x, table, None, v, spec, bound,
+                                                need_table=False)
+        jvp_table, _ = hg.hash_encode_double_backward(x, table, g, v, spec, bound, need_g=False)
         torch.cuda.synchronize()
         want_dx, want_dtable = hg.hash_encode_backward_reference(x, table, g, spec, bound)
         want_dd_table, want_dd_g = hg.hash_encode_double_backward_reference(
             x, table, g, v, spec, bound)
         pairs = {"d_x": (dx, want_dx), "d_x_alone": (dx_alone, want_dx),
                  "d_table": (dtable, want_dtable), "dd_table": (dd_table, want_dd_table),
-                 "dd_g": (dd_g, want_dd_g)}
+                 "dd_g": (dd_g, want_dd_g), "jvp": (jvp, want_dd_g),
+                 "jvp_table": (jvp_table, want_dd_table)}
         rec = dict(kernel="hash_encode_backward/double_backward", case=case, dtype=dname,
                    points=x.shape[0], oob_share=oob.float().mean().item(),
                    box_face_points=int(((x.abs() == bound).any(-1) & ~oob).sum()),
@@ -758,9 +783,10 @@ def hold_encode_grads(case: str, spec, x, dtypes, seed: int, bound: float = NGP_
             check(bool(torch.isfinite(a.float()).all()), f"{case} {dname} {k} finite")
             check(rec["rel_err"][k] <= rec["tolerance"][k],
                   f"{case} {dname} {k}: kernel vs plain {rec['rel_err'][k]} of the norm")
-        check(bool((dx[oob] == 0).all()) and bool((dd_g[oob].float() == 0).all()),
+        check(bool((dx[oob] == 0).all()) and bool((dd_g[oob].float() == 0).all())
+              and bool((jvp[oob].float() == 0).all()),
               f"{case} {dname}: out-of-box points give zero gradients")
-        del pairs, dx, dtable, dx_alone, dd_table, dd_g, want_dx, want_dtable
+        del pairs, dx, dtable, dx_alone, dd_table, dd_g, jvp, jvp_table, want_dx, want_dtable
         del want_dd_table, want_dd_g
     del table32, g32, v
     torch.cuda.empty_cache()
@@ -1265,7 +1291,9 @@ def grad_kernel_case(spec, dtype, x, kernel: str, need_x: bool, need_table: bool
     x, g (and v) read once, the table read once where d x or d g reads it,
     every output written once; f32 operations per (point, level, corner):
     2 for the weight, 2C for the scatter (its product and atomic add), 2C +
-    8 for d x's dot and derivatives (K1), 8 + 2C for d g (K2)."""
+    8 for d x's dot and derivatives (K1), 8 + 2C for d g (K2).  ``kernel``
+    "jvp" is K2 asked for d g alone with no g (the encode's tangent along
+    v): g is neither passed nor read."""
     import torch
 
     from sdface_gan_tpu_torch.ops import hash_encoder as hg
@@ -1277,6 +1305,8 @@ def grad_kernel_case(spec, dtype, x, kernel: str, need_x: bool, need_table: bool
     v = torch.randn((n, 3), generator=gen, device="cuda")
     es = table.element_size()
     reads_table = need_x if kernel == "backward" else need_g
+    if kernel == "jvp":
+        g = None
     if kernel == "backward":
         def fn():
             return hg.hash_encode_backward(x, table, g, spec, box, need_x=need_x,
@@ -1300,7 +1330,8 @@ def grad_kernel_case(spec, dtype, x, kernel: str, need_x: bool, need_table: bool
                                                             need_g=need_g)
 
         per = 8 + (2 * c if need_table else 0) + (2 * c if need_g else 0)
-        nbytes = 24 * n + n * lv * c * es + (n * lv * c * es if need_g else 0)
+        nbytes = (24 * n + (n * lv * c * es if g is not None else 0)
+                  + (n * lv * c * es if need_g else 0))
         name = "hash_encode_double_backward_kernel"
     nbytes += (spec.table_size * c * es if reads_table else 0)
     nbytes += (spec.table_size * c * es if need_table else 0)
@@ -1327,7 +1358,9 @@ def grad_kernel_case(spec, dtype, x, kernel: str, need_x: bool, need_table: bool
 # gradient over 786,432 points, the subsampled eikonal's 32,768 points; (u)
 # the upstream grid: f32, the full eikonal over 786,432 points (the first
 # pass's d x alone, the table gradient alone, both, as the first pass would
-# cost without asking the engine, and K2).
+# cost without asking the engine, and K2); under eikonal_mode="jvp", K2 as the
+# encode's tangent (d g alone, no g) and as the tangent's table gradient (d
+# table alone), each once per unit tangent.
 GRAD_CASES = {
     "t_render_k1": ("tuned", "bfloat16", "render", "backward", False, True, False),
     "t_eikonal_k1_first_pass": ("tuned", "bfloat16", "eikonal", "backward", True, False, False),
@@ -1336,6 +1369,8 @@ GRAD_CASES = {
     "u_eikonal_k1_first_pass": ("upstream", "float32", "render", "backward", True, False, False),
     "u_k1_both": ("upstream", "float32", "render", "backward", True, True, False),
     "u_eikonal_k2": ("upstream", "float32", "render", "double", False, True, True),
+    "u_jvp_k2": ("upstream", "float32", "render", "jvp", False, False, True),
+    "u_jvp_table_k2": ("upstream", "float32", "render", "double", False, True, False),
 }
 
 
@@ -1371,7 +1406,8 @@ def time_grad_kernels(results: dict) -> dict:
 # ``masked_parity``'s rule.  The path step's bar was once (1e-3, 2e-2), its 3.6e-4
 # and 5.1e-3 (H100) put down to cuDNN's FFT convs; with the card's leaky-ReLU masks
 # replayed they fell to 8e-8 and 2.9e-6 (4 units flipped): the kinks, not the convs.
-TRAIN_TOLERANCES = {"stage_a_g": (1e-4, 1e-3), "stage_a_d_r1": (1e-4, 1e-3),
+TRAIN_TOLERANCES = {"stage_a_g": (1e-4, 1e-3), "stage_a_g_jvp": (1e-4, 1e-3),
+                    "stage_a_d_r1": (1e-4, 1e-3),
                     "stage_b_d_r1": (1e-4, 1e-3), "stage_b_path": (1e-4, 1e-3)}
 EIKONAL_FD_RTOL = 1e-3  # f32 eikonal on the card vs f64 central differences, of max |grad|
 # settings (a) reference parity, (b) TPU-tuned, and (a) with remat off
@@ -1414,7 +1450,8 @@ def _worst(errs: dict) -> tuple:
 
 
 def train_parity() -> dict:
-    """One stage-A G step (eikonal), one stage-A D step (R1), one stage-B
+    """One stage-A G step (eikonal, reverse mode, and again in forward mode:
+    ``eikonal_mode="jvp"``), one stage-A D step (R1), one stage-B
     regularized D step and one path step, each as loss + gradients on the
     card and on the CPU from the same weights and inputs, f32, no jitter:
     batch 2, out_im_res 16, 24 samples, depth 3, width 64, style 64,
@@ -1442,6 +1479,8 @@ def train_parity() -> dict:
     cfg_a = GeneratorConfig(size=64, style_dim=style, full_pipeline=False,
                             renderer=RendererConfig(output_features=False, return_sdf=True,
                                                     **rkw))
+    cfg_a_jvp = dataclasses.replace(cfg_a, renderer=dataclasses.replace(
+        cfg_a.renderer, eikonal_mode="jvp"))
     cfg_b = GeneratorConfig(size=64, style_dim=style, full_pipeline=True, freeze_renderer=True,
                             channel_base=128, renderer=RendererConfig(**rkw))
     vcfg = VolumeRenderDiscConfig(in_res=res)
@@ -1466,9 +1505,9 @@ def train_parity() -> dict:
         return to, steps.StepInputs(to(z), c), steps.StepInputs(to(z), c, to(z2), 3,
                                                                 path_noise=to(noise))
 
-    def stage_a_g(dev):
+    def stage_a_g(dev, cfg=cfg_a):
         m, (to, a_in, _) = models[dev], inputs(dev)
-        return steps.stage_a_g_loss(m["ga"], m["va"], cfg_a, vcfg, hp, a_in)[0], m["ga"], None
+        return steps.stage_a_g_loss(m["ga"], m["va"], cfg, vcfg, hp, a_in)[0], m["ga"], None
 
     def stage_a_d_r1(dev):
         m, (to, a_in, _) = models[dev], inputs(dev)
@@ -1487,7 +1526,9 @@ def train_parity() -> dict:
 
     with torch.enable_grad():
         out = masked_parity("train_parity",
-                            {"stage_a_g": stage_a_g, "stage_a_d_r1": stage_a_d_r1,
+                            {"stage_a_g": stage_a_g,
+                             "stage_a_g_jvp": functools.partial(stage_a_g, cfg=cfg_a_jvp),
+                             "stage_a_d_r1": stage_a_d_r1,
                              "stage_b_d_r1": stage_b_d_r1, "stage_b_path": stage_b_path},
                             TRAIN_TOLERANCES)
     emit(phase="train_parity", tolerances=TRAIN_TOLERANCES, **out)
@@ -1738,10 +1779,12 @@ HASH_KERNEL_ROWS = {"hash_encode": "hash_encode_kernel",
                     "hash_encode_double_backward": "hash_encode_double_backward_kernel"}
 
 
-def profile_train_step(vol_dir: str, setting: str = "a") -> dict:
+def profile_train_step(vol_dir: str, setting: str = "a", jvp: bool = False) -> dict:
     """One stage-A G step and one D step of a setting, warm: the launches of
     each (counted), then each profiled: the top device operations, the
-    hash kernels' device ms, and no siren_field row in either."""
+    hash kernels' device ms, and no siren_field row in either.  With
+    ``jvp``, the G step again under ``eikonal_mode="jvp"`` on the same
+    model (:func:`jvp_g_step`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1806,7 +1849,47 @@ def profile_train_step(vol_dir: str, setting: str = "a") -> dict:
                              kernels=len(dev_us), launches=launches,
                              hash_kernel_device_ms=kernel_ms,
                              top=[(k[:100], us / 1e3, n) for k, (us, n) in top])
+    if jvp:
+        gcfg_jvp = dataclasses.replace(gcfg, renderer=dataclasses.replace(
+            gcfg.renderer, eikonal_mode="jvp"))
+        out["g_step_jvp"] = jvp_g_step(
+            lambda: stage_a_g_step(g, d, g_opt, g_ema, gcfg_jvp, vcfg, hp, inputs), setting)
     return out
+
+
+JVP_STEP_ITERS = 3
+
+
+def jvp_g_step(fn, setting: str) -> dict:
+    """The NGP stage-A G step under the forward-mode eikonal, on a model
+    the vjp step has warmed: its peak memory over its first call, its ms
+    (events, the median of ``JVP_STEP_ITERS`` warm calls), then counted and
+    profiled (``profiled``): K2
+    launched in both of its forward-mode roles (``hash_encode_jvp``, the
+    encode's tangent, three per unit-tangent pass and three more in the
+    remat's recomputation; ``hash_encode_double_backward``, the tangents'
+    table gradients) and seen by name, no plain encode on a CUDA tensor."""
+    import torch
+
+    with torch.enable_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ms = cuda_ms(fn, iters=JVP_STEP_ITERS, warmup=0)
+        launches, names, plain = profiled(fn, ("hash_encode_double_backward_kernel",))
+    launches = {k: v for k, v in launches.items() if v}
+    k2 = [(k, us / 1e3, n) for k, (us, n) in names.items()
+          if HASH_KERNEL_ROWS["hash_encode_double_backward"] in k]
+    check(launches.get("hash_encode_jvp", 0) > 0
+          and launches.get("hash_encode_double_backward", 0) > 0,
+          f"jvp G step ({setting}): K2 launched as the tangent and its table gradient "
+          f"({launches})")
+    check(bool(k2), f"jvp G step ({setting}): K2 by name in the profile")
+    check(not plain, f"jvp G step ({setting}): no plain encode on the card ({plain})")
+    return dict(ms=ms, peak_memory_gb=peak, launches=launches, k2_rows=k2,
+                device_ms_total=sum(us for us, _ in names.values()) / 1e3)
 
 
 def train(results: dict) -> None:
@@ -1889,7 +1972,9 @@ def masked_parity(phase: str, steps: dict, tolerances: dict) -> dict:
 
 def ngp_train_parity() -> dict:
     """One NGP stage-A G step under the full eikonal with remat (K1 and K2
-    inside the checkpoint) and one under the subsampled eikonal, and one D
+    inside the checkpoint), one under the subsampled eikonal and one under
+    the full eikonal in forward mode with remat (K2 as the encode's tangent
+    inside the checkpoint, and as its table gradient), and one D
     step with R1, as loss + every gradient (the hash table's included) on
     the card and on the CPU from the same weights and draws, f32, no
     jitter: batch 2, out_im_res 16, 24 samples, width = style 64, the tuned
@@ -1917,7 +2002,8 @@ def ngp_train_parity() -> dict:
                ngp_log2_hashmap_size=15, force_background=False, output_features=False,
                return_sdf=True)
     cfgs = {"g_full_remat": dict(remat=True), "g_subsampled": dict(remat=False,
-                                                                   eikonal_subsample=m)}
+                                                                   eikonal_subsample=m),
+            "g_jvp_remat": dict(remat=True, eikonal_mode="jvp")}
     cfgs = {k: GeneratorConfig(size=64, style_dim=style, full_pipeline=False,
                                renderer=RendererConfig(**rkw, **v)) for k, v in cfgs.items()}
     vcfg = VolumeRenderDiscConfig(in_res=res)
@@ -1969,7 +2055,7 @@ def ngp_train_parity() -> dict:
          launches=launches, plain_encodes_on_card=len(plain_calls), **out)
     check("g_smooth" in metrics["g_full_remat"], "g_smooth logged")
     check(not plain_calls, "no plain encode on the card in the parity steps")
-    for name in HASH_KERNELS:
+    for name in HASH_KERNELS + ("hash_encode_jvp",):
         check(launches[name] > 0, f"the parity steps launched {name}")
     return dict(out, launches=launches)
 
@@ -1977,7 +2063,9 @@ def ngp_train_parity() -> dict:
 def train_ngp(results: dict) -> None:
     """NGP training at batch 8, nothing cut: parity on the card, stage A
     under (t) and (u), stage B under (t) from (t)'s ``vol_renderer``, and
-    one warm G and D step of each setting counted and profiled."""
+    one warm G and D step of each setting counted and profiled; (u)'s G
+    step also under the forward-mode eikonal (the full eikonal's setting:
+    (t) subsamples, which ignores the mode)."""
     import tempfile
 
     parity = ngp_train_parity()
@@ -1986,7 +2074,8 @@ def train_ngp(results: dict) -> None:
         for s in NGP_SETTINGS:
             stage_a[s] = run_stage_a(s, os.path.join(td, f"stage_a_{s}"))
             emit(phase="train_ngp_stage_a", **stage_a[s])
-            prof[s] = profile_train_step(os.path.join(td, f"stage_a_{s}"), setting=s)
+            prof[s] = profile_train_step(os.path.join(td, f"stage_a_{s}"), setting=s,
+                                         jvp=s == "u")
             emit(phase="train_ngp_profile", setting=s, **prof[s])
         stage_b = run_stage_b(os.path.join(td, "stage_a_t"), os.path.join(td, "stage_b_t"),
                               setting="t")
@@ -4441,6 +4530,7 @@ CLI_512_HEADS, CLI_512_STORE, CLI_512_ITERS = 24, "store_512", 20
 # sphere init cut from the entry's 10,000 steps (depth only: its loss is the same)
 CLI_512_SPHERE_INIT = 10
 SERVE_512_BATCHES, TRAIN_512_BATCHES = (4, 8, 16, 32), (2, 4, 8)  # the benches' defaults
+TRAIN_512_ITERS = 3  # bench_train_512's timed calls per step kind here (its default 10)
 # the width cut of tests/test_torch_port_512.py: the 512 pyramid over a 64^2
 # renderer, field 32 x 2, 4 samples, style 16, channel_base 16, batch 2
 PARITY_512 = dict(style=16, width=32, depth=2, samples=4, base=16, batch=2)
@@ -4610,7 +4700,8 @@ def serve_512(results: dict, smi: str) -> None:
 
 def bench_512(results: dict, smi: str) -> None:
     """``python -m sdface_gan_tpu_torch.bench_serving_512`` and ``...
-    .bench_train_512`` at their defaults, one after the other, alone on the
+    .bench_train_512`` (``--iters`` ``TRAIN_512_ITERS``) at their default
+    batches, one after the other, alone on the
     card: a line per batch (4, 8, 16, 32; 2, 4, 8) with the JAX scripts'
     keys, every batch ``fits_hbm``, finite values, the card named, the field
     kernel once per timed serving call; images/s, ms per batch, the stage-B
@@ -4622,7 +4713,8 @@ def bench_512(results: dict, smi: str) -> None:
     from sdface_gan_tpu_torch.bench_serving_512 import ITERS
 
     torch.cuda.empty_cache()  # leave the card to the bench processes
-    runs = {m: run_module(m, [], HERE) for m in ("bench_serving_512", "bench_train_512")}
+    runs = {m: run_module(m, args, HERE) for m, args in (
+        ("bench_serving_512", []), ("bench_train_512", ["--iters", str(TRAIN_512_ITERS)]))}
     serving = bench_lines(runs["bench_serving_512"]["stdout"])
     training = bench_lines(runs["bench_train_512"]["stdout"])
     check([r["batch"] for r in serving] == list(SERVE_512_BATCHES)
@@ -5166,21 +5258,31 @@ def main() -> int:
                  "bound_by")}),
     ]
     ngp_runs = results["train_ngp"]["stage_a"].values()
+    # the forward-mode eikonal's G step (train_ngp, (u)): K2 as the encode's
+    # tangent (counted as hash_encode_jvp) and as its table gradient
+    jvp_launches = results["train_ngp"]["profile"]["u"]["g_step_jvp"]["launches"]
     for kname, case, replaces, outputs in (
             ("hash_encode_backward", "t_render_k1", "sdface_gan_tpu/ops/hash_encoder.py:245",
              ("d_x", "d_x_alone", "d_table")),
             ("hash_encode_double_backward", "u_eikonal_k2",
-             "sdface_gan_tpu/ops/hash_encoder.py:205", ("dd_table", "dd_g"))):
+             "sdface_gan_tpu/ops/hash_encoder.py:205", ("dd_table", "dd_g", "jvp_table")),
+            ("hash_encode_jvp", "u_jvp_k2", "sdface_gan_tpu/ops/hash_encoder.py:205",
+             ("jvp",))):
         rec = grad_timing[case]
         kernels.append(dict(
             name=kname, route="cuda", source="sdface_gan_tpu_torch/ops/csrc/hash_grid.cu",
             replaces=replaces, kernel=rec["kernel"], shape=case,
-            launches=sum(r["launches"][kname] for r in ngp_runs) + benched[kname]
-            + results["giraffe_train"]["launches"].get(kname, 0), checked=True,
+            launches=sum(r["launches"][kname] for r in ngp_runs)
+            + (benched[kname] if kname != "hash_encode_jvp" else 0)
+            + results["giraffe_train"]["launches"].get(kname, 0)
+            + jvp_launches.get(kname, 0), checked=True,
             max_abs_err=max(r["max_abs_err"][k] for r in grad_checks if r["dtype"] == "float32"
                             for k in outputs),
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+    k2_row = next(k for k in kernels if k["name"] == "hash_encode_double_backward")
+    k2_row["jvp_table_gradient"] = {k: grad_timing["u_jvp_table_k2"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     giraffe_k1 = results["giraffe_train"]["k1"]
     k1_row = next(k for k in kernels if k["name"] == "hash_encode_backward")
     k1_row["giraffe_g_step"] = {k: giraffe_k1[k] for k in (

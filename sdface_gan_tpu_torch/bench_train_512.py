@@ -1,6 +1,6 @@
 """512^2 stage-B training steps of the port, port of ``scripts/bench_train_512.py``.
 
-    python -m sdface_gan_tpu_torch.bench_train_512 [batches ...] [--device cuda]
+    python -m sdface_gan_tpu_torch.bench_train_512 [batches ...] [--iters N] [--device cuda]
 
 The three stage-B steps of ``configs/512res/ffhq_512_sdf_tpu.yaml`` at its
 widths, resolved from the yaml through the port's own loader as ``train
@@ -11,7 +11,7 @@ step on ``batch // path_batch_shrink``, with the decoder-only G optimizer
 (``training.optim.stage_b_optimizers``), at batches 2, 4 and 8 by default.
 Random weights from a seeded ``torch.Generator``; each step's inputs drawn
 in the step from a seeded generator on the device; TF32 off.  Each step
-kind runs once, then ``ITERS`` times under the host clock after a
+kind runs once, then ``ITERS`` (``--iters``) times under the host clock after a
 synchronise (each call also timed by CUDA events).
 
 One JSON line per batch with the JAX script's keys (``d_r1_ms``, ``g_ms``,
@@ -115,6 +115,7 @@ def bench_batch(gcfg, dcfg, hp0, g, d, batch: int, device: torch.device,
 def main(argv=None) -> list:
     p = argparse.ArgumentParser(description="512^2 stage-B steps of the PyTorch port.")
     p.add_argument("batches", type=int, nargs="*", default=list(BATCHES))
+    p.add_argument("--iters", type=int, default=ITERS, help="timed calls per step kind")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
@@ -127,7 +128,8 @@ def main(argv=None) -> list:
     rows = []
     with torch.enable_grad():
         for batch in args.batches:
-            row = {**bench_batch(gcfg, dcfg, hp, g, d, batch, device), "device": card}
+            row = {**bench_batch(gcfg, dcfg, hp, g, d, batch, device, iters=args.iters),
+                   "device": card}
             print(json.dumps(row), flush=True)
             rows.append(row)
     return rows

@@ -6,9 +6,12 @@ Layout is channel-last ([B, H, W, C] and [B, H, W, S, C]) as in the JAX
 package.  Compositing runs in f32 whatever the field's dtype.
 
 Training: ``render(..., return_eikonal=True)`` adds d sdf / d world points
-(``torch.autograd.grad`` with ``create_graph=True``, so the eikonal loss
-is differentiable with respect to the field's parameters), over every
-rendered point or at ``eikonal_subsample`` fresh frustum points;
+over every rendered point, so that the eikonal loss is differentiable
+with respect to the field's parameters: by reverse mode
+(``eikonal_mode="vjp"``: ``torch.autograd.grad`` with
+``create_graph=True``) or by forward mode (``"jvp"``: three unit tangents
+through ``torch.autograd.forward_ad``, the parameter gradient then reverse
+over forward); or at ``eikonal_subsample`` fresh frustum points;
 :func:`mlp_init_pass` is the sphere-init regression pass.  Training never
 runs the fused SIREN field: it has no backward and refuses tensors that
 need a gradient.  The NGP field's encode is differentiable: on the card its
@@ -22,6 +25,7 @@ from itertools import chain
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -90,7 +94,8 @@ class RendererConfig:
     # (``torch.utils.checkpoint``) instead of keeping them from the forward.
     remat: bool = True
     # d sdf / d pts for the eikonal term: 'vjp' (reverse mode, the
-    # reference's semantics).  The JAX package's 'jvp' is not ported.
+    # reference's semantics) or 'jvp' (forward mode: three unit tangents,
+    # the field being pointwise in pts; the same term).
     eikonal_mode: str = "vjp"
     # Eikonal point budget: 0 = every rendered point (reference semantics);
     # M > 0 = M fresh frustum points per batch element (random pixel ray x
@@ -145,6 +150,19 @@ class VolumeFeatureRenderer(nn.Module):
             self.sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
 
 
+def _parts_and_tangent(net, fn, pts, tangent, views, style):
+    """``fn(net, pts, views, style)``'s parts and, with a ``tangent`` of
+    ``pts``, the sdf's tangent as a fourth item, from one forward-mode pass.
+    The dual level opens here, inside whatever checkpoint runs this, so the
+    checkpoint's inputs and outputs are plain tensors."""
+    if tangent is None:
+        return fn(net, pts, views, style)
+    with fwAD.dual_level():
+        parts = fn(net, fwAD.make_dual(pts, tangent), views, style)
+        primals = tuple(None if p is None else fwAD.unpack_dual(p).primal for p in parts)
+        return primals + (fwAD.unpack_dual(parts[1]).tangent,)
+
+
 def _apply_network(
     renderer: VolumeFeatureRenderer,
     cfg: RendererConfig,
@@ -152,44 +170,52 @@ def _apply_network(
     views: torch.Tensor,
     style: torch.Tensor,
     field_pack: Optional[SirenFieldPack] = None,
+    tangent: Optional[torch.Tensor] = None,
 ):
     """Evaluate the field on [B, H, W, S, 3] inputs over one flat point axis.
 
     Returns ``(rgb, sdf, features | None)`` as separate [B, H, W, S, C]
-    tensors.  With ``use_fused_kernel`` the fused SIREN field runs (the
-    kernel on a CUDA tensor, its plain version on a CPU one), from
-    ``field_pack`` or from weights packed for this call.  Otherwise the
-    field module (SIREN, NGP or FC) runs, under ``checkpoint`` when
-    ``remat`` is on and autograd is recording.  The NGP field encodes
-    through the hash-grid kernels on a CUDA tensor (the packed table where
-    there is one), or through their plain versions on a CPU tensor or
-    inside ``plain_encode``.
+    tensors, and with a ``tangent`` of ``pts`` ([B, H, W, S, 3]) the sdf's
+    tangent along it ([B, H, W, S, 1], forward mode) as a fourth item.
+    With ``use_fused_kernel`` the fused SIREN field runs (the kernel on a
+    CUDA tensor, its plain version on a CPU one), from ``field_pack`` or
+    from weights packed for this call.  Otherwise the field module (SIREN,
+    NGP or FC) runs, under ``checkpoint`` when ``remat`` is on and autograd
+    is recording.  The NGP field encodes through the hash-grid kernels on a
+    CUDA tensor (the packed table where there is one), or through their
+    plain versions on a CPU tensor or inside ``plain_encode``.
     """
     b, h, w, s, _ = pts.shape
     flat_pts = pts.reshape(b, h * w * s, 3).float().contiguous()
     flat_views = views.reshape(b, h * w * s, 3).float().contiguous()
+    flat_t = None if tangent is None else tangent.reshape(flat_pts.shape).float().contiguous()
     net = renderer.network
+    fn = type(net).forward_parts
     if cfg.use_fused_kernel and cfg.type == "sdf" and cfg.output_features:
+        if tangent is not None:
+            raise ValueError("the fused SIREN field has no forward mode")
         pack = field_pack if field_pack is not None else pack_siren_field(net)
         gamma, beta = film_coeffs(net, style)
-        rgb, sdf, feat = siren_field_fused_parts(pack, flat_pts, flat_views, gamma, beta)
+        out = siren_field_fused_parts(pack, flat_pts, flat_views, gamma, beta)
     elif cfg.remat and torch.is_grad_enabled():
         # The network's tensors go in as inputs, so the recomputation sees
         # the ones of the forward even under a caller's parameter cast.
         names, tensors = zip(*chain(net.named_parameters(), net.named_buffers()))
 
-        def run(p, v, s, *ts):
-            return call_with(net, dict(zip(names, ts)), type(net).forward_parts, p, v, s)
+        def run(p, t, v, s, *ts):
+            return call_with(net, dict(zip(names, ts)), _parts_and_tangent, fn, p, t, v, s)
 
-        rgb, sdf, feat = checkpoint(run, flat_pts, flat_views, style, *tensors,
-                                    use_reentrant=False)
+        out = checkpoint(run, flat_pts, flat_t, flat_views, style, *tensors,
+                         use_reentrant=False)
     else:
-        rgb, sdf, feat = net.forward_parts(flat_pts, flat_views, style)
-    return (
+        out = _parts_and_tangent(net, fn, flat_pts, flat_t, flat_views, style)
+    rgb, sdf, feat = out[:3]
+    parts = (
         rgb.reshape(b, h, w, s, -1),
         sdf.reshape(b, h, w, s, 1),
         feat.reshape(b, h, w, s, -1) if feat is not None else None,
     )
+    return parts if tangent is None else parts + (out[3].reshape(b, h, w, s, 1),)
 
 
 def _sample_z_vals(
@@ -349,6 +375,25 @@ def _subsampled_eikonal(
     return grad
 
 
+def _jvp_eikonal(field, pts: torch.Tensor):
+    """Forward-mode eikonal term, the JAX package's ``jax.linearize`` over the
+    field and three unit tangents: ``(parts, d sdf / d pts [B, H, W, S, 3])``,
+    column i the sdf's tangent along axis i (the field is pointwise in
+    ``pts``, so the three columns are the whole gradient).  The parts keep
+    their reverse graph to the parameters, and so do the columns: the
+    eikonal loss's parameter gradient is reverse over forward.  Three
+    passes, one per tangent, the parts from the first: one pass over the
+    points tripled was no faster on an H100 and, under remat, did not fit
+    the flagship's batch 8 (PERF.md)."""
+    units = torch.eye(3, dtype=pts.dtype, device=pts.device)
+    cols = []
+    for i in range(3):
+        out = field(pts, units[i].expand(pts.shape))
+        parts = out[:3] if i == 0 else parts
+        cols.append(out[3])
+    return parts, torch.cat(cols, -1)
+
+
 def render(
     renderer: VolumeFeatureRenderer,
     cfg: RendererConfig,
@@ -368,7 +413,9 @@ def render(
     ``generator`` draws the depth jitter and, under ``eikonal_subsample``,
     the eikonal points (None: deterministic depths; the eikonal points then
     need ``eikonal_draws``, see :func:`_subsampled_eikonal`).
-    ``return_eikonal`` adds ``eikonal_term`` = d sdf / d world points.
+    ``return_eikonal`` adds ``eikonal_term`` = d sdf / d world points, by
+    ``cfg.eikonal_mode`` unless ``eikonal_subsample`` is set (which ignores
+    the mode, as the JAX package does); an unknown mode raises.
     """
     batch = c2w.shape[0]
     rays = get_rays(focal, c2w, cfg.out_im_res, static_viewdirs=cfg.static_viewdirs)
@@ -381,9 +428,11 @@ def render(
         viewdirs = torch.zeros_like(viewdirs)
     views = viewdirs[..., None, :].expand(pts.shape)
 
-    def field(p):
+    def field(p, tangent=None):
         normalized = p * 2.0 / (far_b - near_b)[..., None] if cfg.z_normalize else p
-        return _apply_network(renderer, cfg, normalized, views, style, field_pack)
+        if tangent is not None and cfg.z_normalize:
+            tangent = tangent * 2.0 / (far_b - near_b)[..., None]
+        return _apply_network(renderer, cfg, normalized, views, style, field_pack, tangent)
 
     eikonal_term = None
     if return_eikonal and cfg.eikonal_subsample > 0:
@@ -395,10 +444,10 @@ def render(
         parts = field(pts)
         eikonal_term = _subsampled_eikonal(renderer, cfg, focal, c2w, near_b, far_b, style,
                                            generator, eikonal_draws)
-    elif return_eikonal and cfg.eikonal_mode != "vjp":
-        raise NotImplementedError(
-            f"eikonal_mode {cfg.eikonal_mode!r} is not ported: 'jvp' was a measured "
-            "negative in the JAX package (ROADMAP.md, queue 1 item 8); use 'vjp'")
+    elif return_eikonal and cfg.eikonal_mode not in ("vjp", "jvp"):
+        raise ValueError(f"unknown eikonal_mode {cfg.eikonal_mode!r}: 'vjp' or 'jvp'")
+    elif return_eikonal and cfg.eikonal_mode == "jvp":
+        parts, eikonal_term = _jvp_eikonal(field, pts)
     elif return_eikonal:
         with torch.enable_grad():
             pts = pts.detach().requires_grad_(True)

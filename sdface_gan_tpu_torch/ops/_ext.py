@@ -9,7 +9,8 @@ back to the plain PyTorch versions.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches, and
 nowhere else, so a run can show that its main path went through the
-kernels.
+kernels.  ``hash_encode_jvp`` counts the double backward's kernel in its
+forward-mode role (d g alone, no g read: the encode's tangent).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: Dict[str, int] = {"siren_field": 0, "hash_encode": 0, "hash_encode_backward": 0,
-                             "hash_encode_double_backward": 0, "table_gather": 0}
+                             "hash_encode_double_backward": 0, "hash_encode_jvp": 0,
+                             "table_gather": 0}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

@@ -15,7 +15,9 @@ beside its plain PyTorch version:
   step for step: ``[K, N]`` corner-major indices and weights, one gather
   per level, OOB points zeroed at every level).  Under autograd it is a
   ``torch.autograd.Function`` whose backward is itself a ``Function``, so
-  ``create_graph=True`` (the eikonal term) reaches the double backward:
+  ``create_graph=True`` (the eikonal term) reaches the double backward,
+  and whose forward-mode tangent (``eikonal_mode="jvp"``) is the double
+  backward's d g, differentiable in the table through its d table:
 * :func:`hash_encode_backward` - d table and d x of the encode (plain
   version :func:`hash_encode_backward_reference`: the sorted segment sum
   for the table, autograd through the plain encode for the points);
@@ -276,6 +278,14 @@ def hash_encode_vjp_sorted(
     return grad.to(table.dtype)
 
 
+def _own_graph():
+    """The plain versions' inner autograd graph keeps its own saved tensors:
+    they may run inside a caller's ``checkpoint`` forward (the forward-mode
+    eikonal term under remat), whose saved-tensor hooks would otherwise
+    recompute the caller when the inner gradient unpacks them."""
+    return torch.autograd.graph.saved_tensors_hooks(lambda t: t, lambda t: t)
+
+
 def hash_encode_backward_reference(
     x: torch.Tensor,
     table: torch.Tensor,
@@ -291,7 +301,7 @@ def hash_encode_backward_reference(
     :func:`hash_encode_vjp_sorted`'s segment sum."""
     dx = dtable = None
     if need_x:
-        with torch.enable_grad():
+        with torch.enable_grad(), _own_graph():
             xg = x.detach().requires_grad_(True)
             out = hash_encode_reference(xg, table.detach().float(), spec, bound, levels)
             (dx,) = torch.autograd.grad(out, xg, g.detach().float())
@@ -303,7 +313,7 @@ def hash_encode_backward_reference(
 def hash_encode_double_backward_reference(
     x: torch.Tensor,
     table: torch.Tensor,
-    g: torch.Tensor,
+    g: Optional[torch.Tensor],
     v: torch.Tensor,
     spec: HashGridSpec,
     bound: float = 1.0,
@@ -313,8 +323,13 @@ def hash_encode_double_backward_reference(
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Plain version of :func:`hash_encode_double_backward`: autograd's
     double backward through the plain encode, in f32 on f32 copies of the
-    table and g, cast to their dtypes."""
-    with torch.enable_grad():
+    table and g, cast to their dtypes (d g alone when g is None: zeros
+    stand in for it, as d g does not depend on g)."""
+    if g is None:
+        _check_g(g, need_table)
+        width = len(_levels(spec, levels)) * spec.level_dim
+        g = torch.zeros(x.shape[:-1] + (width,), dtype=table.dtype, device=x.device)
+    with torch.enable_grad(), _own_graph():
         xg = x.detach().requires_grad_(True)
         tg = table.detach().float().requires_grad_(True)
         gg = g.detach().float().requires_grad_(True)
@@ -450,10 +465,15 @@ def hash_encode_backward(
     return dx, None if scratch is None else scratch.to(table.dtype)
 
 
+def _check_g(g: Optional[torch.Tensor], need_table: bool) -> None:
+    if g is None and need_table:
+        raise ValueError("the table gradient of <v, d x> needs g")
+
+
 def hash_encode_double_backward(
     x: torch.Tensor,
     table: torch.Tensor,
-    g: torch.Tensor,
+    g: Optional[torch.Tensor],
     v: torch.Tensor,
     spec: HashGridSpec,
     bound: float = 1.0,
@@ -465,24 +485,32 @@ def hash_encode_double_backward(
     :func:`hash_encode_backward`'s for ``g``, each None unless asked for:
     the kernel ``hash_encode_double_backward`` on a CUDA tensor, the plain
     version on a CPU one.  The term with respect to x (the d-linear
-    weights' cross derivatives) is not computed."""
+    weights' cross derivatives) is not computed.
+
+    d g is the encode's Jacobian applied to v (its forward-mode tangent
+    along v) and does not depend on g: with ``g=None`` and
+    ``need_table=False`` it comes alone, [..., L * C] from x's shape, the
+    kernel reads no g, and the launch counts as ``hash_encode_jvp``."""
     if x.device.type == "cpu":
         return hash_encode_double_backward_reference(x, table, g, v, spec, bound, levels,
                                                      need_table, need_g)
     levels = _check_kernel_inputs(x, table, spec, levels)
     n = x.numel() // 3
-    shape = g.shape
-    g = g.to(table.dtype).reshape(n, len(levels) * spec.level_dim).contiguous()
+    width = len(levels) * spec.level_dim
+    _check_g(g, need_table)
+    if g is not None:
+        g = g.to(table.dtype).reshape(n, width).contiguous()
     v = v.float().reshape(n, 3).contiguous()
     scratch = _table_grad_scratch(table) if need_table else None
-    dg = torch.empty(g.shape, dtype=table.dtype, device=x.device) if need_g else None
+    dg = torch.empty((n, width), dtype=table.dtype, device=x.device) if need_g else None
     if n and (need_table or need_g):
-        _launch("hash_encode_double_backward", "hash_encode_double_backward", x.device,
+        _launch("hash_encode_jvp" if g is None else "hash_encode_double_backward",
+                "hash_encode_double_backward", x.device,
                 [int(table.dtype == torch.bfloat16), x.data_ptr(), table.data_ptr(),
-                 g.data_ptr(), v.data_ptr(), _ptr(scratch), _ptr(dg)], n, levels, spec,
+                 _ptr(g), v.data_ptr(), _ptr(scratch), _ptr(dg)], n, levels, spec,
                 bound)
     return (None if scratch is None else scratch.to(table.dtype),
-            None if dg is None else dg.reshape(shape))
+            None if dg is None else dg.reshape(x.shape[:-1] + (width,)))
 
 
 # PyTorch's private query of the running backward pass: will it execute this
@@ -519,6 +547,7 @@ class _HashEncode(torch.autograd.Function):
     def forward(ctx, x, table, geom):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, table)
+        ctx.save_for_forward(x, table)
         ctx.geom = geom
         return _encode(x, table, *geom)
 
@@ -530,6 +559,44 @@ class _HashEncode(torch.autograd.Function):
         dx, dtable = _HashEncodeBackward.apply(x, table, g, ctx.geom, _wanted(ctx, 0),
                                                _wanted(ctx, 1))
         return dx, dtable, None
+
+    @staticmethod
+    def jvp(ctx, t, t_table, _):
+        """The tangent of the encode along the points' tangent ``t``
+        (:class:`_HashEncodeJvp`, differentiable in the table).  The
+        renderer's dual inputs are points: a tangent of the table raises."""
+        if t_table is not None:
+            raise NotImplementedError("the encode's forward mode takes a tangent of the "
+                                      "points only, not of the table")
+        x, table = ctx.saved_tensors
+        if t is None:
+            return None
+        return _HashEncodeJvp.apply(x, table, t, ctx.geom)
+
+
+class _HashEncodeJvp(torch.autograd.Function):
+    """``J t``, the encode's Jacobian with respect to the points applied to
+    the tangent ``t`` [..., 3], in the table's dtype: the kernel
+    ``hash_encode_double_backward`` (K2) as d g of ``<t, d x>``, which reads
+    no g.  Its backward for a cotangent ``g`` is K2's d table with the same
+    ``t``.  The gradients with respect to x and t are None: x as in
+    :meth:`_HashEncodeBackward.backward`, and t is a constant direction
+    (the renderer's unit tangents, scaled by the camera's depth range)."""
+
+    @staticmethod
+    def forward(ctx, x, table, t, geom):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, table, t)
+        ctx.geom = geom
+        return hash_encode_double_backward(x, table, None, t, *geom, need_table=False)[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None or not _wanted(ctx, 1):
+            return None, None, None, None
+        x, table, t = ctx.saved_tensors
+        d_table = hash_encode_double_backward(x, table, g, t, *ctx.geom, need_g=False)[0]
+        return None, d_table, None, None
 
 
 class _HashEncodeBackward(torch.autograd.Function):

@@ -13,7 +13,8 @@ kernel carries the same function as a device function
 :func:`fast_sin_lean` is the same function for training: an autograd
 function that saves only its argument, with the polynomial's exact first
 and second derivatives written out (``round`` has zero derivative, as in
-JAX's autodiff of ``fast_sin``).  Eager autograd of :func:`fast_sin` would
+JAX's autodiff of ``fast_sin``), and its forward-mode tangent, itself
+differentiable once.  Eager autograd of :func:`fast_sin` would
 save every Horner step, and the eikonal term's double backward would save
 the Horner steps of the derivative as well: about twelve [points, width]
 tensors per FiLM layer, 1.6 GB each at the stage-A batch.
@@ -86,12 +87,21 @@ class _FastSin(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
         return fast_sin(x)
 
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
         return _FastSinGrad.apply(x, grad)
+
+    @staticmethod
+    def jvp(ctx, t):
+        """The tangent ``t * fast_sin'(x)``, through :class:`_FastSinGrad`
+        so that reverse mode passes back through it (the forward-mode
+        eikonal term's parameter gradient)."""
+        (x,) = ctx.saved_tensors
+        return _FastSinGrad.apply(x, t)
 
 
 class _FastSinGrad(torch.autograd.Function):

@@ -525,6 +525,53 @@ def test_encode_double_backward_kernel_matches_plain_version(cuda, name, points,
     assert bool((dg[(x.abs() > 2.0).any(-1)] == 0).all())
 
 
+@pytest.mark.parametrize("name,points", GRAD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encode_double_backward_kernel_in_its_jvp_roles(cuda, name, points, dtype):
+    """K2 as the forward-mode eikonal runs it: d g alone with no g (the
+    encode's tangent along v, counted as ``hash_encode_jvp``) and d table
+    alone (the tangent's table gradient), against the plain version."""
+    dt = getattr(torch, dtype)
+    spec, x, table, g, v = _grad_inputs(name, dt, seed=6, points=points)
+    before = dict(_ext.LAUNCHES)
+    _, jvp = hg.hash_encode_double_backward(x, table, None, v, spec, 2.0, need_table=False)
+    dtable, _ = hg.hash_encode_double_backward(x, table, g, v, spec, 2.0, need_g=False)
+    torch.cuda.synchronize()
+    assert _ext.LAUNCHES["hash_encode_jvp"] == before["hash_encode_jvp"] + 1
+    assert (_ext.LAUNCHES["hash_encode_double_backward"]
+            == before["hash_encode_double_backward"] + 1)
+    want_dtable, want_dg = hg.hash_encode_double_backward_reference(x, table, g, v, spec, 2.0)
+    assert jvp.dtype == dtable.dtype == dt and jvp.shape == g.shape
+    assert _rel(jvp, want_dg) <= GRAD_RTOL[dt]
+    assert _rel(dtable, want_dtable) <= GRAD_RTOL[dt]
+    assert bool((jvp[(x.abs() > 2.0).any(-1)] == 0).all())
+
+
+def test_encode_forward_mode_on_the_card_matches_the_cpu(cuda):
+    """``hash_encode`` under forward AD on the card (``_HashEncode.jvp``):
+    the tangent and the table gradient of a loss on it, against forward AD
+    through the plain encode on the CPU; K2 launches in both roles."""
+    import torch.autograd.forward_ad as fwAD
+
+    spec, x, table, g, v = _grad_inputs("tuned", torch.float32, n=5000, seed=8)
+
+    def run(device):
+        tt = table.to(device).requires_grad_()
+        with fwAD.dual_level():
+            out = hg.hash_encode(fwAD.make_dual(x.to(device), v.to(device)), tt, spec, bound=2.0)
+            tangent = fwAD.unpack_dual(out).tangent
+        (dtable,) = torch.autograd.grad(torch.sum(tangent * g.to(device)), tt)
+        return tangent.cpu(), dtable.cpu()
+
+    before = dict(_ext.LAUNCHES)
+    card = run("cuda")
+    assert _ext.LAUNCHES["hash_encode_jvp"] == before["hash_encode_jvp"] + 1
+    assert (_ext.LAUNCHES["hash_encode_double_backward"]
+            == before["hash_encode_double_backward"] + 1)
+    for got, want in zip(card, run("cpu")):
+        assert _rel(got, want) <= 1e-5
+
+
 def test_encode_autograd_on_the_card_matches_the_cpu(cuda):
     """``hash_encode`` under autograd on the card: first-order gradients and
     the eikonal-style second-order table and cotangent gradients, against

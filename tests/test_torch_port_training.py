@@ -934,12 +934,15 @@ def test_training_render_refuses_the_fused_field(stage_a):
 
 
 def test_eikonal_jvp_mode_and_missing_draws_raise(stage_a):
+    """An unknown eikonal mode raises naming both modes (JAX runs vjp for
+    it: a deliberate difference), and so do missing eikonal draws; the jvp
+    mode itself is held in ``test_torch_port_eikonal_jvp.py``."""
     g = _port_g(stage_a["params"], stage_a["pcfg"])
     _, pc = _cams()
-    for rkw, err in ((dict(eikonal_mode="jvp"), NotImplementedError),
-                     (dict(eikonal_subsample=8), ValueError)):
+    for rkw, match in ((dict(eikonal_mode="fwd"), "'vjp' or 'jvp'"),
+                       (dict(eikonal_subsample=8), "generator or eikonal_draws")):
         cfg = replace(stage_a["pcfg"].renderer, **rkw)
-        with pytest.raises(err):
+        with pytest.raises(ValueError, match=match):
             renderer.render(g.renderer, cfg, pc.focal, pc.extrinsics, pc.near, pc.far,
                             _t(_z()), return_eikonal=True)
 
