@@ -25,22 +25,12 @@ def _read(path: str):
 
 
 def load_config(path: str, default_path: Optional[str] = None) -> ConfigNode:
-    """Load a YAML config file, resolving ``inherit_from`` chains.
-
-    A relative ``inherit_from`` resolves against the current directory
-    first, then against the config file's own directory (the JAX
-    package's order), then against the repository root.
-    """
+    """Load a YAML config file, resolving ``inherit_from`` chains
+    (:func:`parent_path`)."""
     cfg_special = _read(path) or {}
 
-    inherit_from = cfg_special.get("inherit_from")
-    if inherit_from is not None:
-        parent = inherit_from
-        if not os.path.isabs(parent) and not os.path.exists(parent):
-            for base in (os.path.dirname(path), REPO_ROOT):
-                if os.path.exists(os.path.join(base, parent)):
-                    parent = os.path.join(base, parent)
-                    break
+    parent = parent_path(path, cfg_special)
+    if parent is not None:
         cfg = load_config(parent, default_path)
     elif default_path is not None:
         cfg = ConfigNode(_read(default_path) or {})
@@ -51,6 +41,19 @@ def load_config(path: str, default_path: Optional[str] = None) -> ConfigNode:
         cfg = ConfigNode(cfg)
     cfg.update_recursive(cfg_special)
     return cfg
+
+
+def parent_path(path: str, entries: Optional[dict] = None) -> Optional[str]:
+    """The file that ``path`` names in ``inherit_from`` (None when it names
+    none), resolved against the current directory first, then against the
+    config file's own directory (the JAX package's order), then against
+    the repository root.  ``entries``: the file's own entries, when read."""
+    parent = (entries if entries is not None else _read(path) or {}).get("inherit_from")
+    if parent is not None and not os.path.isabs(parent) and not os.path.exists(parent):
+        for base in (os.path.dirname(path), REPO_ROOT):
+            if os.path.exists(os.path.join(base, parent)):
+                return os.path.join(base, parent)
+    return parent
 
 
 def default_config_path() -> str:

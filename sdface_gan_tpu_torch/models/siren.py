@@ -38,7 +38,7 @@ from ..ops.hash_encoder import (
     plan_packing,
 )
 from ..ops.sh_encoder import sh_encode, sh_output_dim
-from ..ops.transcendental import fast_sin_lean
+from ..ops.transcendental import fast_sin_lean, film_sin
 from .init import film_siren_weight, hash_table, linear_params, uniform
 
 
@@ -87,8 +87,9 @@ class FiLMSiren(nn.Module):
     """``sin(gamma(style) * (x W^T + b) + beta(style))``.
 
     gamma head: std 15, bias-init 30; beta head: std 0.25, bias-init 0.
-    The sine is ``fast_sin_lean``: in training its autograd saves only its
-    argument (the eikonal term's double backward runs through it).
+    The sine is ``fast_sin_lean`` (``film_sin`` below f32): in training its
+    autograd saves only its input(s) (the eikonal term's double backward runs
+    through it).
     """
 
     def __init__(
@@ -111,9 +112,17 @@ class FiLMSiren(nn.Module):
         return self.gamma(style), self.beta(style)
 
     def activate(self, out: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
-        """FiLM modulation and sine on a precomputed linear output [B, P, out]."""
+        """FiLM modulation and sine on a precomputed linear output [B, P, out].
+
+        Below f32 the sine's argument ``gamma * out + beta`` is summed in f32
+        and only the sine is rounded to ``out``'s dtype (``film_sin``), as
+        XLA's fusion of the JAX layer computes it: a bf16 round of an
+        argument near gamma's 30 moves the phase by up to 0.06."""
         gamma, beta = self.film(style)
-        return fast_sin_lean(gamma[:, None, :] * out + beta[:, None, :])
+        arg = gamma[:, None, :] * out
+        if arg.dtype in (torch.float32, torch.float64):
+            return fast_sin_lean(arg + beta[:, None, :])
+        return film_sin(arg, beta[:, None, :])
 
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
         out = F.linear(x.to(self.weight.dtype), self.weight) + self.bias

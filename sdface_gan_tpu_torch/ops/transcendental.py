@@ -18,6 +18,10 @@ differentiable once.  Eager autograd of :func:`fast_sin` would
 save every Horner step, and the eikonal term's double backward would save
 the Horner steps of the derivative as well: about twelve [points, width]
 tensors per FiLM layer, 1.6 GB each at the stage-A batch.
+
+:func:`film_sin` is the FiLM sine below f32: ``fast_sin(arg + beta)`` with
+the sum taken in f32 and only the sine rounded, as XLA's fusion computes
+the JAX layer; it saves its two inputs in their own dtype.
 """
 
 from __future__ import annotations
@@ -131,3 +135,33 @@ class _FastSinGrad(torch.autograd.Function):
 def fast_sin_lean(x: torch.Tensor) -> torch.Tensor:
     """:func:`fast_sin` whose autograd saves only ``x`` (twice differentiable)."""
     return _FastSin.apply(x)
+
+
+class _FiLMSin(torch.autograd.Function):
+    """``fast_sin(arg + beta)``, the sum in f32 (recomputed from the saved
+    inputs in the backward and the tangent), the sine rounded to ``arg``'s
+    dtype; twice differentiable through :class:`_FastSinGrad`."""
+
+    @staticmethod
+    def forward(ctx, arg, beta):
+        ctx.save_for_backward(arg, beta)
+        ctx.save_for_forward(arg, beta)
+        return fast_sin(arg.float() + beta.float()).to(arg.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        arg, beta = ctx.saved_tensors
+        g = _FastSinGrad.apply(arg.float() + beta.float(), grad)
+        return g.to(arg.dtype), g.sum_to_size(beta.shape).to(beta.dtype)
+
+    @staticmethod
+    def jvp(ctx, t_arg, t_beta):
+        arg, beta = ctx.saved_tensors
+        t = sum(t.float() for t in (t_arg, t_beta) if t is not None)
+        return _FastSinGrad.apply(arg.float() + beta.float(), t).to(arg.dtype)
+
+
+def film_sin(arg: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """``fast_sin(arg + beta)`` for ``arg`` below f32 (``beta`` broadcast to
+    it): the sum in f32, the sine rounded to ``arg``'s dtype."""
+    return _FiLMSin.apply(arg, beta)

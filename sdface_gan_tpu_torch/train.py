@@ -90,6 +90,8 @@ def main(argv=None) -> None:
     cfg = load_config(args.config, default_config_path())
     # the launcher's world first: each rank's device is its own card
     mesh = make_mesh(resolve_device(args.device))
+    if mesh.is_main:
+        print(f"training {args.config} with seed {args.seed}", flush=True)
     try:
         if args.sdf == 1:
             train_sdf(args, cfg, mesh)

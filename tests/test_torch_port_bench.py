@@ -13,8 +13,10 @@
   ``hash_encode`` and ``jax.grad`` of it (the hash-grid tolerances of
   ``test_torch_port_ngp_training.py``);
 * the convergence script end to end over the 64^2 configs
-  (``configs/64res/synthetic_64_sdf_solid_eik.yaml``, narrowed), at the
-  smallest counts the entries accept.
+  (``configs/64res/synthetic_64_sdf_solid_eik.yaml`` and its ``_s1`` arm,
+  narrowed), at the smallest counts the entries accept: split at the
+  stage-A artifact, the seed passed on, every stage-A checkpoint probed,
+  the JAX run of the config as the yardstick, both stage-C legs.
 """
 
 import ast
@@ -221,36 +223,59 @@ def test_bench_ngp_lines_carry_the_jax_metric_names(capsys):
     assert train_line["iter_ms_max"] >= train_line["iter_ms_median"] > 0
 
 
-TINY_64 = """inherit_from: configs/64res/synthetic_64_sdf_solid_eik.yaml
+TINY_64 = """inherit_from: configs/64res/synthetic_64_sdf_solid_eik{suffix}.yaml
 training:
-  out_dir: out/tiny64
+  out_dir: out/tiny64{suffix}
 rendering:
   width: 16
   depth: 2
   N_samples: 4
   eikonal_subsample: 64
 train_args:
-  style_dim: 16
+  style_dim: 256
   channel_multiplier: 1
 """
+# the smallest counts the entries accept; two stage-A checkpoints to probe
+SMALL_RUN = ["--store_images", "12", "--batch", "2", "--iters", "3", "--sphere_init_iters", "2",
+             "--log_every", "1", "--probe_identities", "2", "--probe_res", "16",
+             "--surface_res", "16", "--eval_images", "8", "--save_every", "1", "--device", "cpu"]
+STAGE_C = ["--stage_c", "vae,psp", "--stage_c_iters", "2", "--stage_c_log_every", "1"]
 
 
-def test_convergence_script_runs_the_64_configs_end_to_end(tmp_path):
+def _convergence_run(cwd, *args):
+    proc = subprocess.run([sys.executable, SCRIPT, *SMALL_RUN, *args], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="2"))
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def convergence_runs(tmp_path_factory):
+    """The script at the tiny 64^2 config: seed 0 split as on the card (stage
+    A and its judges with ``--stop_after_a``, then the rest with both
+    stage-C legs), and seed 1 on the ``_s1`` yaml's narrowing in one go.
+    The pSp leg needs ``style_dim: 256``."""
+    tmp = tmp_path_factory.mktemp("convergence")
+    os.symlink(os.path.join(REPO, "configs"), tmp / "configs")
+    for suffix in ("", "_s1"):
+        (tmp / f"tiny64{suffix}.yaml").write_text(TINY_64.format(suffix=suffix))
+    first = _convergence_run(tmp, "--config", "tiny64.yaml", "--out_dir", "report",
+                             "--stop_after_a")
+    seed0 = _convergence_run(tmp, "--config", "tiny64.yaml", "--out_dir", "report", *STAGE_C)
+    seed1 = _convergence_run(tmp, "--config", "tiny64_s1.yaml", "--seed", "1",
+                             "--out_dir", "report_s1")
+    return dict(tmp=tmp, first=first, seed0=seed0, seed1=seed1)
+
+
+def test_convergence_script_runs_the_64_configs_end_to_end(convergence_runs):
     """The store, both stages and every judge at the smallest counts: the
     64^2 thumbs through a decoder that does not upsample, ``bg_mode: gray``,
     ``view_independent``, ``sparsity_lambda``, the subsampled eikonal and a
-    bf16 G (narrowed widths; depth and widths only are cut)."""
-    (tmp_path / "tiny64.yaml").write_text(TINY_64)
-    out = tmp_path / "report"
-    proc = subprocess.run(
-        [sys.executable, SCRIPT, "--config", "tiny64.yaml", "--store_images", "12",
-         "--batch", "2", "--iters", "3", "--sphere_init_iters", "2", "--log_every", "1",
-         "--probe_identities", "2", "--probe_res", "16", "--surface_res", "16",
-         "--eval_images", "8", "--out_dir", str(out), "--device", "cpu"],
-        cwd=tmp_path, capture_output=True, text=True, timeout=300,
-        env=dict(os.environ, OMP_NUM_THREADS="2"))
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    bf16 G (narrowed widths; depth and widths only are cut), split at the
+    stage-A artifact as the card runs it."""
+    tmp, summary = convergence_runs["tmp"], convergence_runs["seed0"]
+    out = tmp / "report"
     assert summary == json.load(open(out / "summary.json"))
     for stage, keys in (("stage_a", ("d", "fg_mass", "g_eikonal", "beta")),
                         ("stage_b", ("d", "g", "g_content", "path_length"))):
@@ -265,17 +290,105 @@ def test_convergence_script_runs_the_64_configs_end_to_end(tmp_path):
     assert len(summary["mesh"]) == 1 and "verts" in summary["mesh"][0]
     fid = summary["fid"].split()
     assert fid[0] == "FID:" and math.isfinite(float(fid[1])) and fid[2] == "KID:"
-    assert set(summary["seconds"]) == {"store", "train", "probe_a", "probe_b", "sdf_mesh",
-                                       "eval"}
+    # the second half trains stage B only and judges both stages
+    assert set(summary["seconds"]) == {"train", "probe_a", "probe_b", "sdf_mesh", "eval",
+                                       "stage_c_vae", "stage_c_psp"}
+    first = convergence_runs["first"]
+    assert first["stage_b"] is None and first["probe_b"] is None and first["fid"] is None
+    assert set(first["seconds"]) == {"store", "train", "probe_a", "probe_a_0000001",
+                                     "probe_a_0000002"}
+    assert first["stage_a"] == summary["stage_a"]
     for name in ("vol_render_metrics.jsonl", "full_pipeline_metrics.jsonl", "train.log",
                  "eval.log"):
         assert (out / name).exists(), name
     # the 64^2 path: the store at 64^2, a stage-B image at 64^2 (no upsampling)
     from sdface_gan_tpu_torch.native import RecordReader
 
-    with RecordReader(str(tmp_path / "data/synthetic_flat/records")) as r:
+    with RecordReader(str(tmp / "data/synthetic_flat/records")) as r:
         assert r.get("length") == b"12" and "64-00011" in list(r.keys())
-    assert (tmp_path / "out/tiny64/full_pipeline.pt").exists()
+    assert (tmp / "out/tiny64/full_pipeline.pt").exists()
+
+
+def test_convergence_script_passes_the_seed_to_train(convergence_runs):
+    """``--seed 1`` reaches ``train``: its stage-A losses differ from seed
+    0's at the same config widths, and the train log names the seed."""
+    tmp = convergence_runs["tmp"]
+    at0 = convergence_runs["seed0"]["stage_a"]["at"]
+    at1 = convergence_runs["seed1"]["stage_a"]["at"]
+    assert convergence_runs["seed1"]["seed"] == 1 and convergence_runs["seed0"]["seed"] == 0
+    for step in ("0",):
+        for key in ("d", "fg_mass", "g_eikonal"):
+            assert at0[step][key] != at1[step][key], (step, key)
+    assert "training tiny64_s1.yaml with seed 1" in (tmp / "report_s1/train.log").read_text()
+    assert "training tiny64.yaml with seed 0" in (tmp / "report/train.log").read_text()
+
+
+def test_convergence_script_probes_every_saved_checkpoint(convergence_runs):
+    """``--save_every 1`` saves stage A at steps 1 and 2; each is probed once,
+    in the run that wrote it, one line each in ``checkpoint_probes.jsonl``
+    (verdict, crossing and sdf range, beta), carried into the summary of the
+    run that finished the split."""
+    tmp = convergence_runs["tmp"]
+    rows = [json.loads(ln) for ln in (tmp / "report/checkpoint_probes.jsonl").read_text()
+            .splitlines()]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert convergence_runs["seed0"]["checkpoint_probes"] == rows
+    assert convergence_runs["first"]["checkpoint_probes"] == rows
+    for r in rows:
+        assert r["verdict"] and len(r["lines"]) == 2
+        assert r["crossing"][0] <= r["crossing"][1] and r["sdf"][0] <= r["sdf"][1]
+        assert r["beta"] == pytest.approx(0.1, abs=1e-3)
+    assert [r["step"] for r in convergence_runs["seed1"]["checkpoint_probes"]] == [1, 2]
+
+
+def test_convergence_script_takes_the_jax_run_of_the_config(convergence_runs):
+    """The yardstick is the JAX run of the yaml the config inherits from:
+    seed 0's series for ``synthetic_64_sdf_solid_eik.yaml``, seed 1's for
+    the ``_s1`` yaml; beta at the yardstick steps stands beside both."""
+    for run, name, path in (
+            ("seed0", "synthetic_64_sdf_solid_eik.yaml", "training_run_solid_eik_metrics"),
+            ("seed1", "synthetic_64_sdf_solid_eik_s1.yaml",
+             "training_run_solid_eik_s1_metrics")):
+        summary = convergence_runs[run]
+        assert summary["yardstick"] == name
+        rows = {r["step"]: r for r in map(json.loads, open(os.path.join(
+            REPO, "docs", path + ".jsonl"))) if "d" in r}
+        assert summary["jax"]["stage_a"]["1000"]["beta"] == rows[1000]["beta"]
+        assert set(summary["beta"]["5000"]) == {"synthetic_64_sdf_solid_eik.yaml",
+                                                "synthetic_64_sdf_solid_eik_s1.yaml"}
+        assert set(summary["beta"]["0"]) == {"port", "synthetic_64_sdf_solid_eik.yaml",
+                                             "synthetic_64_sdf_solid_eik_s1.yaml"}
+
+
+def test_convergence_script_refuses_a_config_without_a_jax_run(tmp_path):
+    """A config whose chain holds no JAX run is refused by name before
+    anything runs."""
+    os.symlink(os.path.join(REPO, "configs"), tmp_path / "configs")
+    (tmp_path / "other.yaml").write_text(
+        "inherit_from: configs/64res/synthetic_64_sdf.yaml\ntraining:\n  out_dir: out/other\n")
+    proc = subprocess.run([sys.executable, SCRIPT, *SMALL_RUN, "--config", "other.yaml"],
+                          cwd=tmp_path, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "other.yaml: no JAX run" in proc.stderr, proc.stderr
+    assert not (tmp_path / "data").exists() and not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("leg", ["vae", "psp"])
+def test_convergence_script_stage_c_legs_write_finite_series(convergence_runs, leg):
+    """Each stage-C leg trains against the run's own stage-B generator and
+    writes its ``e_*`` series, finite, beside JAX's (its fall key: the
+    VAE's KL, pSp's full-size L2)."""
+    tmp = convergence_runs["tmp"]
+    s = convergence_runs["seed0"]["stage_c"][leg]
+    assert s["all_finite"] and s["logged"] == 2 and s["last_step"] == 1
+    assert set(s["at"]["0"]) == {"e_kl", "e_l2_full", "e_l2_thumb", "e_loss"}
+    assert s["fall_key"] == ("e_kl" if leg == "vae" else "e_l2_full") and s["fall"] > 0
+    assert set(s["jax"]) == {"0", "1000", "2000", "3000", "4000"}
+    rows = [json.loads(ln) for ln in (tmp / f"report/stageC_{leg}_metrics.jsonl").read_text()
+            .splitlines()]
+    assert [r["step"] for r in rows] == [0, 1]
+    assert all(math.isfinite(r[k]) for r in rows for k in s["at"]["0"])
+    assert (tmp / ("out/tiny64/encoder_psp" if leg == "psp" else "out/tiny64/encoder")
+            / "encoder.pt").exists()
 
 
 def test_new_entry_files_import_no_jax():
